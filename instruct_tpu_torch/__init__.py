@@ -1,0 +1,34 @@
+"""instruct_tpu_torch -- the PyTorch/CUDA port of ``instruct_tpu``.
+
+Bayesian population-structure inference (the InStruct model family, Gao,
+Williamson & Bustamante 2007) on an NVIDIA GPU: plain tensor code in
+PyTorch, and a hand-written CUDA kernel (``csrc/``, built with ``nvcc`` at
+first use, bound with ``ctypes``) wherever the JAX package has a Pallas
+kernel.  The package imports ``torch`` and numpy only, never ``jax`` and
+nothing of ``instruct_tpu``.
+
+Ported so far: the diploid mode-2 sweep (admixture + population-level
+selfing rates) on a biallelic panel, end to end through :func:`run_mcmc`.
+Sub-packages and functions keep the names of their counterparts in
+``instruct_tpu``.  Entry points run on ``device="cuda"`` unless the caller
+asks for the CPU, where the kernels' plain PyTorch versions run instead.
+"""
+
+from instruct_tpu_torch.config import ModelSpec, Schedule, Priors
+from instruct_tpu_torch.data.dataset import Dataset, Panel
+from instruct_tpu_torch.data.synthetic import synthetic_panel
+from instruct_tpu_torch.mcmc.driver import run_mcmc, RunResult
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "ModelSpec",
+    "Schedule",
+    "Priors",
+    "Dataset",
+    "Panel",
+    "synthetic_panel",
+    "run_mcmc",
+    "RunResult",
+    "__version__",
+]

@@ -1,0 +1,74 @@
+"""Carry a panel or a sampler state across from the JAX package.
+
+The port imports nothing of ``instruct_tpu``, so a JAX ``Dataset`` or
+``McmcState`` is handed over as a dict of numpy arrays keyed by field name
+(``{name: np.asarray(value) for name, value in obj._asdict().items()}``).
+The tests use this to let both packages compute on the same numbers.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from instruct_tpu_torch.data.dataset import Dataset
+from instruct_tpu_torch.mcmc.state import McmcState
+
+# one chain's rank of every state field (the JAX package's layout)
+_STATE_RANK = dict(freq=3, z=2, zz=1, q=2, alpha=0, rates=1, ais_state=1,
+                   gen=1, loglik_indv=1, loglik_total=0, dpm_values=1,
+                   dpm_counts=1, dpm_assign=1, prior_mu=0, prior_sigma2=0,
+                   freq2=3, geno=2, zcounts=3, loglik_marg=1, active=1)
+_STATE_DTYPE = dict(z=torch.int8, zz=torch.int32, ais_state=torch.int32,
+                    gen=torch.int32, dpm_counts=torch.int32,
+                    dpm_assign=torch.int32, geno=torch.int32)
+
+
+def dataset_from_numpy(fields: Mapping[str, np.ndarray],
+                       device="cpu") -> Dataset:
+    """A :class:`Dataset` from the JAX ``Dataset``'s fields as numpy
+    arrays (absent or ``None`` optional fields stay ``None``)."""
+    def get(name, dtype):
+        v = fields.get(name)
+        if v is None:
+            return None
+        return torch.from_numpy(np.array(v)).to(dtype).to(device)
+    return Dataset(geno=get("geno", torch.int8),
+                   site_valid=get("site_valid", torch.bool),
+                   allele_valid=get("allele_valid", torch.bool),
+                   hom=get("hom", torch.bool),
+                   distinct=get("distinct", torch.int32),
+                   n_distinct=get("n_distinct", torch.int32),
+                   bits2=get("bits2", torch.int8))
+
+
+def state_from_numpy(fields: Mapping[str, np.ndarray],
+                     device="cuda") -> McmcState:
+    """A :class:`McmcState` from the JAX ``McmcState``'s fields as numpy
+    arrays: one chain (a chain axis of length 1 is added) or several
+    chains stacked on a leading axis, told apart by the rank of ``q``."""
+    stacked = np.asarray(fields["q"]).ndim == _STATE_RANK["q"] + 1
+    out = {}
+    for name in McmcState._fields:
+        v = fields.get(name)
+        if v is None:
+            out[name] = None
+            continue
+        v = np.array(v)
+        if not stacked:
+            v = v[None]
+        if v.ndim != _STATE_RANK[name] + 1:
+            raise ValueError(f"state field {name}: unexpected shape "
+                             f"{v.shape}")
+        t = torch.from_numpy(v)
+        dtype = _STATE_DTYPE.get(name, torch.float32)
+        out[name] = t.to(dtype).to(device).contiguous()
+    return McmcState(**out)
+
+
+def state_to_numpy(state: McmcState) -> dict:
+    """The state's fields as numpy arrays, chain axis leading."""
+    return {name: None if t is None else t.detach().cpu().numpy()
+            for name, t in state._asdict().items()}

@@ -1,0 +1,137 @@
+"""Philox4x32-10 in plain PyTorch integer ops — bit-identical to
+``csrc/philox.cuh``.
+
+The JAX package's TPU kernels draw from the on-core PRNG, seeded per block
+with two key words (``instruct_tpu/kernels/fused_step.py:40-49``).  The port
+uses one counter-based generator everywhere instead:
+
+  key     = the run's 64-bit seed, two words (k0 low, k1 high)
+  counter = (c0 element-block index, c1 stream id, c2 step index,
+             c3 chain key)
+
+so every (chain, step, kernel stream, element) owns its draw whatever the
+launch geometry.  A kernel and its plain version therefore draw the same
+uniforms from the same seed, on the card and on the CPU.
+
+32-bit words live in int64 tensors; a 32x32->64 product is one wrapping int64
+multiply.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_MASK = 0xFFFFFFFF
+
+# Stream ids (counter word c1): one per family of uniform planes.
+STREAM_P = 1        # Dirichlet draw of the allele frequencies P
+STREAM_S_PROP = 2   # S tail: random-walk proposals
+STREAM_S_ACC = 3    # S tail: MH accept uniforms
+STREAM_S_GEN = 4    # S tail: geometric G proposal
+STREAM_S_LOGU = 5   # S tail: log-uniforms of the G accept
+STREAM_Z = 6        # per-copy z draw of the site pass
+STREAM_Q = 7        # Dirichlet draw of the admixture proportions Q
+STREAM_ALPHA = 8    # alpha MH step (normal proposal + accept uniform)
+
+
+class RngKeys(NamedTuple):
+    """The randomness of one run: the 64-bit ``seed`` (Philox key) and one
+    int32 key per chain (counter word c3).  A retried chain gets a fresh
+    chain key; the others replay theirs."""
+
+    seed: int
+    chain_key: torch.Tensor    # int32[C], on the run's device
+
+    @property
+    def k0(self) -> int:
+        return self.seed & _MASK
+
+    @property
+    def k1(self) -> int:
+        return (self.seed >> 32) & _MASK
+
+
+def make_keys(seed: int, n_chains: int, device, chain_key=None) -> RngKeys:
+    if chain_key is None:
+        chain_key = range(n_chains)
+    ck = torch.tensor(list(chain_key), dtype=torch.int32, device=device)
+    return RngKeys(int(seed) & 0xFFFFFFFFFFFFFFFF, ck)
+
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """(hi, lo) words of the 64-bit product m * x, x in [0, 2^32).  The
+    int64 product wraps modulo 2^64, which keeps all 64 bits of the
+    unsigned product; the arithmetic shift's sign fill is masked off."""
+    p = x * m
+    return (p >> 32) & _MASK, p & _MASK
+
+
+def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
+    """Four output words (int64 tensors holding 32-bit values) for counters
+    ``c0..c3`` (int64 tensors or ints, broadcast together) and key
+    ``(k0, k1)``."""
+    dev = next((c.device for c in (c0, c1, c2, c3)
+                if isinstance(c, torch.Tensor)), None)
+    c0, c1, c2, c3 = torch.broadcast_tensors(*[
+        torch.as_tensor(c, dtype=torch.int64, device=dev) & _MASK
+        for c in (c0, c1, c2, c3)])
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _W0) & _MASK
+        k1 = (k1 + _W1) & _MASK
+    return c0, c1, c2, c3
+
+
+def random_words_reference(keys: RngKeys, step: int, stream: int,
+                           n_words: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`random_words` (same signature):
+    int64[C, n_words] holding the 32-bit words."""
+    dev = keys.chain_key.device
+    n_blocks = -(-n_words // 4)
+    c0 = torch.arange(n_blocks, dtype=torch.int64, device=dev)[None, :]
+    c3 = keys.chain_key.to(torch.int64)[:, None]
+    words = philox4x32_10(c0, stream, step, c3, keys.k0, keys.k1)
+    return torch.stack(words, dim=-1).reshape(c3.shape[0], -1)[:, :n_words]
+
+
+def random_words(keys: RngKeys, step: int, stream: int, n_words: int
+                 ) -> torch.Tensor:
+    """[C, n_words] raw 32-bit words: word i of chain c is word i % 4 of
+    the block with counter (i // 4, stream, step, chain_key[c]).
+
+    With the chain keys on a CUDA device this launches
+    ``csrc/philox_fill.cu`` and returns the words as int32 bit patterns;
+    on the CPU it runs the plain version (int64 values).  Both feed
+    :func:`u01_closed` / :func:`u01_open`, which read the low 23 bits."""
+    n_blocks = -(-n_words // 4)
+    if n_blocks >= 1 << 32:
+        raise ValueError("more than 2^32 Philox blocks in one stream")
+    if not keys.chain_key.is_cuda:
+        return random_words_reference(keys, step, stream, n_words)
+    from instruct_tpu_torch.kernels import _build
+    c = keys.chain_key.shape[0]
+    _build.check(keys.chain_key, "chain_key", torch.int32, (c,))
+    out = torch.empty((c, n_blocks * 4), dtype=torch.int32,
+                      device=keys.chain_key.device)
+    _build.launch("philox_words", "philox_fill_launch", _build.ptr(out), c,
+                  n_blocks, keys.k0, keys.k1, stream, step,
+                  _build.ptr(keys.chain_key))
+    return out[:, :n_words]
+
+
+def u01_closed(bits: torch.Tensor) -> torch.Tensor:
+    """U[0, 1) on a 2^-23 grid — the z draw's conversion
+    (``instruct_tpu/kernels/fused_step.py:310-312``)."""
+    return (bits & 0x7FFFFF).to(torch.float32) * (1.0 / (1 << 23))
+
+
+def u01_open(bits: torch.Tensor) -> torch.Tensor:
+    """U(0, 1) strictly inside the interval — every other draw
+    (``instruct_tpu/kernels/s_pop_pallas.py:42-43``)."""
+    return ((bits & 0x7FFFFF).to(torch.float32) + 0.5) * (1.0 / (1 << 23))

@@ -1,0 +1,160 @@
+"""Sampler state and initialisation.
+
+Counterpart of ``instruct_tpu/mcmc/state.py``.  The JAX package holds one
+chain's state and ``vmap``s over chains; here the chains are a written-out
+leading axis ``C`` on every tensor, and one kernel launch serves all chains.
+Every field name is kept; fields the ported slice does not use are
+zero-size (or ``None`` where the JAX default is ``None``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence
+
+import torch
+
+from instruct_tpu_torch.config import ModelSpec
+from instruct_tpu_torch.data.dataset import Dataset
+
+
+class McmcState(NamedTuple):
+    """All chains' sampler state (cf. UPMCMC, mcmc.h)."""
+
+    freq: torch.Tensor         # f32[C, K, L, A] P (allele freqs per pop/locus)
+    z: torch.Tensor            # i8[C, N, S] per-copy pop assignments, flat,
+    #   S = L * ploid, copy-major
+    zz: torch.Tensor           # i32[C, 0] (mode 0 only; not ported)
+    q: torch.Tensor            # f32[C, N, K] admixture proportions
+    alpha: torch.Tensor        # f32[C] Dirichlet concentration of Q's prior
+    rates: torch.Tensor        # f32[C, R] selfing rates S (R = K for mode 2)
+    ais_state: torch.Tensor    # i32[C, R] 3-state flag of the adaptive
+    #   independence sampler (dt_stat, mcmc.c:1524-1546); carried, unused
+    #   under back-reflection
+    gen: torch.Tensor          # i32[C, N] selfing generations
+    loglik_indv: torch.Tensor  # f32[C, N] cal_lkh per-individual log-lik
+    loglik_total: torch.Tensor  # f32[C]
+    dpm_values: torch.Tensor   # f32[C, 0] (DPM prior; not ported)
+    dpm_counts: torch.Tensor   # i32[C, 0]
+    dpm_assign: torch.Tensor   # i32[C, 0]
+    prior_mu: torch.Tensor     # f32[C] normal-prior mean (not ported)
+    prior_sigma2: torch.Tensor  # f32[C]
+    freq2: Optional[torch.Tensor] = None   # allotetraploid only
+    geno: Optional[torch.Tensor] = None    # tetraploid only
+    zcounts: Optional[torch.Tensor] = None  # f32[C, K, L, A] allele-pop
+    #   counts of the current z, carried so the P update needs no pass over
+    #   the site tensors
+    loglik_marg: Optional[torch.Tensor] = None  # f32[C, N] Z-marginalized
+    #   per-individual log-lik, refreshed every Schedule.dic_every-th stored
+    #   step; feeds the corrected DIC and WAIC
+    active: Optional[torch.Tensor] = None  # K-selection grid; not ported
+
+    def to(self, device) -> "McmcState":
+        """The same state with every tensor on ``device``."""
+        return McmcState(*[None if t is None else t.to(device)
+                           for t in self])
+
+
+def _dt_stat(rates: torch.Tensor) -> torch.Tensor:
+    """3-state classification of S/F: {0}, (0,1), {1} with eps=1e-3
+    (dt_stat, mcmc.c:1524-1546)."""
+    eps = 1e-3
+    one = torch.ones_like(rates, dtype=torch.int32)
+    return torch.where(rates <= eps, 0 * one,
+                       torch.where(rates >= 1.0 - eps, 2 * one, one))
+
+
+def masked_z_counts(z, data: Dataset, n_pops: int) -> torch.Tensor:
+    """qqnum f32[C, N, K]: valid allele copies of each individual assigned
+    to each pop (the Q-count loop of update_ZQ, mcmc.c:1176-1194)."""
+    valid = data.site_valid.repeat(1, data.ploid)[None]      # [1, N, S]
+    cols = [(valid & (z == kk)).sum(dim=-1).to(torch.float32)
+            for kk in range(n_pops)]
+    return torch.stack(cols, dim=-1)
+
+
+def chain_generator(seed: int, chain_key: int, device) -> torch.Generator:
+    """The generator of one chain's initial draws: a function of the run's
+    seed and the chain's key only, so a retried chain (fresh key) starts
+    elsewhere and a replayed chain starts where it did."""
+    g = torch.Generator(device=device)
+    g.manual_seed((int(seed) * 0x9E3779B97F4A7C15
+                   + (int(chain_key) + 1) * 0xD1B54A32D192ED03)
+                  & 0x7FFFFFFFFFFFFFFF)
+    return g
+
+
+def init_state(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
+               init_rates=None, device="cuda",
+               chain_key: Optional[Sequence[int]] = None) -> McmcState:
+    """Draw the initial state of ``n_chains`` chains on ``device``.
+
+    Mirrors the mode-2 initialisation of the JAX package
+    (``instruct_tpu/mcmc/state.py:77``): alpha ~ U[0, alpha_prior_max];
+    S from ``init_rates`` f32[C, K] or U[0, 1]; G ~ Geom with a random
+    success probability, capped; Z uniform, then Q | Z; P starts at the
+    uniform simplex (the first sweep overwrites it before any use).
+    ``state.zcounts`` is seeded with the :func:`allele_counts` kernel.
+    ``chain_key`` gives one integer key per chain (default ``range(C)``).
+    """
+    from instruct_tpu_torch.kernels.fused_step import allele_counts
+    from instruct_tpu_torch.mcmc import updates as up
+
+    if spec.ploid != 2 or spec.mode != 2:
+        raise NotImplementedError(
+            f"init_state is ported for diploid mode 2 only (got mode "
+            f"{spec.mode}, ploid {spec.ploid}); see ROADMAP: modes "
+            "1/3/4/5/0 and the tetraploid engine are still to be ported")
+    dev = torch.device(device)
+    data = data.to(dev)
+    c = n_chains
+    n, l, p = data.n_indv, data.n_loci, data.ploid
+    k = spec.n_pops
+    a = data.max_alleles
+    if chain_key is None:
+        chain_key = range(c)
+    chain_key = list(chain_key)
+    if len(chain_key) != c:
+        raise ValueError(f"chain_key: expected {c} keys")
+
+    valid_f = data.allele_valid.to(torch.float32)
+    freq = valid_f / torch.clamp_min(valid_f.sum(-1, keepdim=True), 1.0)
+    freq = freq[None, None].expand(c, k, l, a).contiguous()
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    z = torch.empty((c, n, l * p), dtype=torch.int8, device=dev)
+    q = torch.empty((c, n, k), **f32)
+    alpha = torch.empty((c,), **f32)
+    rates = torch.empty((c, k), **f32)
+    gen = torch.empty((c, n), dtype=torch.int32, device=dev)
+    for ci, ck in enumerate(chain_key):
+        g = chain_generator(seed, ck, dev)
+        z[ci] = torch.randint(0, k, (n, l * p), generator=g, device=dev,
+                              dtype=torch.int8)
+        alpha[ci] = (torch.rand((), generator=g, device=dev)
+                     * spec.alpha_prior_max)
+        counts = masked_z_counts(z[ci][None], data, k)[0]
+        q[ci] = up.dirichlet_from_counts(g, counts + alpha[ci])
+        rates[ci] = torch.rand((k,), generator=g, device=dev)
+        # gen ~ Geom(ran1()): geometric with a random success prob
+        # (mcmc.c:196-199)
+        lo, span = 1e-6, 1.0 - 2e-6
+        u = torch.rand((n,), generator=g, device=dev) * span + lo
+        psucc = torch.rand((n,), generator=g, device=dev) * span + lo
+        gi = 1 + torch.floor(torch.log(u) / torch.log1p(-psucc))
+        gen[ci] = torch.clamp(gi, 1, spec.gen_cap).to(torch.int32)
+    if init_rates is not None:
+        rates = torch.as_tensor(init_rates, **f32).reshape(c, k).clone()
+
+    zcounts = allele_counts(z, data.geno, data.site_valid, n_pops=k,
+                            max_alleles=a, bits2=data.bits2)
+    zero = lambda *shape, dtype=torch.float32: torch.zeros(  # noqa: E731
+        shape, dtype=dtype, device=dev)
+    return McmcState(
+        freq=freq, z=z, zz=zero(c, 0, dtype=torch.int32), q=q, alpha=alpha,
+        rates=rates, ais_state=_dt_stat(rates), gen=gen,
+        loglik_indv=zero(c, n), loglik_total=zero(c),
+        dpm_values=zero(c, 0), dpm_counts=zero(c, 0, dtype=torch.int32),
+        dpm_assign=zero(c, 0, dtype=torch.int32),
+        prior_mu=torch.full((c,), spec.priors.normal_mu0, **f32),
+        prior_sigma2=torch.full((c,), spec.priors.normal_sigmasqr0, **f32),
+        zcounts=zcounts, loglik_marg=zero(c, n))

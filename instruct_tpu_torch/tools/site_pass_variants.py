@@ -1,0 +1,185 @@
+#!/usr/bin/env python3
+"""Time variants of the port's site-pass kernel on one NVIDIA GPU.
+
+    python3 -m instruct_tpu_torch.tools.site_pass_variants
+
+Compiles ``instruct_tpu_torch/csrc/site_pass.cu`` several times with
+``nvcc`` -- once per launch shape (the ``SITE_THREADS``, ``SITE_ROWS`` and
+``SITE_MIN_BLOCKS`` macros of the source) and once per ablation (a textual
+patch that removes one part of the sampling kernel's work: the count
+atomics, the Philox rounds, the log, the z stores, the warp reductions, the
+memset) -- and times the ``zq_gendiff_pass`` launch of each at the headline
+shapes (4 chains, N = 1000, L = 10 000, K = 3), with CUDA events over runs
+of 10 back-to-back launches.  ``same`` says whether z, qqnum and zcounts
+equal the unmodified kernel's (an ablation changes the result by design; a
+launch shape must not).  One line per variant; nothing is written to the
+package.  A tuning aid: it shows which part of the kernel a change would
+have to attack before one is written.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import pathlib
+import statistics
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import torch
+
+from instruct_tpu_torch.data.synthetic import synthetic_panel
+from instruct_tpu_torch.kernels import _build
+from instruct_tpu_torch.kernels import philox as px
+
+C, N, L, K = 4, 1000, 10_000, 3
+
+SHAPES = {
+    "base": [],
+    "min_blocks=3": ["SITE_MIN_BLOCKS=3"],
+    "min_blocks=4": ["SITE_MIN_BLOCKS=4"],
+    "rows=8": ["SITE_ROWS=8"],
+    "rows=16": ["SITE_ROWS=16"],
+    "rows=64": ["SITE_ROWS=64"],
+    "threads=128": ["SITE_THREADS=128"],
+    "threads=128,min_blocks=6": ["SITE_THREADS=128", "SITE_MIN_BLOCKS=6"],
+}
+
+# (text in the source, replacement): each removes one part of the work
+ABLATIONS = {
+    "no count atomics": [
+        ("if (zeros != 0) atomicAdd(", "if (zeros == 12345) atomicAdd("),
+        ("if (ones != 0) atomicAdd(", "if (ones == 12345) atomicAdd(")],
+    "no Philox rounds": [
+        ("const Philox4 a = philox4x32_10(blk, STREAM_Z, step, chain, k0, "
+         "k1);",
+         "const Philox4 a = Philox4{blk * 2654435761u + step, blk * 40503u "
+         "+ chain, blk * 2246822519u + k0, blk * 3266489917u + k1};")],
+    "no log": [("llh = llh + logf(ratio);", "llh = llh + ratio;")],
+    "no z stores": [
+        ("store_bytes(zrow, l0, L, vec, z0v);",
+         "if (wc == 12345.0f) store_bytes(zrow, l0, L, vec, z0v);"),
+        ("store_bytes(zrow + L, l0, L, vec, z1v);",
+         "if (wc == 12345.0f) store_bytes(zrow + L, l0, L, vec, z1v);")],
+    "no warp reductions": [
+        ("for (int o = 16; o >= 1; o >>= 1) v = v + __shfl_xor_sync(",
+         "for (int o = 16; o >= 16; o >>= 1) v = v + __shfl_xor_sync(")],
+    "no memset": [
+        ("cudaMemsetAsync(zcounts, 0, sizeof(float) * (size_t)C * K * L * 2,"
+         " s);", "")],
+}
+ABLATIONS["all of the above"] = [p for ps in list(ABLATIONS.values())
+                                 for p in ps]
+
+
+def build(work: pathlib.Path, tag: str, source: str, defines):
+    src = work / f"v{tag}.cu"
+    src.write_text(source)
+    so = work / f"v{tag}.so"
+    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+           str(_build.CSRC), *[f"-D{d}" for d in defines], "-o", str(so),
+           str(src)]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"nvcc failed on variant {tag}:\n{r.stderr}")
+    regs = "?"
+    lines = r.stderr.splitlines()
+    for i, line in enumerate(lines):
+        if (f"site_gendiff_kernelILi{K}E" in line
+                and "Function properties" in line):
+            regs = lines[i + 2].split("Used ")[1].split(",")[0]
+            spill = lines[i + 1].split(",")[1].strip()
+            regs = f"{regs}, {spill}"
+    lib = ctypes.CDLL(str(so))
+    lib.site_gendiff_launch.argtypes = _build._SIGNATURES[
+        "site_gendiff_launch"]
+    lib.site_gendiff_launch.restype = ctypes.c_int
+    lib.site_pass_tiles.argtypes = [ctypes.c_int]
+    lib.site_pass_tiles.restype = ctypes.c_int
+    return lib, regs
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(smi, flush=True)
+    panel = synthetic_panel(N, L, n_pops=K, n_alleles=2,
+                            selfing_rates=np.array([0.1, 0.4, 0.8]),
+                            admixture_alpha=0.1, seed=17)
+    bits2 = panel.data.bits2.cuda()
+    g = torch.Generator(device="cuda").manual_seed(99)
+    gam = torch._standard_gamma(torch.full((C, K, L, 2), 1.0, device="cuda"),
+                                generator=g)
+    freq = (gam / gam.sum(-1, keepdim=True)).contiguous()
+    gq = torch._standard_gamma(torch.full((C, N, K), 0.3, device="cuda"),
+                               generator=g).clamp_min(1e-20)
+    q = (gq / gq.sum(-1, keepdim=True)).contiguous()
+    gen = torch.randint(1, 9, (C, N, 2), generator=g, device="cuda")
+    wg_pair = torch.exp2(1.0 - gen.float()).contiguous()
+    keys = px.make_keys(2024, C, "cuda")
+
+    def run(lib):
+        t = lib.site_pass_tiles(L)
+        f32 = dict(dtype=torch.float32, device="cuda")
+        z = torch.empty((C, N, 2 * L), dtype=torch.int8, device="cuda")
+        qq, zc = torch.empty((C, N, K), **f32), torch.empty((C, K, L, 2),
+                                                            **f32)
+        ll, llp = torch.empty((C, N), **f32), torch.empty((C, N, t), **f32)
+        qqp = torch.empty((C, N, t, K), **f32)
+        rc = lib.site_gendiff_launch(
+            q.data_ptr(), freq.data_ptr(), bits2.data_ptr(),
+            wg_pair.data_ptr(), None, z.data_ptr(), qq.data_ptr(),
+            zc.data_ptr(), ll.data_ptr(), llp.data_ptr(), qqp.data_ptr(), C,
+            N, L, K, 1, keys.k0, keys.k1, keys.chain_key.data_ptr(), 5,
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"launch refused: cudaGetLastError = {rc}")
+        return z, qq, zc
+
+    def time_ms(fn, reps=20, inner=10):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(inner):
+                fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b) / inner)
+        return statistics.median(times)
+
+    source = (_build.CSRC / "site_pass.cu").read_text()
+    variants = [(tag, source, d) for tag, d in SHAPES.items()]
+    for tag, patches in ABLATIONS.items():
+        src = source
+        for old, new in patches:
+            if old not in src:
+                raise RuntimeError(f"ablation {tag!r}: {old!r} is no longer "
+                                   "in site_pass.cu")
+            src = src.replace(old, new)
+        variants.append((tag, src, []))
+    ref = None
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (tag, src, defines) in enumerate(variants):
+            lib, regs = build(pathlib.Path(tmp), str(i), src, defines)
+            out = run(lib)
+            torch.cuda.synchronize()
+            ref = out if ref is None else ref
+            same = all(torch.equal(a, b) for a, b in zip(out, ref))
+            print(f"{tag:28s} ms={time_ms(lambda: run(lib)):.4f} "
+                  f"same={same} registers={regs}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
