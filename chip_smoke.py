@@ -6,19 +6,22 @@
 Builds the hand-written CUDA kernels of ``instruct_tpu_torch`` from
 ``instruct_tpu_torch/csrc`` with ``nvcc``, holds each kernel against its plain
 PyTorch version on the card at the sampler's headline shapes (N = 1000
-individuals x L = 10 000 loci, K = 3, 4 chains), then drives the main path --
-``run_mcmc`` on the diploid mode-2 biallelic panel -- and checks that it went
-through every kernel, that its output is sane and that two runs from one seed
-are bitwise equal.  Every phase prints one JSON line; any failure raises, so
-the exit code is non-zero.  There is no CPU path: without a CUDA device the
-script exits with code 1 and prints no result.
+individuals x L = 10 000 loci, K = 3, 4 chains, packed biallelic panel; and
+N = 1000 x L = 2000 with A = 8 alleles for the generic site path), then drives
+the main path -- ``run_mcmc`` on the diploid mode-2 biallelic panel -- and the
+other paths -- ``run_mcmc`` in modes 1, 3, 4, 5 on that panel and in every
+mode on the A = 8 panel -- and checks that each went through its kernels,
+that its output is sane and that two runs from one seed are bitwise equal.
+Every phase prints one JSON line; any failure raises, so the exit code is
+non-zero.  There is no CPU path: without a CUDA device the script exits with
+code 1 and prints no result.
 
 The line before the last is the card's name and power limit as ``nvidia-smi``
 prints them; the line before that is the ``{"kernels": [...]}`` summary; the
 last line is ``{"ok": true, "device": {...}}``.
 
-``--phases`` runs a subset of build, kernels, main_path (development aid);
-the device and Philox phases always run.
+``--phases`` runs a subset of build, kernels, main_path, modes (development
+aid); the device and Philox phases always run.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch
 
 from instruct_tpu_torch import (ModelSpec, Schedule, run_mcmc,
                                 synthetic_panel)
+from instruct_tpu_torch.data.dataset import Dataset, packed_dataset
 from instruct_tpu_torch.kernels import _build
 from instruct_tpu_torch.kernels import dirichlet as dk
 from instruct_tpu_torch.kernels import fused_step as fs
@@ -47,7 +51,9 @@ from instruct_tpu_torch.mcmc.step import build_step_parts
 # Headline shapes of the main path.
 N_INDV, N_LOCI, N_POPS, N_CHAINS, SUBSWEEPS = 1000, 10_000, 3, 4, 12
 PANEL_SEED, RUN_SEED = 17, 2024
-N_ITER = 400           # sweeps of the main-path run (half of them burn-in)
+N_ITER = 200           # sweeps of a run_mcmc path (half of them burn-in)
+# The multi-allelic panel of the generic site path.
+GEN_LOCI, GEN_ALLELES = 2000, 8
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
 # the float32 rate outside the tensor cores.  The bound of a kernel is the
@@ -177,11 +183,12 @@ def phase_philox() -> dict:
 # ---------------------------------------------------------------------------
 
 def kernel_inputs(panel):
-    """State-like inputs at the headline shapes, from a seed."""
+    """State-like inputs at the panel's shapes, from a seed."""
     data = panel.data.to("cuda")
-    c, n, l, k = N_CHAINS, N_INDV, N_LOCI, N_POPS
+    c, k = N_CHAINS, N_POPS
+    n, l, a = data.n_indv, data.n_loci, data.max_alleles
     g = torch.Generator(device="cuda").manual_seed(99)
-    gam = torch._standard_gamma(torch.full((c, k, l, 2), 1.0, device="cuda"),
+    gam = torch._standard_gamma(torch.full((c, k, l, a), 1.0, device="cuda"),
                                 generator=g)
     freq = (gam / gam.sum(-1, keepdim=True)).contiguous()
     gq = torch._standard_gamma(torch.full((c, n, k), 0.3, device="cuda"),
@@ -196,8 +203,15 @@ def kernel_inputs(panel):
     rates = torch.rand((c, k), generator=g, device="cuda") * 0.9 + 0.05
     wg_pair = torch.exp2(1.0 - torch.stack([gen, gen_prop], -1).float())
     keys = px.make_keys(RUN_SEED, c, "cuda")
+
+    def f_pair(r):
+        f = torch.rand((c, r), generator=g, device="cuda") * 0.9 + 0.05
+        step = (torch.rand((c, r), generator=g, device="cuda") - 0.5) * 0.1
+        return torch.stack([f, (f + step).clamp(0.01, 0.99)], -1).contiguous()
+
     return dict(data=data, freq=freq, q=q, z=z, gen=gen, rates=rates,
-                wg_pair=wg_pair.contiguous(), keys=keys)
+                wg_pair=wg_pair.contiguous(), keys=keys, f_pop=f_pair(k),
+                f_ind=f_pair(n))
 
 
 def check_allele_counts(x):
@@ -233,90 +247,226 @@ def check_allele_counts(x):
                 compared="counts exactly equal")
 
 
-def check_site_gendiff(x, structure: bool):
-    d = x["data"]
-    c, n, l, k = N_CHAINS, N_INDV, N_LOCI, N_POPS
-    args = (x["keys"], 5, x["q"], x["freq"], d.bits2, x["wg_pair"])
-    run = lambda: fs.zq_gendiff_pass(*args, structure=structure)
-    plain = lambda: fs.zq_gendiff_pass_reference(*args, structure=structure)
-    z, qq, ll, zc = run()
-    pz, pqq, pll, pzc = plain()
-    for nm, a, b in (("z", z, pz), ("qqnum", qq, pqq), ("zcounts", zc, pzc)):
-        if not torch.equal(a, b):
-            bad = int((a != b).sum())
-            raise AssertionError(
-                f"site_pass_gendiff(structure={structure}): {nm} differs "
-                f"from the plain version at {bad} elements")
-    # ll_diff: f32 sums over L = 10 000 sites taken in another order
-    check_close(f"site_pass_gendiff(structure={structure}) ll_diff", ll, pll,
-                rtol=1e-4, atol=2e-3)
-    valid2 = 2.0 * float(d.site_valid.sum())
-    for ch in range(c):
-        if not (float(zc[ch].sum()) == float(qq[ch].sum()) == valid2):
-            raise AssertionError("site_pass_gendiff: zcounts.sum() == "
-                                 "qqnum.sum() == 2 * valid sites violated")
-    z2 = run()
-    if not all(torch.equal(a, b) for a, b in zip((z, qq, ll, zc), z2)):
-        raise AssertionError("site_pass_gendiff: two launches from one seed "
-                             "are not bitwise equal")
-    # injected uniforms are honoured by the kernel too
-    u = torch.rand((c, n, 2 * l), device="cuda",
-                   generator=torch.Generator("cuda").manual_seed(3))
-    zi = fs.zq_gendiff_pass(*args, structure=structure, u=u)
-    zp = fs.zq_gendiff_pass_reference(*args, structure=structure, u=u)
-    if not torch.equal(zi[0], zp[0]):
-        raise AssertionError("site_pass_gendiff: z differs under injected "
-                             "uniforms")
-    g0, g1, valid, hom = fs.unpack_bits2(d.bits2)
-    same = (z[:, :, :l] == z[:, :, l:]) if structure else True
-    n_logs = int((valid[None] & hom[None] & same).sum())
-    n_bytes = (c * n * k * 4 + c * k * l * 2 * 4 + n * l + c * n * 2 * 4
-               + c * n * 2 * l + c * n * k * 4 + c * k * l * 2 * 4
-               + c * n * 4)
-    per_site = 4 * k + 2 * (OPS_PHILOX / 4 + 3 + 3 * (k - 1) + 3 * k)
-    n_ops = c * n * l * per_site + n_logs * (2 * OPS_TRANSC + 6)
-    b_ms, b_by = bound(n_bytes, n_ops)
-    return dict(name="site_pass_gendiff", route="cuda",
-                source="instruct_tpu_torch/csrc/site_pass.cu",
-                replaces="instruct_tpu/kernels/fused_step.py:612",
-                structure=structure, max_abs_err=max_err(ll, pll),
-                ms=time_ms(run),
-                plain_ms=time_ms(plain, reps=3, warm=1, inner=1),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                bytes=n_bytes, ops=n_ops,
-                compared="z, qqnum, zcounts exactly equal; ll_diff rtol "
-                         "1e-4 atol 2e-3")
+# Entry points of the site pass: (launch-counter name, line of the wrapper's
+# JAX counterpart in instruct_tpu/kernels/fused_step.py, sampling?).  On the
+# generic path the counter is the name + "_generic".
+SITE_ENTRIES = (("site_pass_sample", 763, True),
+                ("site_pass_mode1", 790, True),
+                ("site_pass_gen", 730, True),
+                ("site_pass_gendiff", 748, True),
+                ("site_pass_find", 815, True),
+                ("site_pass_fpop", 815, True),
+                ("site_pass_loglik", 803, False),
+                ("site_pass_loglik_mode1", 777, False),
+                ("site_pass_loglik_find", 847, False),
+                ("site_pass_loglik_fpop", 847, False))
+# ll columns are f32 sums over L sites taken in another order than the plain
+# version's: full log-liks (|ll| ~ L) at rtol 1e-5, MH log-ratios (sums of
+# small terms of either sign) at rtol 1e-4; atol scales with L / 10 000
+# the entry points that also have an expectation way (structure=False)
+EXP_WAY = ("site_pass_gen", "site_pass_gendiff", "site_pass_loglik")
+LL_RTOL = {"site_pass_gendiff": 1e-4, "site_pass_find": 1e-4,
+           "site_pass_fpop": 1e-4}
+LL_ATOL = {"site_pass_gendiff": 2e-3, "site_pass_find": 2e-3,
+           "site_pass_fpop": 2e-3}
 
 
-def check_site_loglik(x, structure: bool):
+def site_calls(name: str, x, structure: bool, u=None):
+    """(kernel call, plain call) of one entry point on the inputs ``x``,
+    each returning dict(z, qqnum, zcounts, ll) with ``None`` for what the
+    entry point does not return."""
+    d, keys, q, freq, z = x["data"], x["keys"], x["q"], x["freq"], x["z"]
+    wg0 = x["wg_pair"][:, :, 0].contiguous()
+    f_pop0 = x["f_pop"][:, :, 0].contiguous()
+    f_ind0 = x["f_ind"][:, :, 0].contiguous()
+
+    def sampling(fn, *extra, **kw):
+        def call():
+            out = fn(keys, 5, q, freq, d, *extra, u=u, **kw)
+            zz, qq, zc = out[0], out[1], out[-1]
+            return dict(z=zz, qqnum=qq, zcounts=zc,
+                        ll=out[2] if len(out) == 4 else None)
+        return call
+
+    def stored(fn, *args, **kw):
+        return lambda: dict(z=None, qqnum=None, zcounts=None,
+                            ll=fn(*args, **kw))
+
+    st = dict(structure=structure)
+    table = {
+        "site_pass_sample": (sampling, "zq_sample_pass", (), {}),
+        "site_pass_mode1": (sampling, "zq_mode1_pass", (), {}),
+        "site_pass_gen": (sampling, "zq_gen_pass", (x["wg_pair"],), st),
+        "site_pass_gendiff": (sampling, "zq_gendiff_pass", (x["wg_pair"],),
+                              st),
+        "site_pass_find": (sampling, "zq_f_pass", (x["f_ind"],),
+                           dict(pop=False)),
+        "site_pass_fpop": (sampling, "zq_f_pass", (x["f_pop"],),
+                           dict(pop=True)),
+        "site_pass_loglik": (stored, "panel_loglik_pass",
+                             (freq, q, d, z, wg0), st),
+        "site_pass_loglik_mode1": (stored, "panel_loglik_mode1_pass",
+                                   (freq, q, d, z), {}),
+        "site_pass_loglik_find": (stored, "panel_loglik_f_pass",
+                                  (freq, d, z, f_ind0), dict(pop=False)),
+        "site_pass_loglik_fpop": (stored, "panel_loglik_f_pass",
+                                  (freq, d, z, f_pop0), dict(pop=True)),
+    }
+    make, fn, args, kw = table[name]
+    return (make(getattr(fs, fn), *args, **kw),
+            make(getattr(fs, fn + "_reference"), *args, **kw))
+
+
+def site_agrees(tag, name, got, want, scale=1.0) -> float:
+    """Raise unless a site pass's kernel outputs match the plain version's:
+    z, qqnum, zcounts exactly, the ll columns within the stated tolerance.
+    Returns the largest absolute ll error."""
+    for nm in ("z", "qqnum", "zcounts"):
+        a, b = got[nm], want[nm]
+        if (a is None) != (b is None):
+            raise AssertionError(f"{tag}: {nm} is returned by only one of "
+                                 "kernel and plain version")
+        if a is not None and not torch.equal(a, b):
+            raise AssertionError(f"{tag}: {nm} differs from the plain "
+                                 f"version at {int((a != b).sum())} elements")
+    if got["ll"] is None:
+        return 0.0
+    check_close(f"{tag} ll", got["ll"], want["ll"],
+                rtol=LL_RTOL.get(name, 1e-5),
+                atol=LL_ATOL.get(name, 1e-2) * scale)
+    return max_err(got["ll"], want["ll"])
+
+
+def site_work(name, x, out, structure):
+    """(bytes, operations) one call of the entry point must move and do on
+    these inputs: each operand read once, each result written once; the
+    logs and divisions counted from this run's masks (which sites are
+    valid, homozygous, same-z), not from the most there could be."""
     d = x["data"]
-    c, n, l, k = N_CHAINS, N_INDV, N_LOCI, N_POPS
-    wg = x["wg_pair"][:, :, 0].contiguous()
-    args = (x["freq"], x["q"], d.bits2, x["z"], wg)
-    run = lambda: fs.panel_loglik_pass(*args, structure=structure)
-    plain = lambda: fs.panel_loglik_pass_reference(*args,
-                                                   structure=structure)
+    c, n, k = x["q"].shape
+    l, a = d.n_loci, d.max_alleles
+    sample = out["z"] is not None
+    packed = fs.is_packed(d)
+    z = out["z"] if sample else x["z"]
+    valid, hom = d.site_valid[None], d.hom[None]
+    fam = name.replace("site_pass_", "").replace("loglik_", "")
+    z_cond = not (fam in ("gen", "gendiff", "loglik") and not structure)
+    # sites whose likelihood is the joint (same-pop) form
+    same = z[:, :, :l] == z[:, :, l:]
+    joint = valid & (same if z_cond else torch.ones_like(same))
+    n_valid = c * int(valid.sum())
+    n_same = int(joint.sum())
+    n_diff = n_valid - n_same
+    if fam == "sample":
+        n_transc = 0
+    elif fam == "gendiff":
+        n_transc = 2 * int((joint & hom).sum())
+    elif sample and fam in ("find", "fpop"):
+        n_transc = 2 * n_same
+    else:
+        cols = 2 if fam == "gen" and sample else 1
+        n_transc = (cols * n_same + 2 * n_diff if fam != "mode1"
+                    else 2 * n_valid)
+    need_hom = fam not in ("sample", "mode1")
+    planes = n * l * (1 if packed else 3 + int(need_hom))
+    n_in = 2 if sample else 1
+    n_bytes = planes + c * k * l * a * 4
+    if sample or not z_cond:
+        n_bytes += c * n * k * 4
+    if fam in ("gen", "gendiff", "loglik", "find"):
+        n_bytes += c * n * n_in * 4
+    if fam == "fpop":
+        n_bytes += c * k * n_in * 4
+    n_bytes += c * n * 2 * l                       # z, written or read
+    if sample:
+        n_bytes += c * n * k * 4 + (c * k * l * 2 * 4 if packed else 0)
+    if out["ll"] is not None:
+        n_bytes += out["ll"].numel() * 4
+    per_site = 0.0
+    if sample:
+        per_site = 4 * k + 2 * (OPS_PHILOX / 4 + 3 + 3 * (k - 1) + 3 * k)
+    elif not z_cond:
+        per_site = 4 * k
+    n_ops = c * n * l * per_site + n_transc * OPS_TRANSC + n_valid * 8
+    return n_bytes, n_ops
+
+
+def check_site_entry(name, line, x, structure=True, timed=True):
+    d = x["data"]
+    c, _, k = x["q"].shape
+    packed = fs.is_packed(d)
+    counter = name if packed else name + "_generic"
+    tag = f"{counter}(structure={structure})"
+    run, plain = site_calls(name, x, structure)
     got, want = run(), plain()
-    # sums of ~10 000 logs of magnitude ~1: |ll| ~ 1e4, f32 in another order
-    check_close(f"site_pass_loglik(structure={structure})", got, want,
-                rtol=1e-5, atol=1e-2)
-    if not torch.equal(got, run()):
-        raise AssertionError("site_pass_loglik: two launches are not "
-                             "bitwise equal")
-    n_valid = int(d.site_valid.sum())
-    n_bytes = (c * n * k * 4 + c * k * l * 2 * 4 + n * l + c * n * 2 * l
-               + c * n * 4 + c * n * 4)
-    n_ops = c * n_valid * (4 * k + 12 + OPS_TRANSC)
+    scale = d.n_loci / 10_000
+    err = site_agrees(tag, name, got, want, scale)
+    sample = got["z"] is not None
+    if sample:
+        valid2 = 2.0 * float(d.site_valid.sum())
+        for ch in range(c):
+            if float(got["qqnum"][ch].sum()) != valid2:
+                raise AssertionError(f"{tag}: qqnum.sum() != 2 * valid sites")
+            if packed and float(got["zcounts"][ch].sum()) != valid2:
+                raise AssertionError(f"{tag}: zcounts.sum() != 2 * valid "
+                                     "sites")
+        if not packed:
+            # the generic pass carries no counts: the step recounts with K4
+            kw = dict(n_pops=k, max_alleles=d.max_alleles)
+            cnt = fs.allele_counts(got["z"], d.geno, d.site_valid, **kw)
+            if not torch.equal(cnt, fs.allele_counts_reference(
+                    got["z"], d.geno, d.site_valid, **kw)):
+                raise AssertionError(f"{tag}: the recount of the fresh z "
+                                     "differs from its plain version")
+    again = run()
+    for nm in ("z", "qqnum", "zcounts", "ll"):
+        if got[nm] is not None and not torch.equal(got[nm], again[nm]):
+            raise AssertionError(f"{tag}: two launches from one seed are "
+                                 f"not bitwise equal ({nm})")
+    if sample:
+        # injected uniforms are honoured by the kernel too
+        u = torch.rand(tuple(got["z"].shape), device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(3))
+        run_u, plain_u = site_calls(name, x, structure, u=u)
+        site_agrees(tag + " under injected uniforms", name, run_u(),
+                    plain_u(), scale)
+    notes = []
+    if name == "site_pass_fpop":
+        # the step sums fdiff over N and accepts where log u < sum: the
+        # decisions of kernel and plain version may differ only on a
+        # knife-edge (the sum within f32 rounding of log u)
+        s_k, s_p = got["ll"].sum(dim=1), want["ll"].sum(dim=1)
+        logu = s_p + torch.linspace(-1.0, 1.0, s_p.numel(),
+                                    device="cuda").reshape(s_p.shape)
+        flip = (logu < s_k) != (logu < s_p)
+        edge = 1e-5 * s_p.abs() + 5e-2 * scale
+        if bool(((logu - s_p).abs()[flip] > edge[flip]).any()):
+            raise AssertionError(f"{tag}: the F accept differs from the "
+                                 "plain version away from a knife-edge")
+        check_close(f"{tag} fdiff summed over N", s_k, s_p, 1e-5,
+                    5e-2 * scale)
+        notes.append(f"accept flips on a knife-edge: {int(flip.sum())}")
+    n_bytes, n_ops = site_work(name, x, got, structure)
     b_ms, b_by = bound(n_bytes, n_ops)
-    return dict(name="site_pass_loglik", route="cuda",
-                source="instruct_tpu_torch/csrc/site_pass.cu",
-                replaces="instruct_tpu/kernels/fused_step.py:612",
-                structure=structure, max_abs_err=max_err(got, want),
-                ms=time_ms(run),
-                plain_ms=time_ms(plain, reps=3, warm=1, inner=1),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                bytes=n_bytes, ops=n_ops,
-                compared="ll_indv rtol 1e-5 atol 1e-2")
+    entry = dict(name=counter, route="cuda",
+                 source="instruct_tpu_torch/csrc/site_pass.cuh",
+                 replaces=f"instruct_tpu/kernels/fused_step.py:{line}",
+                 structure=structure, max_abs_err=err, bound_ms=b_ms,
+                 bound_by=b_by, library_ms=None, bytes=n_bytes, ops=n_ops,
+                 notes=notes,
+                 compared="z, qqnum, zcounts exactly equal; ll rtol "
+                          f"{LL_RTOL.get(name, 1e-5)} atol "
+                          f"{LL_ATOL.get(name, 1e-2) * scale:.1e}")
+    if timed:
+        entry.update(ms=time_ms(run),
+                     plain_ms=time_ms(plain, reps=3, warm=1, inner=1))
+    return entry
+
+
+def check_site_entries(x, structure=True, timed=True, only=None):
+    return [check_site_entry(name, line, x, structure, timed)
+            for name, line, _ in SITE_ENTRIES
+            if only is None or name in only]
 
 
 def s_pop_agrees(name, got, want, margins) -> list:
@@ -477,66 +627,75 @@ def check_dirichlet(x):
     return out
 
 
+def ragged_dataset(g, n, l, a) -> Dataset:
+    """A random multi-allelic panel on the card: 2..``a`` alleles per locus
+    (ragged), codes below the locus's allele count, ~12% of the sites
+    invalid."""
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device="cuda")
+    n_alleles = 2 + (rand(l) * (a - 1)).long().clamp_max(a - 2)
+    n_alleles[0] = a
+    geno = (rand(n, 2 * l) * n_alleles.repeat(2)[None]).long()
+    allele_valid = torch.arange(a, device="cuda")[None] < n_alleles[:, None]
+    return Dataset(geno=geno.to(torch.int8), site_valid=rand(n, l) > 0.12,
+                   allele_valid=allele_valid,
+                   hom=geno[:, :l] == geno[:, l:])
+
+
 def phase_edge_shapes() -> None:
     """Kernel against plain version at small ragged shapes: every
     instantiated K of the site pass, L not a multiple of 4 (unaligned
     Philox quads, byte loads), N not a multiple of the row strip, N above
-    and below the S tail's 1024 lanes, and the unpacked A = 3 operands of
-    ``allele_counts``."""
+    and below the S tail's 1024 lanes; every entry point of the site pass on
+    the packed plane and on the generic path with A in {3, 5, 8} and a
+    ragged number of alleles per locus; the A > 2 operands of
+    ``allele_counts`` and of the P draw."""
     g = torch.Generator("cuda").manual_seed(12)
 
     def rand(*shape):
         return torch.rand(shape, generator=g, device="cuda")
 
-    def simplex(*shape):
+    def simplex(*shape, mask=None):
         x = -torch.log(rand(*shape).clamp_min(1e-6))
+        if mask is not None:
+            x = x * mask
         return (x / x.sum(-1, keepdim=True)).contiguous()
 
-    cases = [(1, 5, 7, 1), (2, 33, 1025, 2), (3, 70, 130, 3), (2, 45, 1030, 4),
-             (1, 1100, 36, 5), (2, 40, 37, 6), (1, 64, 250, 7),
-             (2, 1500, 9, 8)]
-    for c, n, l, k in cases:
+    cases = [(1, 5, 7, 1, 3), (2, 33, 1025, 2, 5), (3, 70, 130, 3, 8),
+             (2, 45, 1030, 4, 3), (1, 1100, 36, 5, 5), (2, 40, 37, 6, 8),
+             (1, 64, 250, 7, 5), (2, 1500, 9, 8, 8)]
+    for c, n, l, k, a in cases:
         tag = f"edge shape C={c} N={n} L={l} K={k}"
         keys = px.make_keys(77, c, "cuda", chain_key=range(3, 3 + c))
         bits2 = torch.randint(0, 8, (n, l), generator=g, device="cuda",
                               dtype=torch.int8)
-        q, freq = simplex(c, n, k), simplex(c, k, l, 2)
+        q = simplex(c, n, k)
         gen = torch.randint(1, 9, (c, n, 2), generator=g, device="cuda")
         wg_pair = torch.exp2(1.0 - gen.float()).contiguous()
         rates = (rand(c, k) * 0.9 + 0.05).contiguous()
-        for structure in (True, False):
-            got = fs.zq_gendiff_pass(keys, 2, q, freq, bits2, wg_pair,
-                                     structure=structure)
-            want = fs.zq_gendiff_pass_reference(keys, 2, q, freq, bits2,
-                                                wg_pair, structure=structure)
-            for nm, a, b in zip(("z", "qqnum", "ll_diff", "zcounts"), got,
-                                want):
-                if nm == "ll_diff":
-                    check_close(f"{tag} gendiff ll_diff", a, b, 1e-4, 1e-3)
-                elif not torch.equal(a, b):
-                    raise AssertionError(f"{tag}: gendiff {nm} differs")
-            z = got[0]
-            ll = fs.panel_loglik_pass(freq, q, bits2, z,
-                                      wg_pair[:, :, 0].contiguous(),
-                                      structure=structure)
-            pll = fs.panel_loglik_pass_reference(
-                freq, q, bits2, z, wg_pair[:, :, 0].contiguous(),
-                structure=structure)
-            check_close(f"{tag} loglik", ll, pll, 1e-5, 1e-3)
-        g0, g1, valid, _ = fs.unpack_bits2(bits2)
-        geno = torch.cat([g0, g1], dim=1).to(torch.int8)
-        for kw in (dict(bits2=bits2), dict()):
-            cnt = fs.allele_counts(z, geno, valid, n_pops=k, max_alleles=2,
-                                   **kw)
-            if not torch.equal(cnt, got[3]):
-                raise AssertionError(f"{tag}: allele_counts differs from "
-                                     "the site pass's carried counts")
-        geno3 = torch.randint(0, 3, (n, 2 * l), generator=g, device="cuda",
-                              dtype=torch.int8)
-        cnt3 = fs.allele_counts(z, geno3, valid, n_pops=k, max_alleles=3)
-        if not torch.equal(cnt3, fs.allele_counts_reference(
-                z, geno3, valid, n_pops=k, max_alleles=3)):
-            raise AssertionError(f"{tag}: allele_counts (A = 3) differs")
+        z = torch.randint(0, k, (c, n, 2 * l), generator=g, device="cuda",
+                          dtype=torch.int8)
+        packed, ragged = packed_dataset(bits2), ragged_dataset(g, n, l, a)
+        for data in (packed, ragged):
+            av = data.allele_valid.float()[None, None]
+            x = dict(data=data, keys=keys, q=q, z=z, wg_pair=wg_pair,
+                     freq=simplex(c, k, l, data.max_alleles, mask=av),
+                     f_pop=(rand(c, k, 2) * 0.98 + 0.01).contiguous(),
+                     f_ind=(rand(c, n, 2) * 0.98 + 0.01).contiguous())
+            for structure in (True, False):
+                check_site_entries(x, structure, timed=False,
+                                   only=None if structure else EXP_WAY)
+        for data in (packed, ragged):
+            kw = dict(n_pops=k, max_alleles=data.max_alleles)
+            want = fs.allele_counts_reference(z, data.geno, data.site_valid,
+                                              **kw)
+            for extra in ((dict(bits2=bits2), dict()) if data is packed
+                          else (dict(),)):
+                cnt = fs.allele_counts(z, data.geno, data.site_valid, **kw,
+                                       **extra)
+                if not torch.equal(cnt, want):
+                    raise AssertionError(f"{tag}: allele_counts "
+                                         f"(A = {data.max_alleles}) differs")
         kw = dict(subsweeps=3, delta0=0.05, gen_cap=50)
         gen1 = gen[:, :, 0].to(torch.int32).contiguous()
         mg = []
@@ -549,49 +708,68 @@ def phase_edge_shapes() -> None:
         want = dk.dirichlet_nk_reference(keys, 2, conc, margins=mg)
         dirichlet_agrees(f"{tag} dirichlet_nk",
                          dk.dirichlet_nk(keys, 2, conc), want, mg[0], -1)
-        counts = (rand(c, k, l, 2) * 50.0 + 1.0).contiguous()
-        av = rand(l, 2) > 0.1
-        mg = []
-        want = dk.dirichlet_kla_reference(keys, 2, counts, av, margins=mg)
-        dirichlet_agrees(f"{tag} dirichlet_kla",
-                         dk.dirichlet_kla(keys, 2, counts, av), want, mg[0],
-                         -1)
-    emit("edge_shapes", cases=[dict(C=c, N=n, L=l, K=k)
-                               for c, n, l, k in cases], all_match=True)
+        for av in (rand(l, 2) > 0.1, ragged.allele_valid):
+            counts = (rand(c, k, l, av.shape[1]) * 50.0 + 1.0).contiguous()
+            mg = []
+            want = dk.dirichlet_kla_reference(keys, 2, counts, av, margins=mg)
+            got = dk.dirichlet_kla(keys, 2, counts, av)
+            dirichlet_agrees(f"{tag} dirichlet_kla A={av.shape[1]}", got,
+                             want, mg[0], -1)
+            if bool((got[:, :, ~av] != 0).any()):
+                raise AssertionError(f"{tag}: dirichlet_kla gives weight to "
+                                     "a padded allele")
+        # the tails' uniforms: four streams in one launch, bit for bit
+        words = px.random_streams(keys, 2, px.STREAM_R_PROP, 4, 3 * n + 1)
+        if not torch.equal(words.to(torch.int64) & 0xFFFFFFFF,
+                           px.random_streams_reference(
+                               keys, 2, px.STREAM_R_PROP, 4, 3 * n + 1)):
+            raise AssertionError(f"{tag}: random_streams differs from its "
+                                 "plain version")
+    emit("edge_shapes", cases=[dict(C=c, N=n, L=l, K=k, A=a)
+                               for c, n, l, k, a in cases], all_match=True)
 
 
-def phase_kernels(panel, philox_entry):
-    """Entries by kernel name at the main path's variant (structure way);
+def phase_kernels(panel, panel_a, philox_entry):
+    """Entries by kernel name at the main paths' variant (structure way);
     the expectation-way runs of the site pass are reported as variants."""
     x = kernel_inputs(panel)
-    main = [philox_entry, check_allele_counts(x),
-            check_site_gendiff(x, True), check_site_loglik(x, True),
+    main = [philox_entry, check_allele_counts(x), *check_site_entries(x),
             check_s_pop_tail(x), *check_dirichlet(x)]
-    variants = [check_site_gendiff(x, False), check_site_loglik(x, False)]
+    variants = check_site_entries(x, structure=False, only=EXP_WAY)
+    del x
+    torch.cuda.empty_cache()
+    xa = kernel_inputs(panel_a)
+    main += check_site_entries(xa)
+    variants += check_site_entries(xa, structure=False, only=EXP_WAY)
     phase_edge_shapes()
     emit("kernels", shapes=dict(C=N_CHAINS, N=N_INDV, L=N_LOCI, K=N_POPS,
                                 A=2, J=SUBSWEEPS),
+         generic_shapes=dict(C=N_CHAINS, N=N_INDV, L=GEN_LOCI, K=N_POPS,
+                             A=GEN_ALLELES),
          kernels=main, variants=variants)
     return {e["name"]: e for e in main}
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the main path
+# phases 5 and 6: the main path (mode 2, packed panel) and the other paths
 # ---------------------------------------------------------------------------
 
-MAIN_KERNELS = ("philox_words", "allele_counts", "site_pass_gendiff",
-                "site_pass_loglik", "s_pop_tail", "dirichlet_kla",
-                "dirichlet_nk")
+# the sampling and the stored-step entry point of each mode's sweep
+MODE_PASSES = {1: ("site_pass_sample", "site_pass_loglik_mode1"),
+               2: ("site_pass_gendiff", "site_pass_loglik"),
+               3: ("site_pass_gendiff", "site_pass_loglik"),
+               4: ("site_pass_fpop", "site_pass_loglik_fpop"),
+               5: ("site_pass_find", "site_pass_loglik_find")}
 
 
-def small_agreement() -> dict:
+def small_agreement(mode: int, n_alleles: int) -> dict:
     """The port on the card against the port on the CPU (plain versions),
     same seed, a small panel, a few sweeps: the discrete state must agree
     exactly and the floats to f32 rounding."""
-    panel = synthetic_panel(40, 120, n_pops=3, n_alleles=2,
+    panel = synthetic_panel(40, 120, n_pops=3, n_alleles=n_alleles,
                             selfing_rates=np.array([0.1, 0.4, 0.8]),
                             admixture_alpha=0.1, missing_rate=0.1, seed=3)
-    spec = ModelSpec(mode=2, n_pops=3, s_subsweeps=4)
+    spec = ModelSpec(mode=mode, n_pops=3, s_subsweeps=4)
     out = {}
     for dev in ("cpu", "cuda"):
         data = panel.data.to(dev)
@@ -604,17 +782,18 @@ def small_agreement() -> dict:
             state = step(state, keys, i)
         out[dev] = add_loglik(state)
     a, b = out["cpu"], out["cuda"]
+    tag = f"small agreement (mode {mode}, A = {n_alleles})"
     for name in ("z", "gen"):
         if not torch.equal(getattr(a, name), getattr(b, name).cpu()):
-            raise AssertionError(f"small agreement: {name} differs between "
-                                 "the card and the CPU reference")
+            raise AssertionError(f"{tag}: {name} differs between the card "
+                                 "and the CPU reference")
     errs = {}
     for name, tol in (("q", 1e-4), ("freq", 1e-4), ("rates", 1e-5),
                       ("alpha", 1e-5), ("loglik_indv", 1e-2)):
         x, y = getattr(a, name), getattr(b, name).cpu()
-        errs[name] = max_err(x, y)
+        errs[name] = max_err(x, y) if x.numel() else 0.0
         if errs[name] > tol:
-            raise AssertionError(f"small agreement: {name} differs by "
+            raise AssertionError(f"{tag}: {name} differs by "
                                  f"{errs[name]:.3e} (> {tol})")
     return errs
 
@@ -689,13 +868,36 @@ def sweep_profile(data, spec, n_steps: int = 100) -> dict:
     return out
 
 
-def phase_main_path(panel, smi: str) -> dict:
-    spec = ModelSpec(mode=2, n_pops=N_POPS, s_subsweeps=SUBSWEEPS)
-    n_iter = N_ITER
+def expected_launches(spec, data, steps, evals, attempts) -> dict:
+    """Launches per kernel that ``run_mcmc``'s schedule predicts: ``steps``
+    sweeps, ``evals`` stored-step log-lik passes, ``attempts`` initial
+    states."""
+    suffix = "" if fs.is_packed(data) else "_generic"
+    sampling, stored = MODE_PASSES[spec.mode]
+    want = {sampling + suffix: steps, stored + suffix: evals,
+            "dirichlet_kla": steps, "dirichlet_nk": steps,
+            # the alpha step's words; modes 3-5 also draw their tail's
+            "philox_words": steps * (1 if spec.mode in (1, 2) else 2),
+            # seeds zcounts; the generic pass carries no counts, so the
+            # sweep recounts
+            "allele_counts": attempts + (steps if suffix else 0)}
+    if spec.mode == 2:
+        want["s_pop_tail"] = steps
+    return want
+
+
+def drive_path(tag, panel, spec, n_iter, smi, profile_sweeps=100) -> dict:
+    """Drive ``run_mcmc`` once with the launch counts set to 0 just before
+    and read just after; check the counts against the schedule, the output,
+    and that a second run from the seed is bitwise equal.  Returns the
+    launches by kernel."""
+    stored = n_iter // 2 // 10
     sched = Schedule(n_iter=n_iter, burnin=n_iter // 2, thinning=10,
-                     n_chains=N_CHAINS)
-    agreement = small_agreement()
+                     n_chains=N_CHAINS, ckrep=min(20, stored),
+                     nstep_check_empty_cluster=min(20, stored))
     data = panel.data.to("cuda")
+    n, l, a = data.n_indv, data.n_loci, data.max_alleles
+    k, mode = spec.n_pops, spec.mode
 
     torch.cuda.synchronize()
     _build.reset_launches()
@@ -703,78 +905,157 @@ def phase_main_path(panel, smi: str) -> dict:
     res = run_mcmc(panel.data, spec, sched, RUN_SEED, device="cuda")
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {k: int(_build.launches[k]) for k in MAIN_KERNELS}
+    launches = {name: int(cnt) for name, cnt in _build.launches.items()}
 
     attempts = 1 + res.n_retries
     steps = n_iter * attempts
-    stored = sched.n_stored
     last_extra = 0 if (n_iter - sched.burnin) % sched.thinning == 0 else 1
-    want = {"philox_words": steps, "site_pass_gendiff": steps,
-            "s_pop_tail": steps,
-            "dirichlet_kla": steps, "dirichlet_nk": steps,
-            "site_pass_loglik": (stored + last_extra) * attempts}
-    for name, n in want.items():
-        if launches[name] != n:
-            raise AssertionError(f"main path: {name} launched "
-                                 f"{launches[name]} times, expected {n}")
-    if launches["allele_counts"] < attempts:
-        raise AssertionError("main path: allele_counts was not launched")
+    want = expected_launches(spec, data, steps,
+                             (sched.n_stored + last_extra) * attempts,
+                             attempts)
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, the schedule "
+                             f"predicts {want}")
 
     st, acc = res.final_state, res.accum
+    r = spec.n_rates(n)
     checks = {
         "loglik finite": bool(torch.isfinite(st.loglik_indv).all()
                               and torch.isfinite(acc.mean.total_ll).all()
                               and torch.isfinite(acc.mean.ll_marg).all()),
-        "rates in (0,1)": bool(((st.rates > 0) & (st.rates < 1)).all()
-                               and ((acc.mean.rates > 0)
-                                    & (acc.mean.rates < 1)).all()),
+        "rates in [0,1]": bool(((st.rates >= 0) & (st.rates <= 1)).all()
+                               and ((acc.mean.rates >= 0)
+                                    & (acc.mean.rates <= 1)).all()),
         "Q rows sum to 1": bool(torch.allclose(
             st.q.sum(-1), torch.ones_like(st.q.sum(-1)), atol=1e-4)),
         "freq rows sum to 1": bool(torch.allclose(
             st.freq.sum(-1), torch.ones_like(st.freq.sum(-1)), atol=1e-4)),
-        "shapes": (tuple(st.z.shape) == (N_CHAINS, N_INDV, 2 * N_LOCI)
-                   and tuple(st.q.shape) == (N_CHAINS, N_INDV, N_POPS)
-                   and tuple(st.freq.shape) == (N_CHAINS, N_POPS, N_LOCI, 2)
-                   and tuple(acc.mean.rates.shape) == (N_CHAINS, N_POPS)),
-        "stored count": bool((acc.count == stored).all()),
+        "shapes": (tuple(st.z.shape) == (N_CHAINS, n, 2 * l)
+                   and tuple(st.q.shape) == (N_CHAINS, n, k)
+                   and tuple(st.freq.shape) == (N_CHAINS, k, l, a)
+                   and tuple(acc.mean.rates.shape) == (N_CHAINS, r)
+                   and tuple(st.gen.shape) == (
+                       N_CHAINS, n if spec.has_selfing else 0)),
+        "stored count": bool((acc.count == sched.n_stored).all()),
         "zcounts carried": bool(torch.equal(
             st.zcounts, fs.allele_counts_reference(
-                st.z, data.geno, data.site_valid, n_pops=N_POPS,
-                max_alleles=2))),
+                st.z, data.geno, data.site_valid, n_pops=k,
+                max_alleles=a))),
         "retries not exhausted": res.n_retries < 10,
         "dic finite": bool(np.isfinite(res.dic()).all()),
     }
-    bad = [k for k, ok in checks.items() if not ok]
+    bad = [name for name, ok in checks.items() if not ok]
     if bad:
-        raise AssertionError(f"main path: failed checks {bad}")
+        raise AssertionError(f"{tag}: failed checks {bad}")
 
     res2 = run_mcmc(panel.data, spec, sched, RUN_SEED, device="cuda")
     same = (torch.equal(res.final_state.z, res2.final_state.z)
             and torch.equal(res.final_state.rates, res2.final_state.rates)
+            and torch.equal(res.final_state.gen, res2.final_state.gen)
             and torch.equal(res.accum.mean.rates, res2.accum.mean.rates)
             and torch.equal(res.accum.mean.total_ll,
                             res2.accum.mean.total_ll))
-    tr1 = rates_trajectory(data, spec, 60)
-    tr2 = rates_trajectory(data, spec, 60)
-    same = same and torch.equal(tr1, tr2)
+    if r:
+        same = same and torch.equal(rates_trajectory(data, spec, 60),
+                                    rates_trajectory(data, spec, 60))
     if not same:
-        raise AssertionError("main path: two runs from one seed are not "
+        raise AssertionError(f"{tag}: two runs from one seed are not "
                              "bitwise equal")
-    emit("sweep_profile", card=smi, **sweep_profile(data, spec))
-    emit("main_path", card=smi, steps=steps, chains=N_CHAINS,
-         n_retries=res.n_retries, wall_seconds=round(wall, 3),
+    if profile_sweeps:
+        emit("sweep_profile", path=tag, card=smi,
+             **sweep_profile(data, spec, profile_sweeps))
+    mean_rates = acc.mean.rates.cpu()
+    emit(tag.split(":")[0], path=tag, card=smi, mode=mode,
+         panel=dict(N=n, L=l, A=a, packed=fs.is_packed(data)), steps=steps,
+         chains=N_CHAINS, n_retries=res.n_retries,
+         wall_seconds=round(wall, 3),
          chain_steps_per_second=round(N_CHAINS * steps / wall, 1),
          ms_per_step=round(1e3 * wall / steps, 4), launches=launches,
-         mean_rates=[[round(float(v), 4) for v in row]
-                     for row in acc.mean.rates.cpu()],
-         checks=sorted(checks), bitwise_reproducible=True,
-         small_agreement_max_abs_err=agreement)
+         # per pop, or the mean over individuals where S/F is per individual
+         mean_rates=[[round(float(v), 4) for v in
+                      (row if r == k else row.mean(0, keepdim=True))]
+                     for row in mean_rates if r],
+         checks=sorted(checks), bitwise_reproducible=True)
+    return launches
+
+
+def phase_main_path(panel, smi: str) -> dict:
+    agreement = small_agreement(2, 2)
+    emit("small_agreement", mode=2, A=2, max_abs_err=agreement)
+    spec = ModelSpec(mode=2, n_pops=N_POPS, s_subsweeps=SUBSWEEPS)
+    return drive_path("main_path: mode 2, packed panel", panel, spec, N_ITER,
+                      smi)
+
+
+def direct_calls(x, tag) -> None:
+    """The two entry points that no sweep runs, called as a user would and
+    held to the identities that define them: ``zq_gendiff_pass`` is the
+    column difference of ``zq_gen_pass`` (same z), and ``zq_mode1_pass``'s
+    log-lik is ``panel_loglik_mode1_pass`` at the z it drew."""
+    d, keys = x["data"], x["keys"]
+    scale = d.n_loci / 10_000
+    for structure in (True, False):
+        args = (keys, 8, x["q"], x["freq"], d, x["wg_pair"])
+        z, qq, ll2, _ = fs.zq_gen_pass(*args, structure=structure)
+        zd, qqd, lld, _ = fs.zq_gendiff_pass(*args, structure=structure)
+        if not (torch.equal(z, zd) and torch.equal(qq, qqd)):
+            raise AssertionError(f"{tag}: zq_gen_pass and zq_gendiff_pass "
+                                 "draw different z from one seed")
+        # a difference of two sums of ~L logs against one sum of ratios
+        check_close(f"{tag} gendiff == gen[1] - gen[0] (structure="
+                    f"{structure})", lld, ll2[:, :, 1] - ll2[:, :, 0],
+                    rtol=1e-4, atol=5e-2 * scale)
+    z, _, ll, _ = fs.zq_mode1_pass(keys, 8, x["q"], x["freq"], d)
+    check_close(f"{tag} zq_mode1_pass ll == panel_loglik_mode1_pass at its "
+                "z", ll, fs.panel_loglik_mode1_pass(x["freq"], None, d, z),
+                rtol=1e-5, atol=1e-2 * scale)
+
+
+def phase_modes(panel, panel_a, smi: str) -> dict:
+    """The other paths: modes 1, 3, 4, 5 on the headline panel, every mode
+    on the A = 8 panel (mode 2 at the main path's depth, the others
+    shorter), and the direct calls.  Returns launches by kernel, each from
+    the path that runs it."""
+    launches = {}
+    agreement = {}
+    for a in (2, 4):
+        for mode in (1, 2, 3, 4, 5):
+            if (mode, a) != (2, 2):            # the main path's own check
+                agreement[f"mode {mode}, A={a}"] = small_agreement(mode, a)
+    emit("small_agreement", sweeps=3, max_abs_err=agreement)
+    for mode in (1, 3, 4, 5):
+        spec = ModelSpec(mode=mode, n_pops=N_POPS, s_subsweeps=SUBSWEEPS)
+        got = drive_path(f"modes: mode {mode}, packed panel", panel, spec,
+                         N_ITER, smi)
+        launches.update({name: n for name, n in got.items()
+                         if name in MODE_PASSES[mode]})
+    for mode in (2, 1, 3, 4, 5):
+        spec = ModelSpec(mode=mode, n_pops=N_POPS, s_subsweeps=SUBSWEEPS)
+        got = drive_path(f"modes: mode {mode}, A = {GEN_ALLELES} panel",
+                         panel_a, spec, N_ITER if mode == 2 else 40, smi,
+                         profile_sweeps=100 if mode == 2 else 0)
+        # mode 2 runs first and deepest: its counts stand for the passes
+        # that mode 3 shares with it
+        for name, n in got.items():
+            if name.endswith("_generic"):
+                launches.setdefault(name, n)
+    _build.reset_launches()
+    for pnl, tag in ((panel, "direct calls, packed panel"),
+                     (panel_a, f"direct calls, A = {GEN_ALLELES} panel")):
+        direct_calls(kernel_inputs(pnl), tag)
+        torch.cuda.empty_cache()
+    emit("direct_calls", launches=dict(_build.launches),
+         identities=["gendiff == gen[1] - gen[0]",
+                     "mode1 ll == loglik_mode1 at the fresh z"])
+    launches.update({name: int(n) for name, n in _build.launches.items()
+                     if name.replace("_generic", "") in (
+                         "site_pass_gen", "site_pass_mode1")})
     return launches
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,main_path")
+    ap.add_argument("--phases", default="build,kernels,main_path,modes")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -785,24 +1066,31 @@ def main(argv=None) -> int:
     if "build" in phases:
         phase_build()
     philox_entry = phase_philox()
+    rates = np.array([0.1, 0.4, 0.8])
     panel = synthetic_panel(N_INDV, N_LOCI, n_pops=N_POPS, n_alleles=2,
-                            selfing_rates=np.array([0.1, 0.4, 0.8]),
-                            admixture_alpha=0.1, seed=PANEL_SEED)
-    entries = (phase_kernels(panel, philox_entry) if "kernels" in phases
-               else {})
+                            selfing_rates=rates, admixture_alpha=0.1,
+                            seed=PANEL_SEED)
+    panel_a = synthetic_panel(N_INDV, GEN_LOCI, n_pops=N_POPS,
+                              n_alleles=GEN_ALLELES, selfing_rates=rates,
+                              admixture_alpha=0.1, seed=PANEL_SEED)
+    entries = (phase_kernels(panel, panel_a, philox_entry)
+               if "kernels" in phases else {})
     launches = (phase_main_path(panel, smi)
                 if "main_path" in phases else {})
-    full = {"kernels", "main_path"} <= phases
+    if "modes" in phases:
+        # a kernel of the main path keeps the main path's count
+        launches = {**phase_modes(panel, panel_a, smi), **launches}
+    full = {"kernels", "main_path", "modes"} <= phases
     if full:
         keys = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
         summary = []
-        for name in MAIN_KERNELS:
-            e = dict(entries[name], launches=launches[name])
+        for name, e in entries.items():
+            e = dict(e, launches=launches.get(name, 0))
             if e["launches"] < 1:
-                raise AssertionError(f"{name} was never launched on the "
-                                     "main path")
+                raise AssertionError(f"{name} was never launched on a "
+                                     "driven path")
             summary.append({k: e[k] for k in keys})
         print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)

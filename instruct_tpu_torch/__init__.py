@@ -7,8 +7,10 @@ first use, bound with ``ctypes``) wherever the JAX package has a Pallas
 kernel.  The package imports ``torch`` and numpy only, never ``jax`` and
 nothing of ``instruct_tpu``.
 
-Ported so far: the diploid mode-2 sweep (admixture + population-level
-selfing rates) on a biallelic panel, end to end through :func:`run_mcmc`.
+Ported so far: the fused sweeps of the diploid modes 1-5 (admixture,
+population- and individual-level selfing, population- and individual-level
+inbreeding; uniform prior, back-reflection proposal, K <= 8) on packed
+biallelic and on multi-allelic panels, end to end through :func:`run_mcmc`.
 Sub-packages and functions keep the names of their counterparts in
 ``instruct_tpu``.  Entry points run on ``device="cuda"`` unless the caller
 asks for the CPU, where the kernels' plain PyTorch versions run instead.

@@ -113,6 +113,20 @@ def make_dataset(geno: np.ndarray, missing: np.ndarray,
     ).to(device)
 
 
+def packed_dataset(bits2: torch.Tensor) -> Dataset:
+    """The diploid-biallelic :class:`Dataset` that a packed site plane
+    int8[N, L] stands for (every locus with both alleles valid), on the
+    plane's device."""
+    si = bits2.to(torch.int64)
+    g0, g1 = si & 1, (si >> 1) & 1
+    return Dataset(
+        geno=torch.cat([g0, g1], dim=1).to(torch.int8),
+        site_valid=(si & 4) != 0,
+        allele_valid=torch.ones((bits2.shape[1], 2), dtype=torch.bool,
+                                device=bits2.device),
+        hom=g0 == g1, bits2=bits2)
+
+
 @dataclasses.dataclass
 class Panel:
     """Host-side panel: the Dataset plus human metadata (individual labels,

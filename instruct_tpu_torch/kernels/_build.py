@@ -50,8 +50,9 @@ _P, _I, _L, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 
 # name -> argtypes; every function returns the cudaGetLastError() code
 _SIGNATURES = {
-    # out, C, n_blocks, k0, k1, stream_id, step, chain_key, stream
-    "philox_fill_launch": [_P, _I, _L, _U, _U, _U, _U, _P, _P],
+    # out, C, n_streams, n_blocks, k0, k1, first stream id, step, chain_key,
+    # stream
+    "philox_fill_launch": [_P, _I, _I, _L, _U, _U, _U, _U, _P, _P],
     # conc, valid, draws, out, C, G, J, M, conc/out strides (c, g, j, m),
     # valid strides (g, j, m), rounds, k0, k1, chain_key, step, stream_id,
     # stream
@@ -62,13 +63,12 @@ _SIGNATURES = {
     # gen_cap, k0, k1, chain_key, step, stream
     "s_pop_tail_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _F, _I, _U, _U, _P, _U, _P],
-    # q, freq, bits2, wg_pair, u, z, qqnum, zcounts, ll, ll_part, qq_part,
-    # C, N, L, K, structure, k0, k1, chain_key, step, stream
-    "site_gendiff_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                            _I, _I, _I, _I, _U, _U, _P, _U, _P],
-    # q, freq, bits2, z, wg, ll, ll_part, C, N, L, K, structure, stream
-    "site_loglik_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _P],
+    # q, freq, bits2, geno, valid, hom, z_in, colv, fvals, u, z, qqnum,
+    # zcounts, ll, ll_part, qq_part, C, N, L, K, A, family, structure, k0, k1,
+    # chain_key, step, stream -- one per source of the site pass
+    **{f"site_{path}_{half}_launch": [_P] * 16 + [_I] * 7 + [_U, _U, _P, _U,
+                                                           _P]
+       for path in ("packed", "generic") for half in ("sample", "eval")},
     # z, bits2, geno, valid, counts, C, N, L, K, A, stream
     "allele_counts_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # L -> locus tiles per row of the site pass (not a launch)

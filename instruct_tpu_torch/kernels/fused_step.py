@@ -1,26 +1,44 @@
-"""The per-site passes of the diploid mode-2 sweep.
+"""The per-site passes of the diploid sweep (modes 1-5).
 
-Counterpart of ``instruct_tpu/kernels/fused_step.py`` for the entry points
-the mode-2 fused step runs:
+Counterpart of ``instruct_tpu/kernels/fused_step.py``:
 
-  * :func:`allele_counts` (:87 there) — counts [K, L, A] of valid allele
+  * :func:`allele_counts` (:87 there) -- counts [K, L, A] of valid allele
     copies from (z, panel);
-  * :func:`zq_gendiff_pass` (:748) — one read of the site plane: per-copy
-    ``z ~ Cat(q_k * P[k, l, a])`` by inverse CDF, per-individual pop counts,
-    the allele-pop counts of the fresh z, and the G-update MH log-ratio
-    evaluated at that fresh z (the sweep order is "Z, then G | z", so the
-    sampling pass never reads the old z);
-  * :func:`panel_loglik_pass` (:803) — cal_lkh per individual at the
-    carried z.
+  * the entry points of the per-site pass ``_site_pass`` (:612), one read of
+    the site planes each.  A *sampling* pass draws per copy
+    ``z ~ Cat(q_k * P[k, l, a])`` by inverse CDF, counts each individual's
+    copies per pop (``qqnum``) and the allele-pop counts of the fresh z
+    (``zcounts``), and evaluates one log-lik family at that fresh z (the
+    sweep order is "Z, then G | z" / "Z, then F | z", so a sampling pass
+    never reads the old z and takes no ``z_old`` argument); a *stored-step*
+    pass evaluates cal_lkh per individual at the carried z:
+
+      ==================  ==========================  =======================
+      family              sampling pass               stored-step pass
+      ==================  ==========================  =======================
+      none                :func:`zq_sample_pass`
+      mode1 (no selfing)  :func:`zq_mode1_pass`       :func:`panel_loglik_mode1_pass`
+      gen (two columns)   :func:`zq_gen_pass`         :func:`panel_loglik_pass`
+      gendiff (G MH)      :func:`zq_gendiff_pass`
+      find (F per indv)   :func:`zq_f_pass` pop=False  :func:`panel_loglik_f_pass`
+      fpop (F per pop)    :func:`zq_f_pass` pop=True   :func:`panel_loglik_f_pass`
+      ==================  ==========================  =======================
+
+Every entry point takes the panel as a :class:`Dataset`.  A packed
+diploid-biallelic panel (``data.bits2`` present, A = 2) runs the affine
+path: the CDF prefixes are ``A_j + B_j * g`` in the allele bit g (the JAX
+kernel's biallelic fast path, ``fused_step.py:258-286``).  Any other panel
+runs the generic path: ``cum += q_k * w_k`` with ``w_k = P[k, l, a]`` picked
+by the allele code (:288-299, :374-390).  The two round differently, so
+each path is its own plain version; ``data._replace(bits2=None)`` sends a
+biallelic panel down the generic path.  The generic sampling passes carry
+no allele-pop counts (``zcounts`` is ``None``): the step recounts with
+:func:`allele_counts`, as the JAX step does over its VMEM budget.
 
 Chains are a written-out leading axis ``C`` on every state tensor; the panel
-tensors carry none.  On CUDA tensors the wrappers launch
-``csrc/site_pass.cu`` / ``csrc/allele_counts.cu``; on CPU tensors they run
-the plain versions below.  Only the packed diploid-biallelic panel
-(``Dataset.bits2``) is ported for the site pass; the generic A > 2 path and
-the other wrappers of the JAX module (``zq_gen_pass``, ``zq_sample_pass``,
-``zq_mode1_pass``, ``panel_loglik_mode1_pass``, ``zq_f_pass``,
-``panel_loglik_f_pass``) are still to be ported.
+tensors carry none.  On CUDA tensors the wrappers launch the kernels of
+``csrc/site_pass.cuh`` / ``csrc/allele_counts.cu``; on CPU tensors they run
+the plain versions (``*_reference``, same signature) below.
 
 z-draw uniforms: site ``(n, s)``, ``s = copy * L + l``, takes Philox word
 ``n * 2L + s`` of the (chain, step, ``STREAM_Z``) counter space through the
@@ -33,12 +51,16 @@ from typing import Optional
 
 import torch
 
+from instruct_tpu_torch.data.dataset import Dataset
 from instruct_tpu_torch.kernels import _build
 from instruct_tpu_torch.kernels import philox as px
 
 _LOG2 = 0.6931471805599453
 _EPS = 1e-30
 MAX_POPS = 8       # the site kernels are instantiated for K = 1..8
+
+# log-lik families; the values are those of csrc/site_pass.cuh
+_FAMILY = dict(none=0, mode1=1, gen=2, gendiff=3, find=4, fpop=5)
 
 
 def _log(x):
@@ -55,12 +77,10 @@ def unpack_bits2(bits2: torch.Tensor):
     return g0, g1, (si & 4) != 0, g0 == g1
 
 
-def _need_bits2(bits2):
-    if bits2 is None:
-        raise NotImplementedError(
-            "the site pass is ported for the packed diploid-biallelic panel "
-            "(Dataset.bits2) only; the generic A > 2 path is still to be "
-            "ported (ROADMAP: remaining K1 variants)")
+def is_packed(data: Dataset) -> bool:
+    """Whether the site pass reads ``data.bits2`` (the affine biallelic
+    path) rather than the allele codes (the generic path)."""
+    return data.bits2 is not None and data.max_alleles == 2
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +142,7 @@ def allele_counts(z: torch.Tensor, geno: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# the site pass
+# the site pass: plain version
 # ---------------------------------------------------------------------------
 
 def _site_uniforms(keys, step, c, n, l, u, device):
@@ -136,24 +156,6 @@ def _site_uniforms(keys, step, c, n, l, u, device):
     return px.u01_closed(words).reshape(c, n, 2 * l)
 
 
-def _prefix_planes(q, freq):
-    """CDF prefixes of the z draw, affine in the allele indicator g:
-    ``cum_j(g) = A[j] + B[j] * g`` with f32[C, N, L] planes (the biallelic
-    fast path of the JAX kernel, ``fused_step.py:258-286``)."""
-    k = q.shape[-1]
-    f0 = [freq[:, kk, :, 0][:, None, :] for kk in range(k)]
-    d = [freq[:, kk, :, 1][:, None, :] - f0[kk] for kk in range(k)]
-    qc = [q[:, :, kk][:, :, None] for kk in range(k)]
-    cum_a, cum_b = qc[0] * f0[0], qc[0] * d[0]
-    a, b = [cum_a], [cum_b]
-    for kk in range(1, k):
-        cum_a = cum_a + qc[kk] * f0[kk]
-        cum_b = cum_b + qc[kk] * d[kk]
-        a.append(cum_a)
-        b.append(cum_b)
-    return f0, d, a, b
-
-
 def _at_z(rows, zc):
     out = rows[0].expand_as(zc)
     for kk in range(1, len(rows)):
@@ -161,168 +163,437 @@ def _at_z(rows, zc):
     return out
 
 
-def zq_gendiff_pass_reference(keys, step: int, q, freq, bits2, wg_pair, *,
-                              structure: bool, u=None):
-    """Plain PyTorch version of :func:`zq_gendiff_pass` (same signature)."""
-    _need_bits2(bits2)
-    c, n, k = q.shape
-    l = bits2.shape[1]
-    g0, g1, valid, hom = unpack_bits2(bits2)
-    g0f = g0.to(torch.float32)[None]
-    g1f = g1.to(torch.float32)[None]
-    valid, hom = valid[None], hom[None]
-    uu = _site_uniforms(keys, step, c, n, l, u, q.device)
-    f0, d, a, b = _prefix_planes(q, freq)
-
-    def draw(gf, u01):
-        tot = a[-1] + b[-1] * gf
-        ut = u01 * tot
-        zc = torch.zeros(tot.shape, dtype=torch.int64, device=q.device)
-        for jj in range(k - 1):
-            zc = zc + (ut > a[jj] + b[jj] * gf)
-        return zc, tot
-
-    z0, tot0 = draw(g0f, uu[:, :, :l])
-    z1, _ = draw(g1f, uu[:, :, l:])
-    z = torch.cat([z0, z1], dim=2).to(torch.int8)
-
-    vf = valid.to(torch.float32)
-    qqnum = torch.stack(
-        [(((z0 == kk).to(torch.float32) + (z1 == kk).to(torch.float32))
-          * vf).sum(dim=2) for kk in range(k)], dim=2)
-    zcounts = torch.stack([torch.stack(
-        [(((z0 == kk) & (g0[None] == ai)).to(torch.float32)
-          + ((z1 == kk) & (g1[None] == ai)).to(torch.float32))
-         .mul(vf).sum(dim=1) for ai in range(2)], dim=2)
-        for kk in range(k)], dim=1)
-
-    # G-update MH log-ratio at the fresh z (update_G): only hom sites take
-    # a log; het sites add the row constant log(w_p / w_c)
-    if structure:
-        p0 = _at_z(f0, z0) + _at_z(d, z0) * g0f
-        m = (z0 == z1) & valid
+def _site_pass_reference(keys, step, q, freq, data: Dataset, z_in, colv,
+                         fvals, u, *, sample: bool, ll_kind: str,
+                         structure: bool = True):
+    """Plain PyTorch version of the whole per-site pass (every family, both
+    paths), the function ``_site_kernel`` of the JAX package computes:
+    dict with ``z``, ``qqnum``, ``zcounts`` (sampling) and ``ll``
+    f32[C, N, n_out] (families other than none)."""
+    c, k, l, a = freq.shape
+    n = data.n_indv
+    dev = freq.device
+    packed = is_packed(data)
+    if packed:
+        g0, g1, valid, hom = unpack_bits2(data.bits2)
     else:
-        p0 = tot0
-        m = valid.expand_as(z0)
-    wc = wg_pair[:, :, 0][:, :, None]
-    wp = wg_pair[:, :, 1][:, :, None]
-    q1 = 1.0 - p0
-    ratio = (torch.clamp_min(1.0 - q1 * wp, _EPS)
-             / torch.clamp_min(1.0 - q1 * wc, _EPS))
-    mh = (m & hom).to(torch.float32)
-    mt = (m & ~hom).to(torch.float32)
-    dh = _log(wg_pair[:, :, 1]) - _log(wg_pair[:, :, 0])
-    ll_diff = (torch.log(ratio) * mh).sum(dim=2) + dh * mt.sum(dim=2)
-    return z, qqnum, ll_diff, zcounts
+        g0 = data.geno[:, :l].to(torch.int64)
+        g1 = data.geno[:, l:].to(torch.int64)
+        valid, hom = data.site_valid, data.hom
+    g0, g1, valid, hom = g0[None], g1[None], valid[None], hom[None]
+    vf = valid.to(torch.float32)
+    gen_fam = ll_kind in ("gen", "gendiff")
+    mix = gen_fam and not structure      # expectation way: the Q mixture
+
+    # per-pop probability of each copy's allele, w_c[k] f32[C, N, L]
+    if packed:
+        g0f, g1f = g0.to(torch.float32), g1.to(torch.float32)
+        f0 = [freq[:, kk, :, 0][:, None, :] for kk in range(k)]
+        d = [freq[:, kk, :, 1][:, None, :] - f0[kk] for kk in range(k)]
+        w0 = [f0[kk] + d[kk] * g0f for kk in range(k)]
+        w1 = [f0[kk] + d[kk] * g1f for kk in range(k)]
+    else:
+        def w_of(gc):
+            ws = []
+            for kk in range(k):
+                w = torch.zeros((c, n, l), dtype=torch.float32, device=dev)
+                for ai in range(a):
+                    w = torch.where(gc == ai, freq[:, kk, :, ai][:, None, :],
+                                    w)
+                ws.append(w)
+            return ws
+        w0, w1 = w_of(g0), w_of(g1)
+
+    # CDF prefixes of the z draw; the last is the Q-mixture probability
+    cum0 = cum1 = None
+    if sample or mix:
+        qc = [q[:, :, kk][:, :, None] for kk in range(k)]
+        if packed:
+            ca, cb = qc[0] * f0[0], qc[0] * d[0]
+            cum0, cum1 = [ca + cb * g0f], [ca + cb * g1f]
+            for kk in range(1, k):
+                ca = ca + qc[kk] * f0[kk]
+                cb = cb + qc[kk] * d[kk]
+                cum0.append(ca + cb * g0f)
+                cum1.append(ca + cb * g1f)
+        else:
+            def prefixes(ws):
+                cc = qc[0] * ws[0]
+                out = [cc]
+                for kk in range(1, k):
+                    cc = cc + qc[kk] * ws[kk]
+                    out.append(cc)
+                return out
+            cum0, cum1 = prefixes(w0), prefixes(w1)
+
+    res = {}
+    if sample:
+        uu = _site_uniforms(keys, step, c, n, l, u, dev)
+
+        def draw(cum, u01):
+            ut = u01 * cum[-1]
+            zc = torch.zeros((c, n, l), dtype=torch.int64, device=dev)
+            for jj in range(k - 1):
+                zc = zc + (ut > cum[jj])
+            return zc
+
+        z0, z1 = draw(cum0, uu[:, :, :l]), draw(cum1, uu[:, :, l:])
+        res["z"] = torch.cat([z0, z1], dim=2).to(torch.int8)
+        res["qqnum"] = torch.stack(
+            [(((z0 == kk).to(torch.float32) + (z1 == kk).to(torch.float32))
+              * vf).sum(dim=2) for kk in range(k)], dim=2)
+        res["zcounts"] = None
+        if packed:
+            res["zcounts"] = torch.stack([torch.stack(
+                [(((z0 == kk) & (g0 == ai)).to(torch.float32)
+                  + ((z1 == kk) & (g1 == ai)).to(torch.float32))
+                 .mul(vf).sum(dim=1) for ai in range(2)], dim=2)
+                for kk in range(k)], dim=1)
+    else:
+        z0 = z_in[:, :, :l].to(torch.int64)
+        z1 = z_in[:, :, l:].to(torch.int64)
+    if ll_kind == "none":
+        return res
+
+    p0 = cum0[-1] if mix else _at_z(w0, z0)
+    p1 = cum1[-1] if mix else _at_z(w1, z1)
+    same = z0 == z1
+    hom_f = hom.to(torch.float32)
+
+    def col(t, i):
+        return t[:, :, i][:, :, None]
+
+    if ll_kind == "mode1":
+        # cal_lkh of the no-selfing model (log_ld_noselfing_indv)
+        site = _log(p0) + _log(p1) + (g0 != g1).to(torch.float32) * _LOG2
+        cols = [(site * vf).sum(dim=2)]
+    elif ll_kind == "gen":
+        # selfing-generation columns (log_ld_indv); colv = 2^(1-g)
+        indep = _log(p0) + _log(p1) + (1.0 - hom_f) * _LOG2
+        cols = []
+        for i in range(colv.shape[2]):
+            wg = col(colv, i)
+            site = _log(torch.where(
+                hom, p0 * p0 + p0 * (1.0 - p0) * (1.0 - wg),
+                2.0 * p0 * p1 * wg))
+            if structure:
+                site = torch.where(same, site, indep)
+            cols.append((site * vf).sum(dim=2))
+    elif ll_kind == "gendiff":
+        # G-update MH log-ratio (update_G): only hom sites take a log; het
+        # sites add the row constant log(w_p / w_c)
+        m = (same & valid) if structure else valid.expand_as(same)
+        wc, wp = col(colv, 0), col(colv, 1)
+        q1 = 1.0 - p0
+        ratio = (torch.clamp_min(1.0 - q1 * wp, _EPS)
+                 / torch.clamp_min(1.0 - q1 * wc, _EPS))
+        mh = (m & hom).to(torch.float32)
+        mt = (m & ~hom).to(torch.float32)
+        dh = _log(colv[:, :, 1]) - _log(colv[:, :, 0])
+        cols = [(torch.log(ratio) * mh).sum(dim=2) + dh * mt.sum(dim=2)]
+    else:
+        # inbreeding families: f per individual (find) or of pop z0 (fpop)
+        def f_col(i):
+            if ll_kind == "find":
+                return col(colv, i)
+            return _at_z([fvals[:, kk, i][:, None, None] for kk in range(k)],
+                         z0)
+
+        if sample:
+            # MH terms over the F-dependent same-z sites: one log of a
+            # quotient, the common p0 / 2 p0 p1 factors cancelled
+            fa, fb = f_col(0), f_col(1)
+            num = torch.where(hom, p0 * (1.0 - fb) + fb, 1.0 - fb)
+            den = torch.where(hom, p0 * (1.0 - fa) + fa, 1.0 - fa)
+            dl = (torch.log(torch.clamp_min(num, _EPS)
+                            / torch.clamp_min(den, _EPS))
+                  * (same.to(torch.float32) * vf))
+            if ll_kind == "find":
+                cols = [dl.sum(dim=2)]
+            else:
+                cols = [(dl * (z0 == kk).to(torch.float32)).sum(dim=2)
+                        for kk in range(k)]
+        else:
+            # cal_lkh (log_ld_F_indv / log_ld_F_pop)
+            f = f_col(0)
+            joint = _log(torch.where(hom, p0 * p0 * (1.0 - f) + p0 * f,
+                                     2.0 * p0 * p1 * (1.0 - f)))
+            indep = _log(p0) + _log(p1) + (1.0 - hom_f) * _LOG2
+            cols = [(torch.where(same, joint, indep) * vf).sum(dim=2)]
+    res["ll"] = torch.stack(cols, dim=2)
+    return res
 
 
-def _check_site_inputs(q, freq, bits2):
-    c, n, k = q.shape
+# ---------------------------------------------------------------------------
+# the site pass: kernel launch
+# ---------------------------------------------------------------------------
+
+def _site_pass(name: str, keys, step, q, freq, data: Dataset, z_in, colv,
+               fvals, u, *, sample: bool, ll_kind: str,
+               structure: bool = True):
+    """Run one per-site pass: the plain version on CPU tensors, the kernel
+    (counted under ``name``, or ``name + "_generic"`` on the generic path)
+    on CUDA tensors.  Same result dict as :func:`_site_pass_reference`."""
+    if freq.dim() != 4:
+        raise ValueError("freq must be [C, K, L, A]")
+    c, k, l, a = freq.shape
+    n = data.n_indv
     if k > MAX_POPS:
         raise ValueError(f"the site pass supports n_pops <= {MAX_POPS}, "
                          f"got {k}")
-    l = bits2.shape[1]
+    if (data.n_loci, data.max_alleles, data.ploid) != (l, a, 2):
+        raise ValueError(f"freq {tuple(freq.shape)} does not fit a diploid "
+                         f"panel of {data.n_loci} loci x "
+                         f"{data.max_alleles} alleles")
+    if not freq.is_cuda:
+        return _site_pass_reference(keys, step, q, freq, data, z_in, colv,
+                                    fvals, u, sample=sample, ll_kind=ll_kind,
+                                    structure=structure)
     if n * 2 * l >= 1 << 34:
         raise ValueError("more than 2^32 Philox blocks in one stream")
-    _build.check(q, "q", torch.float32, (c, n, k))
-    _build.check(freq, "freq", torch.float32, (c, k, l, 2))
-    _build.check(bits2, "bits2", torch.int8, (n, l))
-    return c, n, l, k
+    packed = is_packed(data)
+    n_in = 2 if sample else 1
+    n_out = {"none": 0, "gendiff": 1, "gen": n_in,
+             "fpop": k if sample else 1}.get(ll_kind, 1)
+    chk = _build.check
+    chk(freq, "freq", torch.float32, (c, k, l, a))
+    if q is not None:
+        chk(q, "q", torch.float32, (c, n, k))
+    if packed:
+        chk(data.bits2, "bits2", torch.int8, (n, l))
+        planes = (data.bits2, None, None, None)
+    else:
+        chk(data.geno, "geno", torch.int8, (n, 2 * l))
+        chk(data.site_valid, "site_valid", torch.bool, (n, l))
+        chk(data.hom, "hom", torch.bool, (n, l))
+        planes = (None, data.geno, data.site_valid, data.hom)
+    if z_in is not None:
+        chk(z_in, "z", torch.int8, (c, n, 2 * l))
+    if colv is not None:
+        chk(colv, "colv", torch.float32, (c, n, n_in))
+    if fvals is not None:
+        chk(fvals, "fvals", torch.float32, (c, k, n_in))
+    if u is not None:
+        chk(u, "u", torch.float32, (c, n, 2 * l))
+    dev = freq.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    t = _build.library().site_pass_tiles(l)
+    res = {}
+    z = qqnum = zcounts = qq_part = ll = ll_part = chain_key = None
+    if sample:
+        chain_key = keys.chain_key
+        chk(chain_key, "chain_key", torch.int32, (c,))
+        z = torch.empty((c, n, 2 * l), dtype=torch.int8, device=dev)
+        qqnum = torch.empty((c, n, k), **f32)
+        qq_part = torch.empty((c, n, t, k), **f32)
+        if packed:
+            zcounts = torch.empty((c, k, l, 2), **f32)
+        res.update(z=z, qqnum=qqnum, zcounts=zcounts)
+    if n_out:
+        ll = torch.empty((c, n, n_out), **f32)
+        ll_part = torch.empty((c, n, t, n_out), **f32)
+        res["ll"] = ll
+    p = _build.ptr
+    fn = (f"site_{'packed' if packed else 'generic'}_"
+          f"{'sample' if sample else 'eval'}_launch")
+    _build.launch(name if packed else name + "_generic", fn, p(q), p(freq),
+                  *[p(x) for x in planes], p(z_in), p(colv), p(fvals), p(u),
+                  p(z), p(qqnum), p(zcounts), p(ll), p(ll_part), p(qq_part),
+                  c, n, l, k, a, _FAMILY[ll_kind], int(structure),
+                  keys.k0 if sample else 0, keys.k1 if sample else 0,
+                  p(chain_key), step if sample else 0)
+    return res
+
+
+def _need_q(q):
+    if q is None or q.dim() != 3:
+        raise ValueError("q must be [C, N, K]")
+
+
+# ---------------------------------------------------------------------------
+# the entry points
+# ---------------------------------------------------------------------------
+# Shared argument conventions:
+#   keys     RngKeys (seed + per-chain keys); step  the step index
+#   q        f32[C, N, K]      admixture proportions
+#   freq     f32[C, K, L, A]   allele frequencies
+#   data     Dataset           the panel (see the module docstring)
+#   z        int8[C, N, 2L]    carried per-copy assignments, copy-major
+#   u        f32[C, N, 2L]     optional injected z-draw uniforms
+# A sampling pass returns z int8[C, N, 2L], qqnum f32[C, N, K] and zcounts
+# f32[C, K, L, 2] (None on the generic path).
+
+def zq_sample_pass_reference(keys, step: int, q, freq, data, *, u=None):
+    """Plain PyTorch version of :func:`zq_sample_pass` (same signature)."""
+    r = _site_pass_reference(keys, step, q, freq, data, None, None, None, u,
+                             sample=True, ll_kind="none")
+    return r["z"], r["qqnum"], r["zcounts"]
+
+
+def zq_sample_pass(keys, step: int, q: torch.Tensor, freq: torch.Tensor,
+                   data: Dataset, *, u: Optional[torch.Tensor] = None):
+    """Sampling only (the mode-1 sweep; its cal_lkh is deferred to stored
+    steps, :func:`panel_loglik_mode1_pass`).  Returns (z, qqnum, zcounts)."""
+    _need_q(q)
+    r = _site_pass("site_pass_sample", keys, step, q, freq, data, None, None,
+                   None, u, sample=True, ll_kind="none")
+    return r["z"], r["qqnum"], r["zcounts"]
+
+
+def zq_mode1_pass_reference(keys, step: int, q, freq, data, *, u=None):
+    """Plain PyTorch version of :func:`zq_mode1_pass` (same signature)."""
+    r = _site_pass_reference(keys, step, q, freq, data, None, None, None, u,
+                             sample=True, ll_kind="mode1")
+    return r["z"], r["qqnum"], r["ll"][:, :, 0], r["zcounts"]
+
+
+def zq_mode1_pass(keys, step: int, q: torch.Tensor, freq: torch.Tensor,
+                  data: Dataset, *, u: Optional[torch.Tensor] = None):
+    """Mode 1 (no selfing) in one pass: sample z, count, and cal_lkh at the
+    fresh z.  Returns (z, qqnum, ll f32[C, N], zcounts)."""
+    _need_q(q)
+    r = _site_pass("site_pass_mode1", keys, step, q, freq, data, None, None,
+                   None, u, sample=True, ll_kind="mode1")
+    return r["z"], r["qqnum"], r["ll"][:, :, 0], r["zcounts"]
+
+
+def panel_loglik_mode1_pass_reference(freq, q, data, z):
+    """Plain PyTorch version of :func:`panel_loglik_mode1_pass` (same
+    signature)."""
+    r = _site_pass_reference(None, 0, q, freq, data, z, None, None, None,
+                             sample=False, ll_kind="mode1")
+    return r["ll"][:, :, 0]
+
+
+def panel_loglik_mode1_pass(freq: torch.Tensor, q: Optional[torch.Tensor],
+                            data: Dataset, z: torch.Tensor) -> torch.Tensor:
+    """cal_lkh for mode 1 (log_ld_noselfing_indv) at the carried z:
+    f32[C, N].  ``q`` is not read (the family is z-conditioned); it keeps
+    its place from the JAX signature and may be ``None``."""
+    r = _site_pass("site_pass_loglik_mode1", None, 0, None, freq, data, z,
+                   None, None, None, sample=False, ll_kind="mode1")
+    return r["ll"][:, :, 0]
+
+
+def zq_gen_pass_reference(keys, step: int, q, freq, data, wg_pair, *,
+                          structure: bool, u=None):
+    """Plain PyTorch version of :func:`zq_gen_pass` (same signature)."""
+    r = _site_pass_reference(keys, step, q, freq, data, None, wg_pair, None,
+                             u, sample=True, ll_kind="gen",
+                             structure=structure)
+    return r["z"], r["qqnum"], r["ll"], r["zcounts"]
+
+
+def zq_gen_pass(keys, step: int, q: torch.Tensor, freq: torch.Tensor,
+                data: Dataset, wg_pair: torch.Tensor, *, structure: bool,
+                u: Optional[torch.Tensor] = None):
+    """Sample z, count, and the selfing log-lik at the current and the
+    proposed generation counts: ``wg_pair`` f32[C, N, 2] = 2^(1-g) at
+    (current, proposed) g.  Returns (z, qqnum, ll f32[C, N, 2], zcounts).
+    ``structure`` picks the structure way (z-conditioned copy
+    probabilities) over the expectation way."""
+    _need_q(q)
+    r = _site_pass("site_pass_gen", keys, step, q, freq, data, None, wg_pair,
+                   None, u, sample=True, ll_kind="gen", structure=structure)
+    return r["z"], r["qqnum"], r["ll"], r["zcounts"]
+
+
+def zq_gendiff_pass_reference(keys, step: int, q, freq, data, wg_pair, *,
+                              structure: bool, u=None):
+    """Plain PyTorch version of :func:`zq_gendiff_pass` (same signature)."""
+    r = _site_pass_reference(keys, step, q, freq, data, None, wg_pair, None,
+                             u, sample=True, ll_kind="gendiff",
+                             structure=structure)
+    return r["z"], r["qqnum"], r["ll"][:, :, 0], r["zcounts"]
 
 
 def zq_gendiff_pass(keys, step: int, q: torch.Tensor, freq: torch.Tensor,
-                    bits2: torch.Tensor, wg_pair: torch.Tensor, *,
-                    structure: bool, u: Optional[torch.Tensor] = None):
-    """Sample z, count per-individual pops and the allele-pop counts of the
-    fresh z, and emit the G-update MH log-ratio.
-
-    keys     RngKeys (seed + per-chain keys); step  the step index
-    q        f32[C, N, K]      admixture proportions
-    freq     f32[C, K, L, 2]   allele frequencies
-    bits2    int8[N, L]        packed site plane (Dataset.bits2)
-    wg_pair  f32[C, N, 2]      2^(1-g) at (current, proposed) g
-    u        f32[C, N, 2L]     optional injected z-draw uniforms
-
-    Returns (z int8[C, N, 2L], qqnum f32[C, N, K], ll_diff f32[C, N],
-    zcounts f32[C, K, L, 2]).  ``structure`` picks the structure way
-    (z-conditioned copy probabilities) over the expectation way.
-    """
-    _need_bits2(bits2)
-    if q.dim() != 3:
-        raise ValueError("q must be [C, N, K]")
-    if not q.is_cuda:
-        return zq_gendiff_pass_reference(keys, step, q, freq, bits2, wg_pair,
-                                         structure=structure, u=u)
-    c, n, l, k = _check_site_inputs(q, freq, bits2)
-    _build.check(wg_pair, "wg_pair", torch.float32, (c, n, 2))
-    _build.check(keys.chain_key, "chain_key", torch.int32, (c,))
-    if u is not None:
-        _build.check(u, "u", torch.float32, (c, n, 2 * l))
-    dev = q.device
-    t = _build.library().site_pass_tiles(l)
-    z = torch.empty((c, n, 2 * l), dtype=torch.int8, device=dev)
-    qqnum = torch.empty((c, n, k), dtype=torch.float32, device=dev)
-    zcounts = torch.empty((c, k, l, 2), dtype=torch.float32, device=dev)
-    ll = torch.empty((c, n), dtype=torch.float32, device=dev)
-    ll_part = torch.empty((c, n, t), dtype=torch.float32, device=dev)
-    qq_part = torch.empty((c, n, t, k), dtype=torch.float32, device=dev)
-    p = _build.ptr
-    _build.launch("site_pass_gendiff", "site_gendiff_launch", p(q), p(freq),
-                  p(bits2), p(wg_pair), p(u), p(z), p(qqnum), p(zcounts),
-                  p(ll), p(ll_part), p(qq_part), c, n, l, k, int(structure),
-                  keys.k0, keys.k1, p(keys.chain_key), step)
-    return z, qqnum, ll, zcounts
+                    data: Dataset, wg_pair: torch.Tensor, *, structure: bool,
+                    u: Optional[torch.Tensor] = None):
+    """The production form of :func:`zq_gen_pass` (modes 2/3): the G-update
+    MH log-ratio as one column, the difference of the two ``gen`` columns
+    with the common factors cancelled (about 4x fewer logs).  Returns
+    (z, qqnum, ll_diff f32[C, N], zcounts)."""
+    _need_q(q)
+    r = _site_pass("site_pass_gendiff", keys, step, q, freq, data, None,
+                   wg_pair, None, u, sample=True, ll_kind="gendiff",
+                   structure=structure)
+    return r["z"], r["qqnum"], r["ll"][:, :, 0], r["zcounts"]
 
 
-def panel_loglik_pass_reference(freq, q, bits2, z, wg, *, structure: bool):
+def panel_loglik_pass_reference(freq, q, data, z, wg, *, structure: bool):
     """Plain PyTorch version of :func:`panel_loglik_pass` (same
     signature)."""
-    _need_bits2(bits2)
-    l = bits2.shape[1]
-    g0, g1, valid, hom = unpack_bits2(bits2)
-    g0f = g0.to(torch.float32)[None]
-    g1f = g1.to(torch.float32)[None]
-    valid, hom = valid[None], hom[None]
-    f0, d, a, b = _prefix_planes(q, freq)
-    z0 = z[:, :, :l].to(torch.int64)
-    z1 = z[:, :, l:].to(torch.int64)
-    if structure:
-        p0 = _at_z(f0, z0) + _at_z(d, z0) * g0f
-        p1 = _at_z(f0, z1) + _at_z(d, z1) * g1f
-    else:
-        p0 = a[-1] + b[-1] * g0f
-        p1 = a[-1] + b[-1] * g1f
-    w = wg[:, :, None]
-    gf = torch.where(hom, p0 * p0 + p0 * (1.0 - p0) * (1.0 - w),
-                     2.0 * p0 * p1 * w)
-    site = _log(gf)
-    if structure:
-        indep = _log(p0) + _log(p1) + (~hom).to(torch.float32) * _LOG2
-        site = torch.where(z0 == z1, site, indep)
-    return (site * valid.to(torch.float32)).sum(dim=2)
+    r = _site_pass_reference(None, 0, q, freq, data, z, wg[:, :, None], None,
+                             None, sample=False, ll_kind="gen",
+                             structure=structure)
+    return r["ll"][:, :, 0]
 
 
-def panel_loglik_pass(freq: torch.Tensor, q: torch.Tensor,
-                      bits2: torch.Tensor, z: torch.Tensor,
-                      wg: torch.Tensor, *, structure: bool) -> torch.Tensor:
-    """cal_lkh for mode 2: per-individual log-lik f32[C, N] at the carried
-    (q, gen, z).  freq f32[C, K, L, 2]; q f32[C, N, K]; bits2 int8[N, L];
-    z int8[C, N, 2L]; wg f32[C, N] = 2^(1-g)."""
-    _need_bits2(bits2)
-    if q.dim() != 3:
-        raise ValueError("q must be [C, N, K]")
-    if not q.is_cuda:
-        return panel_loglik_pass_reference(freq, q, bits2, z, wg,
-                                           structure=structure)
-    c, n, l, k = _check_site_inputs(q, freq, bits2)
-    _build.check(z, "z", torch.int8, (c, n, 2 * l))
-    _build.check(wg, "wg", torch.float32, (c, n))
-    dev = q.device
-    t = _build.library().site_pass_tiles(l)
-    ll = torch.empty((c, n), dtype=torch.float32, device=dev)
-    ll_part = torch.empty((c, n, t), dtype=torch.float32, device=dev)
-    p = _build.ptr
-    _build.launch("site_pass_loglik", "site_loglik_launch", p(q), p(freq),
-                  p(bits2), p(z), p(wg), p(ll), p(ll_part), c, n, l, k,
-                  int(structure))
-    return ll
+def panel_loglik_pass(freq: torch.Tensor, q: torch.Tensor, data: Dataset,
+                      z: torch.Tensor, wg: torch.Tensor, *,
+                      structure: bool) -> torch.Tensor:
+    """cal_lkh for modes 2/3: per-individual log-lik f32[C, N] at the
+    carried (q, gen, z); ``wg`` f32[C, N] = 2^(1-g)."""
+    _need_q(q)
+    r = _site_pass("site_pass_loglik", None, 0, q, freq, data, z,
+                   wg[:, :, None].contiguous(), None, None, sample=False,
+                   ll_kind="gen", structure=structure)
+    return r["ll"][:, :, 0]
+
+
+def zq_f_pass_reference(keys, step: int, q, freq, data, f_pair, *, pop: bool,
+                        u=None):
+    """Plain PyTorch version of :func:`zq_f_pass` (same signature)."""
+    r = _site_pass_reference(keys, step, q, freq, data, None,
+                             None if pop else f_pair, f_pair if pop else None,
+                             u, sample=True,
+                             ll_kind="fpop" if pop else "find")
+    return (r["z"], r["qqnum"], r["ll"] if pop else r["ll"][:, :, 0],
+            r["zcounts"])
+
+
+def zq_f_pass(keys, step: int, q: torch.Tensor, freq: torch.Tensor,
+              data: Dataset, f_pair: torch.Tensor, *, pop: bool,
+              u: Optional[torch.Tensor] = None):
+    """The inbreeding modes' sampling pass: sample z, count, and the
+    F-dependent terms of the MH update at the fresh z.
+
+    ``pop=True`` (mode 4): ``f_pair`` f32[C, K, 2] = (current, proposed) F
+    per pop; the third return is fdiff f32[C, N, K], column k summing
+    ``log L(f'_k) - log L(f_k)`` over the individual's valid same-z sites
+    whose copies sit in pop k (its sum over N is the MH log-ratio of
+    update_inbreedcoff_POP).  ``pop=False`` (mode 5): ``f_pair``
+    f32[C, N, 2]; the third return is lldiff f32[C, N], the per-individual
+    MH log-ratio of update_F_IND.  Returns (z, qqnum, fdiff or lldiff,
+    zcounts)."""
+    _need_q(q)
+    r = _site_pass("site_pass_fpop" if pop else "site_pass_find", keys, step,
+                   q, freq, data, None, None if pop else f_pair,
+                   f_pair if pop else None, u, sample=True,
+                   ll_kind="fpop" if pop else "find")
+    return (r["z"], r["qqnum"], r["ll"] if pop else r["ll"][:, :, 0],
+            r["zcounts"])
+
+
+def panel_loglik_f_pass_reference(freq, data, z, f, *, pop: bool):
+    """Plain PyTorch version of :func:`panel_loglik_f_pass` (same
+    signature)."""
+    f = f[:, :, None]
+    r = _site_pass_reference(None, 0, None, freq, data, z,
+                             None if pop else f, f if pop else None, None,
+                             sample=False, ll_kind="fpop" if pop else "find")
+    return r["ll"][:, :, 0]
+
+
+def panel_loglik_f_pass(freq: torch.Tensor, data: Dataset, z: torch.Tensor,
+                        f: torch.Tensor, *, pop: bool) -> torch.Tensor:
+    """cal_lkh for modes 4/5 (log_ld_F_pop / log_ld_F_indv) at the carried
+    (P, F, Z): f32[C, N].  ``f`` is f32[C, K] (``pop=True``) or
+    f32[C, N]."""
+    f = f[:, :, None].contiguous()
+    r = _site_pass("site_pass_loglik_fpop" if pop else
+                   "site_pass_loglik_find", None, 0, None, freq, data, z,
+                   None if pop else f, f if pop else None, None,
+                   sample=False, ll_kind="fpop" if pop else "find")
+    return r["ll"][:, :, 0]

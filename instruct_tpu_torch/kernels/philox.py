@@ -36,6 +36,13 @@ STREAM_S_LOGU = 5   # S tail: log-uniforms of the G accept
 STREAM_Z = 6        # per-copy z draw of the site pass
 STREAM_Q = 7        # Dirichlet draw of the admixture proportions Q
 STREAM_ALPHA = 8    # alpha MH step (normal proposal + accept uniform)
+# The tails that are plain tensor code (modes 3-5) draw from four consecutive
+# streams, so one launch of ``random_streams`` fills them all; word
+# ``j * R + i`` of a stream belongs to (subsweep j, element i).
+STREAM_R_PROP = 9   # S/F random-walk proposals
+STREAM_R_ACC = 10   # S/F MH accept uniforms
+STREAM_G_PROP = 11  # geometric G proposal (mode 3)
+STREAM_G_ACC = 12   # log-uniforms of the G accept (mode 3)
 
 
 class RngKeys(NamedTuple):
@@ -88,41 +95,60 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
-def random_words_reference(keys: RngKeys, step: int, stream: int,
-                           n_words: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`random_words` (same signature):
-    int64[C, n_words] holding the 32-bit words."""
+def random_streams_reference(keys: RngKeys, step: int, stream0: int,
+                             n_streams: int, n_words: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`random_streams` (same signature):
+    int64[C, n_streams, n_words] holding the 32-bit words."""
     dev = keys.chain_key.device
     n_blocks = -(-n_words // 4)
-    c0 = torch.arange(n_blocks, dtype=torch.int64, device=dev)[None, :]
-    c3 = keys.chain_key.to(torch.int64)[:, None]
-    words = philox4x32_10(c0, stream, step, c3, keys.k0, keys.k1)
-    return torch.stack(words, dim=-1).reshape(c3.shape[0], -1)[:, :n_words]
+    c0 = torch.arange(n_blocks, dtype=torch.int64, device=dev)[None, None, :]
+    c1 = (stream0 + torch.arange(n_streams, dtype=torch.int64,
+                                 device=dev))[None, :, None]
+    c3 = keys.chain_key.to(torch.int64)[:, None, None]
+    words = philox4x32_10(c0, c1, step, c3, keys.k0, keys.k1)
+    return torch.stack(words, dim=-1).reshape(
+        c3.shape[0], n_streams, -1)[:, :, :n_words]
 
 
-def random_words(keys: RngKeys, step: int, stream: int, n_words: int
-                 ) -> torch.Tensor:
-    """[C, n_words] raw 32-bit words: word i of chain c is word i % 4 of
-    the block with counter (i // 4, stream, step, chain_key[c]).
+def random_streams(keys: RngKeys, step: int, stream0: int, n_streams: int,
+                   n_words: int) -> torch.Tensor:
+    """[C, n_streams, n_words] raw 32-bit words of the consecutive streams
+    ``stream0 .. stream0 + n_streams - 1``: word i of stream s of chain c is
+    word i % 4 of the block with counter (i // 4, s, step, chain_key[c]).
 
-    With the chain keys on a CUDA device this launches
-    ``csrc/philox_fill.cu`` and returns the words as int32 bit patterns;
-    on the CPU it runs the plain version (int64 values).  Both feed
+    With the chain keys on a CUDA device this is one launch of
+    ``csrc/philox_fill.cu`` and returns the words as int32 bit patterns; on
+    the CPU it runs the plain version (int64 values).  Both feed
     :func:`u01_closed` / :func:`u01_open`, which read the low 23 bits."""
     n_blocks = -(-n_words // 4)
     if n_blocks >= 1 << 32:
         raise ValueError("more than 2^32 Philox blocks in one stream")
     if not keys.chain_key.is_cuda:
-        return random_words_reference(keys, step, stream, n_words)
+        return random_streams_reference(keys, step, stream0, n_streams,
+                                        n_words)
     from instruct_tpu_torch.kernels import _build
     c = keys.chain_key.shape[0]
     _build.check(keys.chain_key, "chain_key", torch.int32, (c,))
-    out = torch.empty((c, n_blocks * 4), dtype=torch.int32,
+    out = torch.empty((c, n_streams, n_blocks * 4), dtype=torch.int32,
                       device=keys.chain_key.device)
     _build.launch("philox_words", "philox_fill_launch", _build.ptr(out), c,
-                  n_blocks, keys.k0, keys.k1, stream, step,
+                  n_streams, n_blocks, keys.k0, keys.k1, stream0, step,
                   _build.ptr(keys.chain_key))
-    return out[:, :n_words]
+    return out[:, :, :n_words]
+
+
+def random_words_reference(keys: RngKeys, step: int, stream: int,
+                           n_words: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`random_words` (same signature):
+    int64[C, n_words] holding the 32-bit words."""
+    return random_streams_reference(keys, step, stream, 1, n_words)[:, 0]
+
+
+def random_words(keys: RngKeys, step: int, stream: int, n_words: int
+                 ) -> torch.Tensor:
+    """[C, n_words] raw 32-bit words of one stream (see
+    :func:`random_streams`)."""
+    return random_streams(keys, step, stream, 1, n_words)[:, 0]
 
 
 def u01_closed(bits: torch.Tensor) -> torch.Tensor:

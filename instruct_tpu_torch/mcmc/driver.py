@@ -179,8 +179,9 @@ def run_mcmc(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
     ``seed`` is the run's 64-bit integer seed: together with a chain's key
     and the step index it determines every draw, so two runs from one seed
     are bitwise equal.  ``init_rates`` optionally gives per-chain initial S
-    vectors [n_chains, K] (the role of the ``-i`` initial file,
-    initial.c:38-126); otherwise each chain draws U(0, 1) starts.
+    or F vectors [n_chains, R], R = ``spec.n_rates(N)`` (the role of the
+    ``-i`` initial file, initial.c:38-126); otherwise each chain draws
+    U(0, 1) starts.
     """
     check_supported(spec, data)
     dev = torch.device(device)

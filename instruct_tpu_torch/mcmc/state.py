@@ -26,11 +26,13 @@ class McmcState(NamedTuple):
     zz: torch.Tensor           # i32[C, 0] (mode 0 only; not ported)
     q: torch.Tensor            # f32[C, N, K] admixture proportions
     alpha: torch.Tensor        # f32[C] Dirichlet concentration of Q's prior
-    rates: torch.Tensor        # f32[C, R] selfing rates S (R = K for mode 2)
+    rates: torch.Tensor        # f32[C, R] selfing rates S or inbreeding F
+    #   (R = K for modes 2/4, N for 3/5, 0 for mode 1)
     ais_state: torch.Tensor    # i32[C, R] 3-state flag of the adaptive
     #   independence sampler (dt_stat, mcmc.c:1524-1546); carried, unused
     #   under back-reflection
-    gen: torch.Tensor          # i32[C, N] selfing generations
+    gen: torch.Tensor          # i32[C, N] selfing generations (modes 2/3;
+    #   i32[C, 0] otherwise)
     loglik_indv: torch.Tensor  # f32[C, N] cal_lkh per-individual log-lik
     loglik_total: torch.Tensor  # f32[C]
     dpm_values: torch.Tensor   # f32[C, 0] (DPM prior; not ported)
@@ -88,28 +90,31 @@ def init_state(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
                chain_key: Optional[Sequence[int]] = None) -> McmcState:
     """Draw the initial state of ``n_chains`` chains on ``device``.
 
-    Mirrors the mode-2 initialisation of the JAX package
-    (``instruct_tpu/mcmc/state.py:77``): alpha ~ U[0, alpha_prior_max];
-    S from ``init_rates`` f32[C, K] or U[0, 1]; G ~ Geom with a random
-    success probability, capped; Z uniform, then Q | Z; P starts at the
-    uniform simplex (the first sweep overwrites it before any use).
+    Mirrors the per-mode initialisation of the JAX package
+    (``instruct_tpu/mcmc/state.py:77``) for the diploid modes 1-5: alpha ~
+    U[0, alpha_prior_max]; S or F from ``init_rates`` f32[C, R] or U[0, 1]
+    (R = ``spec.n_rates(N)``: K for modes 2/4, N for 3/5, none for mode 1);
+    G ~ Geom with a random success probability (mode 2) or Geom(1 - s_i)
+    (mode 3), capped, none for modes 1/4/5; Z uniform, then Q | Z; P starts
+    at the uniform simplex (the first sweep overwrites it before any use).
     ``state.zcounts`` is seeded with the :func:`allele_counts` kernel.
     ``chain_key`` gives one integer key per chain (default ``range(C)``).
     """
     from instruct_tpu_torch.kernels.fused_step import allele_counts
     from instruct_tpu_torch.mcmc import updates as up
 
-    if spec.ploid != 2 or spec.mode != 2:
+    if spec.ploid != 2 or spec.mode not in (1, 2, 3, 4, 5):
         raise NotImplementedError(
-            f"init_state is ported for diploid mode 2 only (got mode "
-            f"{spec.mode}, ploid {spec.ploid}); see ROADMAP: modes "
-            "1/3/4/5/0 and the tetraploid engine are still to be ported")
+            f"init_state is ported for the diploid modes 1-5 (got mode "
+            f"{spec.mode}, ploid {spec.ploid}); see ROADMAP: mode 0 and the "
+            "tetraploid engine are still to be ported")
     dev = torch.device(device)
     data = data.to(dev)
     c = n_chains
     n, l, p = data.n_indv, data.n_loci, data.ploid
     k = spec.n_pops
     a = data.max_alleles
+    r = spec.n_rates(n)
     if chain_key is None:
         chain_key = range(c)
     chain_key = list(chain_key)
@@ -124,8 +129,12 @@ def init_state(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
     z = torch.empty((c, n, l * p), dtype=torch.int8, device=dev)
     q = torch.empty((c, n, k), **f32)
     alpha = torch.empty((c,), **f32)
-    rates = torch.empty((c, k), **f32)
-    gen = torch.empty((c, n), dtype=torch.int32, device=dev)
+    rates = torch.empty((c, r), **f32)
+    gen = torch.empty((c, n if spec.has_selfing else 0), dtype=torch.int32,
+                      device=dev)
+    lo, span = 1e-6, 1.0 - 2e-6
+    given = (None if init_rates is None
+             else torch.as_tensor(init_rates, **f32).reshape(c, r))
     for ci, ck in enumerate(chain_key):
         g = chain_generator(seed, ck, dev)
         z[ci] = torch.randint(0, k, (n, l * p), generator=g, device=dev,
@@ -134,16 +143,21 @@ def init_state(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
                      * spec.alpha_prior_max)
         counts = masked_z_counts(z[ci][None], data, k)[0]
         q[ci] = up.dirichlet_from_counts(g, counts + alpha[ci])
-        rates[ci] = torch.rand((k,), generator=g, device=dev)
-        # gen ~ Geom(ran1()): geometric with a random success prob
-        # (mcmc.c:196-199)
-        lo, span = 1e-6, 1.0 - 2e-6
+        rates[ci] = torch.rand((r,), generator=g, device=dev)
+        if given is not None:
+            rates[ci] = given[ci]
+        if not spec.has_selfing:
+            continue
         u = torch.rand((n,), generator=g, device=dev) * span + lo
-        psucc = torch.rand((n,), generator=g, device=dev) * span + lo
+        if spec.mode == 2:
+            # gen ~ Geom(ran1()): geometric with a random success prob
+            # (mcmc.c:196-199)
+            psucc = torch.rand((n,), generator=g, device=dev) * span + lo
+        else:
+            # mode 3: gen ~ Geom(1 - s_i) (mcmc.c:329-331)
+            psucc = torch.clamp(1.0 - rates[ci], lo, 1.0 - lo)
         gi = 1 + torch.floor(torch.log(u) / torch.log1p(-psucc))
         gen[ci] = torch.clamp(gi, 1, spec.gen_cap).to(torch.int32)
-    if init_rates is not None:
-        rates = torch.as_tensor(init_rates, **f32).reshape(c, k).clone()
 
     zcounts = allele_counts(z, data.geno, data.site_valid, n_pops=k,
                             max_alleles=a, bits2=data.bits2)

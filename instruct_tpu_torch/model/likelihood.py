@@ -1,17 +1,18 @@
-"""Genotype-likelihood math for the mode-2 slice, in plain PyTorch.
+"""Genotype-likelihood math of the diploid admixture modes (1-5), in plain
+PyTorch.
 
 Counterpart of ``instruct_tpu/model/likelihood.py`` (the JAX package
 computes these outside any Pallas kernel, so they stay plain tensor code
 here).  Chains are a written-out leading axis: ``freq`` f32[C, K, L, A],
-``z`` int8[C, N, S], ``q`` f32[C, N, K], ``gen`` [C, N]; the panel tensors
-carry no chain axis.  The per-copy site axis is flat, S = L * ploid, copy
-major (``s = copy * L + l``).
+``z`` int8[C, N, S], ``q`` f32[C, N, K], ``gen`` [C, N], ``rates`` f32[C, R];
+the panel tensors carry no chain axis.  The per-copy site axis is flat,
+S = L * ploid, copy major (``s = copy * L + l``).
 
-Ported: :func:`genofreq_selfing`, :func:`per_pop_copy_probs`,
-:func:`split_copies`, :func:`site_loglik` / :func:`per_indv_loglik` and
-:func:`marginal_site_loglik` / :func:`marginal_indv_loglik` for the
-selfing mode 2.  The inbreeding forms (modes 4/5), mode 1 and the mode-0
-matrix wait for their modes.
+Ported: :func:`genofreq_selfing`, :func:`genofreq_inbreeding`,
+:func:`per_pop_copy_probs`, :func:`gather_freq_at_z`,
+:func:`mixture_copy_probs`, :func:`split_copies`, :func:`site_loglik` /
+:func:`per_indv_loglik` and :func:`marginal_site_loglik` /
+:func:`marginal_indv_loglik`.  The mode-0 matrix waits for its mode.
 """
 
 from __future__ import annotations
@@ -25,12 +26,12 @@ _LOG2 = 0.6931471805599453
 _EPS = 1e-30  # guards log(0) for Dirichlet draws that underflow
 
 
-def _need_mode2(spec: ModelSpec, what: str) -> None:
-    if spec.ploid != 2 or spec.mode != 2:
+def _need_admixture(spec: ModelSpec, what: str) -> None:
+    if spec.ploid != 2 or spec.mode not in (1, 2, 3, 4, 5):
         raise NotImplementedError(
-            f"{what} is ported for diploid mode 2 only (got mode "
-            f"{spec.mode}, ploid {spec.ploid}); see ROADMAP: modes "
-            "1/3/4/5/0 and the tetraploid engine are still to be ported")
+            f"{what} is ported for the diploid modes 1-5 (got mode "
+            f"{spec.mode}, ploid {spec.ploid}); see ROADMAP: mode 0 and the "
+            "tetraploid engine are still to be ported")
 
 
 def genofreq_selfing(p0, p1, hom, gen):
@@ -45,6 +46,15 @@ def genofreq_selfing(p0, p1, hom, gen):
                                          device=p0.device))
     hom_freq = p0 * p0 + p0 * (1.0 - p0) * (1.0 - w)
     het_freq = 2.0 * p0 * p1 * w
+    return torch.where(hom, hom_freq, het_freq)
+
+
+def genofreq_inbreeding(p0, p1, hom, f):
+    """Genotype frequency under inbreeding coefficient F
+    (genofreq_inbreedcoff, mcmc.c:1707-1723):
+    hom p^2 (1 - F) + p F ; het 2 p0 p1 (1 - F)."""
+    hom_freq = p0 * p0 * (1.0 - f) + p0 * f
+    het_freq = 2.0 * p0 * p1 * (1.0 - f)
     return torch.where(hom, hom_freq, het_freq)
 
 
@@ -74,40 +84,69 @@ def split_copies(flat, p):
     return tuple(flat[..., c * l:(c + 1) * l] for c in range(p))
 
 
-def _freq_at_z(freq, data: Dataset, z):
-    """p f32[C, N, S]: freq[c, z, l, geno] in flat layout."""
+def gather_freq_at_z(freq, data: Dataset, z):
+    """p f32[C, N, S]: freq[c, z, l, geno] in flat layout, for any A -- the
+    ubiquitous ``ptr->freq[z...][j][seqdata...]`` gather (mcmc.c:1756), as
+    a select over the (pop, allele) grid."""
     out = None
     for kk, pk in enumerate(per_pop_copy_probs(freq, data)):
         out = pk if out is None else torch.where(z == kk, pk, out)
     return out
 
 
+def mixture_copy_probs(freq, data: Dataset, q):
+    """Expectation-way per-copy probability f32[C, N, S]:
+    p = sum_m q[n, m] freq[m, l, a] (mcmc.c:1741-1745)."""
+    out = None
+    for k, pk in enumerate(per_pop_copy_probs(freq, data)):
+        term = q[:, :, k][:, :, None] * pk
+        out = term if out is None else out + term
+    return out
+
+
+def _joint_freq(spec: ModelSpec, p0, p1, hom, gen, f):
+    """Same-pop genotype probability of the spec's model: genofreq under
+    selfing (modes 2/3) or the inbreeding form (modes 4/5)."""
+    if spec.mode in (2, 3):
+        return genofreq_selfing(p0, p1, hom,
+                                gen[:, :, None].to(torch.float32))
+    return genofreq_inbreeding(p0, p1, hom, f)
+
+
 def site_loglik(spec: ModelSpec, data: Dataset, freq, z, q, gen,
                 rates=None):
-    """Per-site log-likelihood f32[C, N, L] of the selfing mode 2
-    (log_ld_indv body, mcmc.c:1726-1773), honouring ``spec.type_freq``
-    (expectation vs structure way).  Invalid sites are 0."""
-    _need_mode2(spec, "site_loglik")
+    """Per-site log-likelihood f32[C, N, L] of the admixture modes (1-5).
+
+    Dispatches like cal_lkh (mcmc.c:1916-1942):
+      mode 1     log_ld_noselfing_indv body (mcmc.c:1869-1890)
+      modes 2/3  log_ld_indv body (mcmc.c:1726-1773), honouring
+                 ``spec.type_freq`` (expectation vs structure way)
+      modes 4/5  log_ld_F_pop / log_ld_F_indv bodies (mcmc.c:1776-1847)
+    Invalid sites are 0; callers sum over L."""
+    _need_admixture(spec, "site_loglik")
     p = data.ploid
     hom = data.hom[None]
-    g = gen[:, :, None].to(torch.float32)
-    if spec.type_freq == 0:
-        pm = None
-        for k, pk in enumerate(per_pop_copy_probs(freq, data)):
-            term = q[:, :, k][:, :, None] * pk
-            pm = term if pm is None else pm + term
-        p0, p1 = split_copies(pm, p)
-        site = _safe_log(genofreq_selfing(p0, p1, hom, g))
-        return torch.where(data.site_valid[None], site,
-                           torch.zeros_like(site))
-    pz = _freq_at_z(freq, data, z)
-    p0, p1 = split_copies(pz, p)
-    indep = (_safe_log(p0) + _safe_log(p1)
-             + (~hom).to(torch.float32) * _LOG2)
-    z0, z1 = split_copies(z, p)
-    joint = _safe_log(genofreq_selfing(p0, p1, hom, g))
-    site = torch.where(z0 == z1, joint, indep)
-    return torch.where(data.site_valid[None], site, torch.zeros_like(site))
+    valid = data.site_valid[None]
+    if spec.mode in (2, 3) and spec.type_freq == 0:
+        # expectation way: mixture per-copy probs, no dependence on z
+        p0, p1 = split_copies(mixture_copy_probs(freq, data, q), p)
+        site = _safe_log(_joint_freq(spec, p0, p1, hom, gen, None))
+        return torch.where(valid, site, torch.zeros_like(site))
+    p0, p1 = split_copies(gather_freq_at_z(freq, data, z), p)
+    site = (_safe_log(p0) + _safe_log(p1)
+            + (~hom).to(torch.float32) * _LOG2)
+    if spec.mode != 1:
+        z0, z1 = split_copies(z, p)
+        f = None
+        if spec.mode == 4:
+            # F of pop z[..., 0] (log_ld_F_pop, mcmc.c:1795)
+            f = torch.gather(rates, 1, z0.to(torch.int64).flatten(1)
+                             ).reshape(z0.shape)
+        elif spec.mode == 5:
+            f = rates[:, :, None]
+        joint = _safe_log(_joint_freq(spec, p0, p1, hom, gen, f))
+        site = torch.where(z0 == z1, joint, site)
+    return torch.where(valid, site, torch.zeros_like(site))
 
 
 def per_indv_loglik(spec, data, freq, z, q, gen, rates=None):
@@ -119,22 +158,23 @@ def per_indv_loglik(spec, data, freq, z, q, gen, rates=None):
 def marginal_site_loglik(spec: ModelSpec, data: Dataset, freq, q, gen,
                          rates=None):
     """Per-site log-likelihood f32[C, N, L] with the per-copy ancestries Z
-    summed out exactly (mode 2, diploid).
+    summed out exactly (modes 1-5, diploid).
 
-    Given (P, Q, G) the two copies' assignments are iid Cat(q_i), so the
+    Given (P, Q, G/F) the two copies' assignments are iid Cat(q_i), so the
     per-locus marginal is the 2-copy mixture
 
         sum_k q_ik^2 * joint_k  +  (m0 m1 - sum_k q_ik^2 p_k0 p_k1) * mult
 
-    with joint_k the same-pop genotype probability (genofreq under
-    selfing), m_c = sum_k q_ik p_kc the mixture per-copy probability and
+    with joint_k the same-pop genotype probability (genofreq under selfing
+    for modes 2/3, the inbreeding form for modes 4/5, the plain product for
+    mode 1), m_c = sum_k q_ik p_kc the mixture per-copy probability and
     mult = 2 for heterozygotes, 1 for homozygotes.  This is the deviance
-    focus of the corrected DIC and of WAIC."""
-    _need_mode2(spec, "marginal_site_loglik")
+    focus of the corrected DIC and of WAIC.  ``gen`` may be real-valued
+    (posterior means)."""
+    _need_admixture(spec, "marginal_site_loglik")
     p = data.ploid
     hom = data.hom[None]
     mult = torch.where(hom, 1.0, 2.0)
-    g = gen[:, :, None].to(torch.float32)
     m0 = m1 = same = joint = 0.0
     for k, pk in enumerate(per_pop_copy_probs(freq, data)):
         pk0, pk1 = split_copies(pk, p)
@@ -142,10 +182,23 @@ def marginal_site_loglik(spec: ModelSpec, data: Dataset, freq, q, gen,
         m0 = m0 + qk * pk0
         m1 = m1 + qk * pk1
         same = same + (qk * qk) * (pk0 * pk1)
-        joint = joint + (qk * qk) * genofreq_selfing(pk0, pk1, hom, g)
+        if spec.mode == 1:
+            jk = pk0 * pk1          # mult applied uniformly below
+        else:
+            f = None
+            if spec.mode == 4:
+                f = rates[:, k][:, None, None]
+            elif spec.mode == 5:
+                f = rates[:, :, None]
+            jk = _joint_freq(spec, pk0, pk1, hom, gen, f)
+        joint = joint + (qk * qk) * jk
     cross = m0 * m1 - same
-    # genofreq_selfing already carries the het factor 2 in joint_k
-    site = _safe_log(joint + cross * mult)
+    if spec.mode == 1:
+        prob = (joint + cross) * mult          # = mult * m0 * m1
+    else:
+        # genofreq_* already carries the het factor 2 in joint_k
+        prob = joint + cross * mult
+    site = _safe_log(prob)
     return torch.where(data.site_valid[None], site, torch.zeros_like(site))
 
 

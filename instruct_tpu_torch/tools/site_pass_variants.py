@@ -3,8 +3,9 @@
 
     python3 -m instruct_tpu_torch.tools.site_pass_variants
 
-Compiles ``instruct_tpu_torch/csrc/site_pass.cu`` several times with
-``nvcc`` -- once per launch shape (the ``SITE_THREADS``, ``SITE_ROWS`` and
+Compiles the packed sampling instantiation of
+``instruct_tpu_torch/csrc/site_pass.cuh`` several times with ``nvcc`` (K = 3
+only) -- once per launch shape (the ``SITE_THREADS``, ``SITE_ROWS`` and
 ``SITE_MIN_BLOCKS`` macros of the source) and once per ablation (a textual
 patch that removes one part of the sampling kernel's work: the count
 atomics, the Philox rounds, the log, the z stores, the warp reductions, the
@@ -56,45 +57,54 @@ ABLATIONS = {
          "k1);",
          "const Philox4 a = Philox4{blk * 2654435761u + step, blk * 40503u "
          "+ chain, blk * 2246822519u + k0, blk * 3266489917u + k1};")],
-    "no log": [("llh = llh + logf(ratio);", "llh = llh + ratio;")],
+    "no log": [("acc[0] = acc[0] + logf(ratio);",
+                "acc[0] = acc[0] + ratio;")],
     "no z stores": [
         ("store_bytes(zrow, l0, L, vec, z0v);",
-         "if (wc == 12345.0f) store_bytes(zrow, l0, L, vec, z0v);"),
+         "if (cv0 == 12345.0f) store_bytes(zrow, l0, L, vec, z0v);"),
         ("store_bytes(zrow + L, l0, L, vec, z1v);",
-         "if (wc == 12345.0f) store_bytes(zrow + L, l0, L, vec, z1v);")],
+         "if (cv0 == 12345.0f) store_bytes(zrow + L, l0, L, vec, z1v);")],
     "no warp reductions": [
         ("for (int o = 16; o >= 1; o >>= 1) v = v + __shfl_xor_sync(",
          "for (int o = 16; o >= 16; o >>= 1) v = v + __shfl_xor_sync(")],
     "no memset": [
         ("cudaMemsetAsync(zcounts, 0, sizeof(float) * (size_t)C * K * L * 2,"
-         " s);", "")],
+         " s);", "(void)0;")],
 }
 ABLATIONS["all of the above"] = [p for ps in list(ABLATIONS.values())
                                  for p in ps]
 
 
-def build(work: pathlib.Path, tag: str, source: str, defines):
-    src = work / f"v{tag}.cu"
-    src.write_text(source)
+LAUNCH = "site_packed_sample_launch"
+GENDIFF = 3            # the family id of zq_gendiff_pass (site_pass.cuh)
+
+
+def build(work: pathlib.Path, tag: str, header: str, defines):
+    """Compile the packed sampling source against the (patched) ``header``
+    text of site_pass.cuh, for K = 3 only."""
+    inc = work / f"v{tag}"
+    inc.mkdir()
+    (inc / "site_pass.cuh").write_text(header)
+    src = inc / "site_packed_sample.cu"
+    src.write_text((_build.CSRC / "site_packed_sample.cu").read_text())
     so = work / f"v{tag}.so"
-    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
-           str(_build.CSRC), *[f"-D{d}" for d in defines], "-o", str(so),
-           str(src)]
+    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(inc),
+           "-I", str(_build.CSRC), f"-DSITE_K_ONLY={K}",
+           *[f"-D{d}" for d in defines], "-o", str(so), str(src)]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode:
         raise RuntimeError(f"nvcc failed on variant {tag}:\n{r.stderr}")
     regs = "?"
     lines = r.stderr.splitlines()
     for i, line in enumerate(lines):
-        if (f"site_gendiff_kernelILi{K}E" in line
+        if (f"site_kernelILi{K}ELi{GENDIFF}E" in line
                 and "Function properties" in line):
             regs = lines[i + 2].split("Used ")[1].split(",")[0]
             spill = lines[i + 1].split(",")[1].strip()
             regs = f"{regs}, {spill}"
     lib = ctypes.CDLL(str(so))
-    lib.site_gendiff_launch.argtypes = _build._SIGNATURES[
-        "site_gendiff_launch"]
-    lib.site_gendiff_launch.restype = ctypes.c_int
+    getattr(lib, LAUNCH).argtypes = _build._SIGNATURES[LAUNCH]
+    getattr(lib, LAUNCH).restype = ctypes.c_int
     lib.site_pass_tiles.argtypes = [ctypes.c_int]
     lib.site_pass_tiles.restype = ctypes.c_int
     return lib, regs
@@ -132,11 +142,12 @@ def main() -> int:
                                                             **f32)
         ll, llp = torch.empty((C, N), **f32), torch.empty((C, N, t), **f32)
         qqp = torch.empty((C, N, t, K), **f32)
-        rc = lib.site_gendiff_launch(
-            q.data_ptr(), freq.data_ptr(), bits2.data_ptr(),
-            wg_pair.data_ptr(), None, z.data_ptr(), qq.data_ptr(),
-            zc.data_ptr(), ll.data_ptr(), llp.data_ptr(), qqp.data_ptr(), C,
-            N, L, K, 1, keys.k0, keys.k1, keys.chain_key.data_ptr(), 5,
+        rc = getattr(lib, LAUNCH)(
+            q.data_ptr(), freq.data_ptr(), bits2.data_ptr(), None, None,
+            None, None, wg_pair.data_ptr(), None, None, z.data_ptr(),
+            qq.data_ptr(), zc.data_ptr(), ll.data_ptr(), llp.data_ptr(),
+            qqp.data_ptr(), C, N, L, K, 2, GENDIFF, 1, keys.k0, keys.k1,
+            keys.chain_key.data_ptr(), 5,
             torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"launch refused: cudaGetLastError = {rc}")
@@ -158,14 +169,14 @@ def main() -> int:
             times.append(a.elapsed_time(b) / inner)
         return statistics.median(times)
 
-    source = (_build.CSRC / "site_pass.cu").read_text()
+    source = (_build.CSRC / "site_pass.cuh").read_text()
     variants = [(tag, source, d) for tag, d in SHAPES.items()]
     for tag, patches in ABLATIONS.items():
         src = source
         for old, new in patches:
             if old not in src:
                 raise RuntimeError(f"ablation {tag!r}: {old!r} is no longer "
-                                   "in site_pass.cu")
+                                   "in site_pass.cuh")
             src = src.replace(old, new)
         variants.append((tag, src, []))
     ref = None

@@ -18,6 +18,8 @@ from instruct_tpu.kernels import dirichlet_pallas as jdp
 from instruct_tpu.kernels import fused_step as jfs
 from instruct_tpu.kernels.s_pop_pallas import s_pop_tail as jax_s_pop_tail
 
+from instruct_tpu_torch import convert
+from instruct_tpu_torch.data.dataset import packed_dataset
 from instruct_tpu_torch.kernels import dirichlet as tdp
 from instruct_tpu_torch.kernels import fused_step as tfs
 from instruct_tpu_torch.kernels import philox as px
@@ -30,6 +32,13 @@ def _t(x, dtype=None):
 
 def _keys(c=1):
     return px.make_keys(7, c, "cpu")
+
+
+def _tdata(jdata):
+    """The port's Dataset of a JAX Dataset."""
+    return convert.dataset_from_numpy(
+        {k: None if v is None else np.asarray(v)
+         for k, v in jdata._asdict().items()})
 
 
 @pytest.fixture(scope="module", params=[(17, 23, 3), (9, 300, 2),
@@ -70,7 +79,7 @@ def test_zq_gendiff_pass_matches_jax(setup, structure):
         structure=structure, interpret=True, u=jnp.asarray(u),
         bits2=data.bits2)
     z, qq, ll, zc = tfs.zq_gendiff_pass(
-        _keys(), 0, _t(q)[None], _t(freq)[None], _t(data.bits2),
+        _keys(), 0, _t(q)[None], _t(freq)[None], _tdata(data),
         _t(wg_pair)[None], structure=structure, u=_t(u)[None])
     assert z.dtype == torch.int8
     np.testing.assert_array_equal(z[0].numpy(), np.asarray(jz))
@@ -92,7 +101,7 @@ def test_panel_loglik_pass_matches_jax(setup, structure):
         jnp.asarray(freq), jnp.asarray(q), data.geno, data.site_valid,
         data.hom, jnp.asarray(z), jnp.asarray(wg)[:, None],
         structure=structure, interpret=True, bits2=data.bits2)
-    got = tfs.panel_loglik_pass(_t(freq)[None], _t(q)[None], _t(data.bits2),
+    got = tfs.panel_loglik_pass(_t(freq)[None], _t(q)[None], _tdata(data),
                                 _t(z)[None], _t(wg)[None],
                                 structure=structure)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want), rtol=1e-5,
@@ -100,11 +109,27 @@ def test_panel_loglik_pass_matches_jax(setup, structure):
 
 
 def test_site_pass_refuses_unpacked_panel():
+    """An unpacked panel is no longer refused: it runs the generic path,
+    which carries no allele-pop counts.  What the site pass does refuse is
+    a panel that does not fit ``freq``, and more pops than the kernels are
+    built for."""
+    rng = np.random.default_rng(2)
+    data = packed_dataset(_t(rng.integers(0, 8, (4, 5)).astype(np.int8)))
     q = torch.full((1, 4, 2), 0.5)
-    freq = torch.full((1, 2, 5, 3), 1.0 / 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfs.zq_gendiff_pass(_keys(), 0, q, freq, None, torch.ones(1, 4, 2),
-                            structure=True)
+    freq = torch.full((1, 2, 5, 2), 0.5)
+    wg = torch.ones(1, 4, 2)
+    z, qq, ll, zc = tfs.zq_gendiff_pass(_keys(), 0, q, freq,
+                                        data._replace(bits2=None), wg,
+                                        structure=True)
+    assert zc is None and z.shape == (1, 4, 10) and ll.shape == (1, 4)
+    assert tfs.zq_gendiff_pass(_keys(), 0, q, freq, data, wg,
+                               structure=True)[3].shape == (1, 2, 5, 2)
+    with pytest.raises(ValueError, match="does not fit"):
+        tfs.zq_gendiff_pass(_keys(), 0, q, torch.full((1, 2, 5, 3), 1 / 3),
+                            data, wg, structure=True)
+    with pytest.raises(ValueError, match="n_pops <= 8"):
+        tfs.zq_sample_pass(_keys(), 0, torch.full((1, 4, 9), 1 / 9),
+                           torch.full((1, 9, 5, 2), 0.5), data)
 
 
 def test_site_pass_chains_are_independent_streams():
@@ -114,19 +139,20 @@ def test_site_pass_chains_are_independent_streams():
     rng = np.random.default_rng(1)
     n, l, k = 12, 40, 3
     bits2 = _t(rng.integers(0, 8, (n, l)).astype(np.int8))
+    data = packed_dataset(bits2)
     q = _t(rng.dirichlet(np.ones(k), size=n).astype(np.float32))
     freq = _t(rng.dirichlet(np.ones(2), size=(k, l)).astype(np.float32))
     wg = torch.ones(n, 2)
     keys = px.make_keys(3, 3, "cpu", chain_key=[5, 9, 5])
     z, qq, _, zc = tfs.zq_gendiff_pass(
         keys, 4, q.expand(3, n, k).contiguous(),
-        freq.expand(3, k, l, 2).contiguous(), bits2,
+        freq.expand(3, k, l, 2).contiguous(), data,
         wg.expand(3, n, 2).contiguous(), structure=True)
     assert torch.equal(z[0], z[2])
     assert not torch.equal(z[0], z[1])
     z_other_step = tfs.zq_gendiff_pass(
         keys, 5, q.expand(3, n, k).contiguous(),
-        freq.expand(3, k, l, 2).contiguous(), bits2,
+        freq.expand(3, k, l, 2).contiguous(), data,
         wg.expand(3, n, 2).contiguous(), structure=True)[0]
     assert not torch.equal(z, z_other_step)
     valid2 = 2.0 * float(((bits2 & 4) != 0).sum())

@@ -72,9 +72,12 @@ def test_exports_and_defaults():
 
 
 @pytest.mark.parametrize("kwargs,what", [
-    (dict(mode=0), "mode 0"), (dict(mode=1), "mode 1"),
-    (dict(mode=3), "mode 3"), (dict(mode=4), "mode 4"),
-    (dict(mode=5), "mode 5"), (dict(mode=2, ploid=4), "ploidy 4"),
+    (dict(mode=0), "mode 0"),
+    (dict(mode=3, marginalize_g=True), "marginalize_g"),
+    (dict(mode=3, priors=Priors(family=PriorFamily.NORMAL)), "normal prior"),
+    (dict(mode=4, back_refl=0), "adaptive-independence"),
+    (dict(mode=5, priors=Priors(family=PriorFamily.DPM)), "dpm prior"),
+    (dict(mode=2, ploid=4), "ploidy 4"),
     (dict(mode=2, marginalize_g=True), "marginalize_g"),
     (dict(mode=2, back_refl=0), "adaptive-independence"),
     (dict(mode=2, use_pallas=False), "unfused"),
@@ -93,10 +96,17 @@ def test_outside_the_slice_raises_not_implemented(panel, kwargs, what):
 
 
 def test_multiallelic_panel_raises_not_implemented():
+    """A multi-allelic panel runs (the generic site path) as long as
+    n_pops * max_alleles <= 64, the bound of the fused step; beyond it the
+    port still raises."""
     p3 = synthetic_panel(12, 15, n_pops=2, n_alleles=3, seed=1)
     assert p3.data.bits2 is None
-    with pytest.raises(NotImplementedError, match="A > 2"):
-        run_mcmc(p3.data, ModelSpec(mode=2, n_pops=2), Schedule(**SCHED), 0,
+    res = run_mcmc(p3.data, ModelSpec(mode=2, n_pops=2), Schedule(**SCHED),
+                   0, device="cpu")
+    assert torch.isfinite(res.accum.mean.total_ll).all()
+    p9 = synthetic_panel(12, 15, n_pops=2, n_alleles=9, seed=1)
+    with pytest.raises(NotImplementedError, match="max_alleles > 64"):
+        run_mcmc(p9.data, ModelSpec(mode=2, n_pops=8), Schedule(**SCHED), 0,
                  device="cpu")
     with pytest.raises(ValueError, match="unknown mode"):
         step_mod.check_supported(ModelSpec(mode=7), p3.data)

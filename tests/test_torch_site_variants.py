@@ -1,0 +1,274 @@
+"""Every entry point of the port's per-site pass (plain PyTorch versions,
+CPU) against the JAX package's Pallas kernel run in interpret mode, on the
+packed biallelic plane and on multi-allelic panels (the generic path).
+
+Inputs are made with numpy from a seed and handed to both sides together
+with the same injected z-draw uniforms, so z, qqnum and zcounts must agree
+exactly and the log-lik columns to f32 rounding (sums over L taken in
+another order than the Pallas blocks': rtol 1e-5, atol 1e-4).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from instruct_tpu.data.dataset import make_dataset as jax_make_dataset
+from instruct_tpu.kernels import fused_step as jfs
+
+from instruct_tpu_torch import convert
+from instruct_tpu_torch.kernels import fused_step as tfs
+from instruct_tpu_torch.kernels import philox as px
+
+RTOL, ATOL = 1e-5, 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _keys(c=1):
+    return px.make_keys(7, c, "cpu")
+
+
+# (N, L, K, A): K in {1, 2, 3}; A = 2 is the packed plane, A = 4 the generic
+# path with a ragged number of alleles per locus
+PANELS = {"packed-K3": (24, 96, 3, 2), "packed-K1": (9, 20, 1, 2),
+          "generic-K2": (20, 48, 2, 4), "generic-K3": (12, 31, 3, 4)}
+
+
+@pytest.fixture(scope="module", params=sorted(PANELS))
+def setup(request):
+    n, l, k, a = PANELS[request.param]
+    rng = np.random.default_rng(11)
+    n_alleles = (np.full(l, 2) if a == 2
+                 else rng.integers(2, a + 1, size=l))
+    n_alleles[0] = a
+    geno = rng.integers(0, 1 << 30, size=(n, l, 2)) % n_alleles[None, :, None]
+    missing = rng.random((n, l)) < 0.15
+    jdata = jax_make_dataset(geno, missing, n_alleles.astype(np.int32))
+    assert (jdata.bits2 is not None) == (a == 2)
+    data = convert.dataset_from_numpy(
+        {f: None if v is None else np.asarray(v)
+         for f, v in jdata._asdict().items()})
+    av = np.asarray(jdata.allele_valid, np.float64)
+    freq = rng.dirichlet(np.ones(a), size=(k, l)) * av[None]
+    freq = (freq / freq.sum(-1, keepdims=True)).astype(np.float32)
+    x = dict(
+        jdata=jdata, data=data, k=k, freq=freq,
+        q=rng.dirichlet(np.ones(k), size=n).astype(np.float32),
+        z=rng.integers(0, k, size=(n, 2 * l)).astype(np.int8),
+        u=rng.uniform(1e-6, 1 - 1e-6, size=(n, 2 * l)).astype(np.float32),
+        wg_pair=np.exp2(1.0 - rng.integers(1, 12, size=(n, 2))
+                        ).astype(np.float32),
+        f_pop=rng.uniform(0.02, 0.98, size=(k, 2)).astype(np.float32),
+        f_ind=rng.uniform(0.02, 0.98, size=(n, 2)).astype(np.float32))
+    return x
+
+
+def _jax_panel_args(x):
+    d = x["jdata"]
+    return d.geno, d.site_valid
+
+
+def _same_draw(x, got, want):
+    """z, qqnum, zcounts of a sampling pass: exactly equal.  The port's
+    generic path carries no allele-pop counts (the step recounts), so there
+    the JAX pass's carried counts are held against the recount."""
+    z, qq, zc = got
+    jz, jqq, jzc = want
+    assert z.dtype == torch.int8 and z.shape[0] == 1
+    np.testing.assert_array_equal(z[0].numpy(), np.asarray(jz))
+    np.testing.assert_array_equal(qq[0].numpy(), np.asarray(jqq))
+    d = x["data"]
+    if tfs.is_packed(d):
+        np.testing.assert_array_equal(zc[0].numpy(), np.asarray(jzc))
+    else:
+        assert zc is None
+        zc = tfs.allele_counts(z, d.geno, d.site_valid, n_pops=x["k"],
+                               max_alleles=d.max_alleles)
+        np.testing.assert_array_equal(zc[0].numpy(), np.asarray(jzc))
+    assert float(qq.sum()) == float(zc.sum()) == 2.0 * float(
+        d.site_valid.sum())
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+def _b(a):
+    """numpy -> torch with the chain axis."""
+    return _t(a)[None]
+
+
+def test_zq_sample_pass_matches_jax(setup):
+    x = setup
+    geno, valid = _jax_panel_args(x)
+    want = jfs.zq_sample_pass(0, jnp.asarray(x["q"]), jnp.asarray(x["freq"]),
+                              geno, valid, interpret=True,
+                              u=jnp.asarray(x["u"]), bits2=x["jdata"].bits2)
+    got = tfs.zq_sample_pass(_keys(), 0, _b(x["q"]), _b(x["freq"]),
+                             x["data"], u=_b(x["u"]))
+    _same_draw(x, got, want)
+
+
+def test_zq_mode1_pass_matches_jax(setup):
+    x = setup
+    geno, valid = _jax_panel_args(x)
+    jz, jqq, jll, jzc = jfs.zq_mode1_pass(
+        0, jnp.asarray(x["q"]), jnp.asarray(x["freq"]), geno, valid,
+        interpret=True, u=jnp.asarray(x["u"]), bits2=x["jdata"].bits2)
+    z, qq, ll, zc = tfs.zq_mode1_pass(_keys(), 0, _b(x["q"]), _b(x["freq"]),
+                                      x["data"], u=_b(x["u"]))
+    _same_draw(x, (z, qq, zc), (jz, jqq, jzc))
+    _close(ll, jll)
+    # the one-pass form is the stored-step pass at the z it drew
+    again = tfs.panel_loglik_mode1_pass(_b(x["freq"]), None, x["data"], z)
+    np.testing.assert_allclose(ll.numpy(), again.numpy(), rtol=1e-6)
+
+
+def test_panel_loglik_mode1_pass_matches_jax(setup):
+    x = setup
+    geno, valid = _jax_panel_args(x)
+    want = jfs.panel_loglik_mode1_pass(
+        jnp.asarray(x["freq"]), jnp.asarray(x["q"]), geno, valid,
+        jnp.asarray(x["z"]), interpret=True, bits2=x["jdata"].bits2)
+    got = tfs.panel_loglik_mode1_pass(_b(x["freq"]), _b(x["q"]), x["data"],
+                                      _b(x["z"]))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("structure", [True, False])
+def test_zq_gen_pass_matches_jax_and_gendiff_is_its_difference(setup,
+                                                               structure):
+    x = setup
+    d = x["jdata"]
+    args = (0, jnp.asarray(x["q"]), jnp.asarray(x["freq"]), d.geno,
+            d.site_valid, d.hom, jnp.asarray(x["z"]),
+            jnp.asarray(x["wg_pair"]))
+    kw = dict(structure=structure, interpret=True, u=jnp.asarray(x["u"]),
+              bits2=d.bits2)
+    jz, jqq, jll, jzc = jfs.zq_gen_pass(*args, **kw)
+    targs = (_keys(), 0, _b(x["q"]), _b(x["freq"]), x["data"],
+             _b(x["wg_pair"]))
+    tkw = dict(structure=structure, u=_b(x["u"]))
+    z, qq, ll, zc = tfs.zq_gen_pass(*targs, **tkw)
+    assert ll.shape == (1, x["q"].shape[0], 2)
+    _same_draw(x, (z, qq, zc), (jz, jqq, jzc))
+    _close(ll, jll)
+    # the production form: same draw, the column difference in one column
+    zd, qqd, lld, zcd = tfs.zq_gendiff_pass(*targs, **tkw)
+    assert torch.equal(z, zd) and torch.equal(qq, qqd)
+    np.testing.assert_allclose(lld.numpy(),
+                               (ll[:, :, 1] - ll[:, :, 0]).numpy(),
+                               rtol=1e-4, atol=ATOL)
+    _close(lld, jfs.zq_gendiff_pass(*args, **kw)[2])
+
+
+@pytest.mark.parametrize("structure", [True, False])
+def test_panel_loglik_pass_matches_jax_on_every_path(setup, structure):
+    x = setup
+    d = x["jdata"]
+    wg = x["wg_pair"][:, 0]
+    want = jfs.panel_loglik_pass(
+        jnp.asarray(x["freq"]), jnp.asarray(x["q"]), d.geno, d.site_valid,
+        d.hom, jnp.asarray(x["z"]), jnp.asarray(wg)[:, None],
+        structure=structure, interpret=True, bits2=d.bits2)
+    got = tfs.panel_loglik_pass(_b(x["freq"]), _b(x["q"]), x["data"],
+                                _b(x["z"]), _b(wg), structure=structure)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("pop", [True, False])
+def test_zq_f_pass_matches_jax(setup, pop):
+    x = setup
+    d = x["jdata"]
+    f_pair = x["f_pop"] if pop else x["f_ind"]
+    jz, jqq, jll, jzc = jfs.zq_f_pass(
+        0, jnp.asarray(x["q"]), jnp.asarray(x["freq"]), d.geno, d.site_valid,
+        d.hom, jnp.asarray(x["z"]), jnp.asarray(f_pair), pop=pop,
+        interpret=True, u=jnp.asarray(x["u"]), bits2=d.bits2)
+    z, qq, ll, zc = tfs.zq_f_pass(_keys(), 0, _b(x["q"]), _b(x["freq"]),
+                                  x["data"], _b(f_pair), pop=pop,
+                                  u=_b(x["u"]))
+    n = x["q"].shape[0]
+    assert ll.shape == ((1, n, x["k"]) if pop else (1, n))
+    _same_draw(x, (z, qq, zc), (jz, jqq, jzc))
+    _close(ll, jll)
+    # "Z, then F | z": the terms are those of the FRESH z -- the stored-step
+    # pass at that z differs by them between the proposed and the current F
+    cur = tfs.panel_loglik_f_pass(_b(x["freq"]), x["data"], z,
+                                  _b(f_pair[:, 0]), pop=pop)
+    new = tfs.panel_loglik_f_pass(_b(x["freq"]), x["data"], z,
+                                  _b(f_pair[:, 1]), pop=pop)
+    np.testing.assert_allclose((ll.sum(dim=2) if pop else ll).numpy(),
+                               (new - cur).numpy(), rtol=1e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("pop", [True, False])
+def test_panel_loglik_f_pass_matches_jax(setup, pop):
+    x = setup
+    d = x["jdata"]
+    f = (x["f_pop"] if pop else x["f_ind"])[:, 0]
+    want = jfs.panel_loglik_f_pass(
+        jnp.asarray(x["freq"]), d.geno, d.site_valid, d.hom,
+        jnp.asarray(x["z"]), jnp.asarray(f)[:, None], pop=pop,
+        interpret=True, bits2=d.bits2)
+    got = tfs.panel_loglik_f_pass(_b(x["freq"]), x["data"], _b(x["z"]),
+                                  _b(f), pop=pop)
+    _close(got, want)
+
+
+def test_sampling_passes_share_one_draw_and_never_read_the_old_z(setup):
+    """Every sampling entry point draws the same z from the same uniforms
+    (the family only adds a log-lik column), and two chains with their own
+    keys draw their own."""
+    x = setup
+    base = (_keys(), 3, _b(x["q"]), _b(x["freq"]), x["data"])
+    z = tfs.zq_sample_pass(*base, u=_b(x["u"]))[0]
+    for out in (tfs.zq_mode1_pass(*base, u=_b(x["u"])),
+                tfs.zq_gendiff_pass(*base, _b(x["wg_pair"]), structure=True,
+                                    u=_b(x["u"])),
+                tfs.zq_f_pass(*base, _b(x["f_pop"]), pop=True, u=_b(x["u"])),
+                tfs.zq_f_pass(*base, _b(x["f_ind"]), pop=False,
+                              u=_b(x["u"]))):
+        assert torch.equal(out[0], z)
+    if x["k"] > 1:
+        keys = px.make_keys(3, 3, "cpu", chain_key=[5, 9, 5])
+        q3 = _b(x["q"]).expand(3, -1, -1).contiguous()
+        f3 = _b(x["freq"]).expand(3, -1, -1, -1).contiguous()
+        z3 = tfs.zq_sample_pass(keys, 4, q3, f3, x["data"])[0]
+        assert torch.equal(z3[0], z3[2]) and not torch.equal(z3[0], z3[1])
+        assert not torch.equal(
+            z3, tfs.zq_sample_pass(keys, 5, q3, f3, x["data"])[0])
+
+
+def test_generic_path_guards_allele_codes():
+    """A copy whose allele code is outside [0, A) weighs 0 under every pop
+    (the JAX kernel's ``w_of`` matches no allele): z = 0 there, and the
+    site, being invalid, is counted nowhere."""
+    rng = np.random.default_rng(4)
+    n, l, k, a = 6, 10, 2, 3
+    geno = rng.integers(0, a, size=(n, 2 * l)).astype(np.int8)
+    valid = rng.random((n, l)) < 0.8
+    geno[0, 3], valid[0, 3] = 7, False
+    geno[2, l + 5], valid[2, 5] = -1, False
+    from instruct_tpu_torch.data.dataset import Dataset
+    data = Dataset(geno=_t(geno), site_valid=_t(valid),
+                   allele_valid=torch.ones(l, a, dtype=torch.bool),
+                   hom=_t(geno[:, :l] == geno[:, l:]))
+    q = _b(rng.dirichlet(np.ones(k), size=n).astype(np.float32))
+    freq = _b(rng.dirichlet(np.ones(a), size=(k, l)).astype(np.float32))
+    z, qq, ll, zc = tfs.zq_mode1_pass(_keys(), 0, q, freq, data)
+    assert z[0, 0, 3] == 0 and z[0, 2, l + 5] == 0 and zc is None
+    assert torch.isfinite(ll).all()
+    assert float(qq.sum()) == 2.0 * float(valid.sum())

@@ -168,7 +168,7 @@ def test_likelihoods_match_jax(type_freq):
     # against this likelihood uses
     from instruct_tpu_torch.kernels.fused_step import panel_loglik_pass
     wg = torch.exp2(1.0 - _t(gen).float())
-    via_pass = panel_loglik_pass(_t(freq), _t(q), data.bits2, _t(z), wg,
+    via_pass = panel_loglik_pass(_t(freq), _t(q), data, _t(z), wg,
                                  structure=(type_freq == 1)).numpy()
     np.testing.assert_allclose(via_pass, got_c, rtol=2e-4, atol=2e-3)
 
