@@ -6,12 +6,17 @@
 Builds the hand-written CUDA kernels of ``instruct_tpu_torch`` from
 ``instruct_tpu_torch/csrc`` with ``nvcc``, holds each kernel against its plain
 PyTorch version on the card at the sampler's headline shapes (N = 1000
-individuals x L = 10 000 loci, K = 3, 4 chains, packed biallelic panel; and
-N = 1000 x L = 2000 with A = 8 alleles for the generic site path), then drives
-the main path -- ``run_mcmc`` on the diploid mode-2 biallelic panel -- and the
-other paths -- ``run_mcmc`` in modes 1, 3, 4, 5 on that panel and in every
-mode on the A = 8 panel -- and checks that each went through its kernels,
-that its output is sane and that two runs from one seed are bitwise equal.
+individuals x L = 10 000 loci, K = 3, 4 chains, packed biallelic panel;
+N = 1000 x L = 2000 with A = 8 alleles for the generic site path; and
+N = 1000 x L = 2000 with A = 16 alleles and K = 5, a microsatellite panel
+whose K*A = 80 only the unfused sweep runs), then drives the main path --
+``run_mcmc`` on the diploid mode-2 biallelic panel -- and the other paths --
+``run_mcmc`` in modes 1, 3, 4, 5 on that panel and in every mode on the A = 8
+panel (the fused sweep); the unfused sweep in mode 2 and modes 1, 3, 4, 5 on
+the wide panel, mode 0, ``use_pallas=False``, K = 12, and the fused sweep
+under the normal prior and the adaptive-independence proposal -- and checks
+that each went through its kernels, that its output is sane and that two runs
+from one seed are bitwise equal.
 Every phase prints one JSON line; any failure raises, so the exit code is
 non-zero.  There is no CPU path: without a CUDA device the script exits with
 code 1 and prints no result.
@@ -20,8 +25,8 @@ The line before the last is the card's name and power limit as ``nvidia-smi``
 prints them; the line before that is the ``{"kernels": [...]}`` summary; the
 last line is ``{"ok": true, "device": {...}}``.
 
-``--phases`` runs a subset of build, kernels, main_path, modes (development
-aid); the device and Philox phases always run.
+``--phases`` runs a subset of build, kernels, main_path, modes, unfused
+(development aid); the device and Philox phases always run.
 """
 
 from __future__ import annotations
@@ -37,16 +42,18 @@ import time
 import numpy as np
 import torch
 
-from instruct_tpu_torch import (ModelSpec, Schedule, run_mcmc,
+from instruct_tpu_torch import (ModelSpec, Priors, Schedule, run_mcmc,
                                 synthetic_panel)
+from instruct_tpu_torch.config import PriorFamily
 from instruct_tpu_torch.data.dataset import Dataset, packed_dataset
 from instruct_tpu_torch.kernels import _build
 from instruct_tpu_torch.kernels import dirichlet as dk
 from instruct_tpu_torch.kernels import fused_step as fs
 from instruct_tpu_torch.kernels import philox as px
 from instruct_tpu_torch.kernels import s_pop as sp
+from instruct_tpu_torch.kernels import zq as zqk
 from instruct_tpu_torch.mcmc.state import init_state
-from instruct_tpu_torch.mcmc.step import build_step_parts
+from instruct_tpu_torch.mcmc.step import build_step_parts, use_fused
 
 # Headline shapes of the main path.
 N_INDV, N_LOCI, N_POPS, N_CHAINS, SUBSWEEPS = 1000, 10_000, 3, 4, 12
@@ -54,6 +61,10 @@ PANEL_SEED, RUN_SEED = 17, 2024
 N_ITER = 200           # sweeps of a run_mcmc path (half of them burn-in)
 # The multi-allelic panel of the generic site path.
 GEN_LOCI, GEN_ALLELES = 2000, 8
+# The wide panel of the unfused sweep: K*A = 80 is beyond the fused sweep.
+WIDE_LOCI, WIDE_ALLELES, WIDE_POPS = 2000, 16, 5
+WIDE_RATES = (0.1, 0.3, 0.5, 0.7, 0.9)
+UNFUSED_ITER = 40      # sweeps of the shorter unfused and new-arm paths
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
 # the float32 rate outside the tensor cores.  The bound of a kernel is the
@@ -182,10 +193,10 @@ def phase_philox() -> dict:
 # phase 4: each kernel against its plain version, at the main-path shapes
 # ---------------------------------------------------------------------------
 
-def kernel_inputs(panel):
+def kernel_inputs(panel, k: int = N_POPS):
     """State-like inputs at the panel's shapes, from a seed."""
     data = panel.data.to("cuda")
-    c, k = N_CHAINS, N_POPS
+    c = N_CHAINS
     n, l, a = data.n_indv, data.n_loci, data.max_alleles
     g = torch.Generator(device="cuda").manual_seed(99)
     gam = torch._standard_gamma(torch.full((c, k, l, a), 1.0, device="cuda"),
@@ -215,36 +226,131 @@ def kernel_inputs(panel):
 
 
 def check_allele_counts(x):
+    """``allele_counts`` at the inputs' shape: the private-table kernel up
+    to K*A = 64 (on the packed plane and on the allele codes), the
+    direct-add kernel beyond."""
     d = x["data"]
-    c, n, l, k = N_CHAINS, N_INDV, N_LOCI, N_POPS
-    kw = dict(n_pops=k, max_alleles=2, bits2=d.bits2)
-    run = lambda: fs.allele_counts(x["z"], d.geno, d.site_valid, **kw)
+    c, n, k = x["q"].shape
+    l, a = d.n_loci, d.max_alleles
+    wide = k * a > 64
+    name = "allele_counts_wide" if wide else "allele_counts"
+    kw = dict(n_pops=k, max_alleles=a)
+    run = lambda: fs.allele_counts(x["z"], d.geno, d.site_valid, **kw,
+                                   bits2=d.bits2)
     plain = lambda: fs.allele_counts_reference(x["z"], d.geno, d.site_valid,
                                                **kw)
     got, want = run(), plain()
     if not torch.equal(got, want):
-        raise AssertionError("allele_counts: counts differ from the plain "
-                             f"version (max {max_err(got, want)})")
-    unpacked = fs.allele_counts(x["z"], d.geno, d.site_valid, n_pops=k,
-                                max_alleles=2)
-    if not torch.equal(unpacked, want):
+        raise AssertionError(f"{name}: counts differ from the plain version "
+                             f"(max {max_err(got, want)})")
+    if not torch.equal(got, run()):
+        raise AssertionError(f"{name}: two launches are not bitwise equal")
+    if d.bits2 is not None and not torch.equal(
+            fs.allele_counts(x["z"], d.geno, d.site_valid, **kw), want):
         raise AssertionError("allele_counts (geno + site_valid operands) "
                              "differs from the plain version")
     valid2 = 2.0 * float(d.site_valid.sum())
     for ch in range(c):
         if float(got[ch].sum()) != valid2:
-            raise AssertionError("allele_counts: total != 2 * valid sites")
-    n_bytes = c * n * 2 * l + n * l + c * k * l * 2 * 4
+            raise AssertionError(f"{name}: total != 2 * valid sites")
+    planes = n * l if fs.is_packed(d) and not wide else n * 3 * l
+    n_bytes = c * n * 2 * l + planes + c * k * l * a * 4
     n_ops = c * n * 2 * l * 4
     b_ms, b_by = bound(n_bytes, n_ops)
-    return dict(name="allele_counts", route="cuda",
+    return dict(name=name, route="cuda",
                 source="instruct_tpu_torch/csrc/allele_counts.cu",
                 replaces="instruct_tpu/kernels/fused_step.py:87",
                 max_abs_err=max_err(got, want), ms=time_ms(run),
                 plain_ms=time_ms(plain, reps=5, warm=1, inner=1),
                 bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, bytes=n_bytes, ops=n_ops,
+                shape=dict(C=c, N=n, L=l, K=k, A=a),
                 compared="counts exactly equal")
+
+
+def zq_agrees(tag, keys, q, freq, geno, site_valid, u=None):
+    """Raise unless ``zq_sample_counts`` gives exactly its plain version's
+    z and qqnum on these inputs; returns the kernel's (z, qqnum)."""
+    k = q.shape[2]
+    args = (keys, 5, q, freq, geno, site_valid)
+    got = zqk.zq_sample_counts(*args, n_pops=k, u=u)
+    want = zqk.zq_sample_counts_reference(*args, n_pops=k, u=u)
+    for nm, a, b in zip(("z", "qqnum"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: {nm} differs from the plain "
+                                 f"version at {int((a != b).sum())} elements")
+    ploid = geno.shape[1] // site_valid.shape[1]
+    total = float(ploid) * float(site_valid.sum())
+    for ch in range(q.shape[0]):
+        if float(got[1][ch].sum()) != total:
+            raise AssertionError(f"{tag}: qqnum.sum() != ploidy * valid "
+                                 "sites")
+    if int(got[0].min()) < 0 or int(got[0].max()) >= k:
+        raise AssertionError(f"{tag}: z outside [0, K)")
+    return got
+
+
+def check_zq_sample_counts(name, keys, q, freq, geno, site_valid,
+                           k1_data=None):
+    """K8 against its plain version, z and qqnum exactly equal, with Philox
+    and with injected uniforms; against the generic site pass from the same
+    keys where that exists (``k1_data``: diploid, K <= 8); its time and
+    bound."""
+    c, n, k = q.shape
+    s, l, a = geno.shape[1], site_valid.shape[1], freq.shape[3]
+    got = zq_agrees(name, keys, q, freq, geno, site_valid)
+    u = torch.rand((c, n, s), device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(3))
+    zq_agrees(name + " under injected uniforms", keys, q, freq, geno,
+              site_valid, u=u)
+    del u
+    run = lambda: zqk.zq_sample_counts(keys, 5, q, freq, geno, site_valid,
+                                       n_pops=k)
+    plain = lambda: zqk.zq_sample_counts_reference(keys, 5, q, freq, geno,
+                                                   site_valid, n_pops=k)
+    if not all(torch.equal(a_, b_) for a_, b_ in zip(got, run())):
+        raise AssertionError(f"{name}: two launches from one seed are not "
+                             "bitwise equal")
+    notes = []
+    if k1_data is not None:
+        z1, qq1, _ = fs.zq_sample_pass(keys, 5, q, freq,
+                                       k1_data._replace(bits2=None))
+        if not (torch.equal(z1, got[0]) and torch.equal(qq1, got[1])):
+            raise AssertionError(f"{name}: differs from the generic "
+                                 "zq_sample_pass from the same keys")
+        notes.append("== zq_sample_pass on the generic path")
+    n_bytes = (c * n * k * 4 * 2 + c * k * l * a * 4 + n * s + n * l
+               + c * n * s)
+    n_ops = c * n * s * (OPS_PHILOX / 4 + 1 + 2 * k + 3 * (k - 1) + k)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    return dict(name=name, route="cuda",
+                source="instruct_tpu_torch/csrc/zq_sample.cu",
+                replaces="instruct_tpu/kernels/zq_pallas.py:91",
+                max_abs_err=max_err(got[1], plain()[1]), ms=time_ms(run),
+                plain_ms=time_ms(plain, reps=3, warm=1, inner=1),
+                bound_ms=b_ms, bound_by=b_by,
+                # torch.multinomial draws from the same distribution but is
+                # another function of the uniforms
+                library_ms=None, bytes=n_bytes, ops=n_ops, notes=notes,
+                shape=dict(C=c, N=n, L=l, S=s, K=k, A=a),
+                compared="z, qqnum exactly equal")
+
+
+def ploidy4_inputs():
+    """A ploidy-4 input of K8 at N = 1000, L = 2000, S = 4L, A = 4, K = 3,
+    from a seed."""
+    c, n, l, k, a = N_CHAINS, N_INDV, GEN_LOCI, N_POPS, 4
+    g = torch.Generator(device="cuda").manual_seed(41)
+    geno = torch.randint(0, a, (n, 4 * l), generator=g, device="cuda",
+                         dtype=torch.int8)
+    site_valid = torch.rand((n, l), generator=g, device="cuda") > 0.1
+    gam = torch._standard_gamma(torch.full((c, k, l, a), 1.0, device="cuda"),
+                                generator=g)
+    freq = (gam / gam.sum(-1, keepdim=True)).contiguous()
+    gq = torch._standard_gamma(torch.full((c, n, k), 0.3, device="cuda"),
+                               generator=g).clamp_min(1e-20)
+    q = (gq / gq.sum(-1, keepdim=True)).contiguous()
+    return px.make_keys(RUN_SEED, c, "cuda"), q, freq, geno, site_valid
 
 
 # Entry points of the site pass: (launch-counter name, line of the wrapper's
@@ -725,18 +831,73 @@ def phase_edge_shapes() -> None:
                                keys, 2, px.STREAM_R_PROP, 4, 3 * n + 1)):
             raise AssertionError(f"{tag}: random_streams differs from its "
                                  "plain version")
+    # K8 and the wide allele counts: K beyond the site pass, many alleles
+    # with a ragged number per locus, every ploidy, N no multiple of the row
+    # strips, L no multiple of 4, missing copies coded -1 on invalid sites
+    zq_cases = [(2, 45, 37, 1, 3, 2), (2, 33, 1026, 9, 16, 2),
+                (1, 70, 131, 20, 30, 2), (2, 19, 250, 9, 3, 1),
+                (1, 50, 1025, 20, 16, 3), (2, 37, 66, 5, 30, 4),
+                (2, 40, 38, 5, 16, 2)]
+    for c, n, l, k, a, ploid in zq_cases:
+        tag = f"edge shape C={c} N={n} L={l} K={k} A={a} ploidy={ploid}"
+        keys = px.make_keys(78, c, "cuda", chain_key=range(5, 5 + c))
+        n_alleles = 2 + (rand(l) * (a - 1)).long().clamp_max(a - 2)
+        n_alleles[0] = a
+        allele_valid = (torch.arange(a, device="cuda")[None]
+                        < n_alleles[:, None])
+        geno = (rand(n, ploid * l) * n_alleles.repeat(ploid)[None]).long()
+        site_valid = rand(n, l) > 0.1
+        geno = torch.where(site_valid.repeat(1, ploid), geno,
+                           torch.full_like(geno, -1)).to(torch.int8)
+        q = simplex(c, n, k)
+        freq = simplex(c, k, l, a, mask=allele_valid.float()[None, None])
+        z, _ = zq_agrees(tag, keys, q, freq, geno, site_valid)
+        zq_agrees(tag + " under injected uniforms", keys, q, freq, geno,
+                  site_valid, u=rand(c, n, ploid * l).contiguous())
+        if ploid == 2 and k * a > 64:
+            kw = dict(n_pops=k, max_alleles=a)
+            if not torch.equal(
+                    fs.allele_counts(z, geno, site_valid, **kw),
+                    fs.allele_counts_reference(z, geno, site_valid, **kw)):
+                raise AssertionError(f"{tag}: allele_counts (wide) differs")
+        if ploid == 2 and k <= fs.MAX_POPS:
+            data = Dataset(geno=geno, site_valid=site_valid,
+                           allele_valid=allele_valid,
+                           hom=geno[:, :l] == geno[:, l:])
+            z1, qq1, _ = fs.zq_sample_pass(keys, 5, q, freq, data)
+            if not torch.equal(z1, z):
+                raise AssertionError(f"{tag}: K8 differs from the generic "
+                                     "zq_sample_pass")
     emit("edge_shapes", cases=[dict(C=c, N=n, L=l, K=k, A=a)
-                               for c, n, l, k, a in cases], all_match=True)
+                               for c, n, l, k, a in cases],
+         zq_cases=[dict(C=c, N=n, L=l, K=k, A=a, ploidy=p)
+                   for c, n, l, k, a, p in zq_cases], all_match=True)
 
 
-def phase_kernels(panel, panel_a, philox_entry):
+def phase_kernels(panel, panel_a, panel_w, philox_entry):
     """Entries by kernel name at the main paths' variant (structure way);
     the expectation-way runs of the site pass are reported as variants."""
     x = kernel_inputs(panel)
     main = [philox_entry, check_allele_counts(x), *check_site_entries(x),
             check_s_pop_tail(x), *check_dirichlet(x)]
     variants = check_site_entries(x, structure=False, only=EXP_WAY)
-    del x
+    # K8 at the headline panel through the allele codes: also the generic
+    # site pass's z from the same keys
+    d = x["data"]
+    main.append(check_zq_sample_counts(
+        "zq_sample_counts_headline", x["keys"], x["q"], x["freq"], d.geno,
+        d.site_valid, k1_data=d))
+    del x, d
+    torch.cuda.empty_cache()
+    xw = kernel_inputs(panel_w, WIDE_POPS)
+    dw = xw["data"]
+    main.append(check_zq_sample_counts(
+        "zq_sample_counts", xw["keys"], xw["q"], xw["freq"], dw.geno,
+        dw.site_valid, k1_data=dw))
+    main.append(check_allele_counts(xw))
+    del xw, dw
+    main.append(check_zq_sample_counts("zq_sample_counts_ploidy4",
+                                       *ploidy4_inputs()))
     torch.cuda.empty_cache()
     xa = kernel_inputs(panel_a)
     main += check_site_entries(xa)
@@ -746,6 +907,8 @@ def phase_kernels(panel, panel_a, philox_entry):
                                 A=2, J=SUBSWEEPS),
          generic_shapes=dict(C=N_CHAINS, N=N_INDV, L=GEN_LOCI, K=N_POPS,
                              A=GEN_ALLELES),
+         wide_shapes=dict(C=N_CHAINS, N=N_INDV, L=WIDE_LOCI, K=WIDE_POPS,
+                          A=WIDE_ALLELES),
          kernels=main, variants=variants)
     return {e["name"]: e for e in main}
 
@@ -762,14 +925,14 @@ MODE_PASSES = {1: ("site_pass_sample", "site_pass_loglik_mode1"),
                5: ("site_pass_find", "site_pass_loglik_find")}
 
 
-def small_agreement(mode: int, n_alleles: int) -> dict:
+def small_agreement(mode: int, n_alleles: int, **spec_kw) -> dict:
     """The port on the card against the port on the CPU (plain versions),
     same seed, a small panel, a few sweeps: the discrete state must agree
     exactly and the floats to f32 rounding."""
     panel = synthetic_panel(40, 120, n_pops=3, n_alleles=n_alleles,
                             selfing_rates=np.array([0.1, 0.4, 0.8]),
                             admixture_alpha=0.1, missing_rate=0.1, seed=3)
-    spec = ModelSpec(mode=mode, n_pops=3, s_subsweeps=4)
+    spec = ModelSpec(mode=mode, n_pops=3, s_subsweeps=4, **spec_kw)
     out = {}
     for dev in ("cpu", "cuda"):
         data = panel.data.to(dev)
@@ -782,14 +945,15 @@ def small_agreement(mode: int, n_alleles: int) -> dict:
             state = step(state, keys, i)
         out[dev] = add_loglik(state)
     a, b = out["cpu"], out["cuda"]
-    tag = f"small agreement (mode {mode}, A = {n_alleles})"
-    for name in ("z", "gen"):
+    tag = f"small agreement (mode {mode}, A = {n_alleles}, {spec_kw})"
+    for name in ("z", "zz", "gen", "ais_state"):
         if not torch.equal(getattr(a, name), getattr(b, name).cpu()):
             raise AssertionError(f"{tag}: {name} differs between the card "
                                  "and the CPU reference")
     errs = {}
     for name, tol in (("q", 1e-4), ("freq", 1e-4), ("rates", 1e-5),
-                      ("alpha", 1e-5), ("loglik_indv", 1e-2)):
+                      ("alpha", 1e-5), ("prior_mu", 1e-5),
+                      ("prior_sigma2", 1e-5), ("loglik_indv", 1e-2)):
         x, y = getattr(a, name), getattr(b, name).cpu()
         errs[name] = max_err(x, y) if x.numel() else 0.0
         if errs[name] > tol:
@@ -810,7 +974,7 @@ def rates_trajectory(data, spec, n_steps: int) -> torch.Tensor:
     return torch.stack(trace)
 
 
-def sweep_profile(data, spec, n_steps: int = 100) -> dict:
+def sweep_profile(data, spec, n_steps: int = 100, n_prof: int = 30) -> dict:
     """Where a sweep's time goes: host wall time per sweep of the bare step
     loop, and the device time of the kernels in it from ``torch.profiler``
     (summed by kernel name).  Device numbers are ``None`` where the
@@ -833,7 +997,6 @@ def sweep_profile(data, spec, n_steps: int = 100) -> dict:
                enqueue_ms_per_sweep=1e3 * enqueue / n_steps,
                device_ms_per_sweep=None, device_idle_share=None,
                top_kernels=None)
-    n_prof = 30
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -872,21 +1035,38 @@ def expected_launches(spec, data, steps, evals, attempts) -> dict:
     """Launches per kernel that ``run_mcmc``'s schedule predicts: ``steps``
     sweeps, ``evals`` stored-step log-lik passes, ``attempts`` initial
     states."""
-    suffix = "" if fs.is_packed(data) else "_generic"
-    sampling, stored = MODE_PASSES[spec.mode]
-    want = {sampling + suffix: steps, stored + suffix: evals,
-            "dirichlet_kla": steps, "dirichlet_nk": steps,
-            # the alpha step's words; modes 3-5 also draw their tail's
-            "philox_words": steps * (1 if spec.mode in (1, 2) else 2),
-            # seeds zcounts; the generic pass carries no counts, so the
-            # sweep recounts
-            "allele_counts": attempts + (steps if suffix else 0)}
-    if spec.mode == 2:
-        want["s_pop_tail"] = steps
+    mode, fused = spec.mode, use_fused(spec, data)
+    adaptive = spec.back_refl != 1 and mode in (2, 4)
+    counts = ("allele_counts" if spec.n_pops * data.max_alleles <= 64
+              else "allele_counts_wide")
+    # one fill for the alpha step's words; one for the uniforms of the
+    # S/F/G updates that are plain tensor code (or mode 0's z draw)
+    if fused:
+        tail = mode in (3, 4, 5) or (mode == 2 and adaptive)
+    else:
+        tail = mode != 1
+    want = {"dirichlet_kla": steps,
+            "philox_words": steps * (int(mode != 0) + int(tail))}
+    if mode != 0:
+        want["dirichlet_nk"] = steps
+    if fused:
+        suffix = "" if fs.is_packed(data) else "_generic"
+        sampling, stored = MODE_PASSES[mode]
+        want.update({sampling + suffix: steps, stored + suffix: evals,
+                     # seeds zcounts; the generic pass carries no counts,
+                     # so the sweep recounts
+                     counts: attempts + (steps if suffix else 0)})
+        if mode == 2 and not adaptive:
+            want["s_pop_tail"] = steps
+    elif mode != 0:
+        # the P update counts from z each sweep; the stored-step log-lik
+        # is plain tensor code
+        want.update({"zq_sample_counts": steps, counts: attempts + steps})
     return want
 
 
-def drive_path(tag, panel, spec, n_iter, smi, profile_sweeps=100) -> dict:
+def drive_path(tag, panel, spec, n_iter, smi, profile_sweeps=100,
+               n_prof=30) -> dict:
     """Drive ``run_mcmc`` once with the launch counts set to 0 just before
     and read just after; check the counts against the schedule, the output,
     and that a second run from the seed is bitwise equal.  Returns the
@@ -919,6 +1099,8 @@ def drive_path(tag, panel, spec, n_iter, smi, profile_sweeps=100) -> dict:
 
     st, acc = res.final_state, res.accum
     r = spec.n_rates(n)
+    admix = spec.has_admixture
+    fused = use_fused(spec, data)
     checks = {
         "loglik finite": bool(torch.isfinite(st.loglik_indv).all()
                               and torch.isfinite(acc.mean.total_ll).all()
@@ -930,17 +1112,28 @@ def drive_path(tag, panel, spec, n_iter, smi, profile_sweeps=100) -> dict:
             st.q.sum(-1), torch.ones_like(st.q.sum(-1)), atol=1e-4)),
         "freq rows sum to 1": bool(torch.allclose(
             st.freq.sum(-1), torch.ones_like(st.freq.sum(-1)), atol=1e-4)),
-        "shapes": (tuple(st.z.shape) == (N_CHAINS, n, 2 * l)
-                   and tuple(st.q.shape) == (N_CHAINS, n, k)
+        "shapes": (tuple(st.z.shape) == (
+                       (N_CHAINS, n, 2 * l) if admix else (N_CHAINS, 0, 0))
+                   and tuple(st.q.shape) == (
+                       (N_CHAINS, n, k) if admix else (N_CHAINS, 0, 0))
+                   and tuple(st.zz.shape) == (N_CHAINS, 0 if admix else n)
+                   and tuple(acc.mean.q.shape) == (N_CHAINS, n, k)
                    and tuple(st.freq.shape) == (N_CHAINS, k, l, a)
                    and tuple(acc.mean.rates.shape) == (N_CHAINS, r)
                    and tuple(st.gen.shape) == (
                        N_CHAINS, n if spec.has_selfing else 0)),
         "stored count": bool((acc.count == sched.n_stored).all()),
-        "zcounts carried": bool(torch.equal(
+        # the fused sweep carries the counts of its z; the unfused recounts
+        "zcounts carried": not fused or bool(torch.equal(
             st.zcounts, fs.allele_counts_reference(
                 st.z, data.geno, data.site_valid, n_pops=k,
                 max_alleles=a))),
+        "labels in range": bool(
+            (st.z if admix else st.zz).min() >= 0
+            and (st.z if admix else st.zz).max() < k),
+        "mean Q rows sum to 1": bool(torch.allclose(
+            acc.mean.q.sum(-1), torch.ones_like(acc.mean.q.sum(-1)),
+            atol=1e-4)),
         "retries not exhausted": res.n_retries < 10,
         "dic finite": bool(np.isfinite(res.dic()).all()),
     }
@@ -950,6 +1143,10 @@ def drive_path(tag, panel, spec, n_iter, smi, profile_sweeps=100) -> dict:
 
     res2 = run_mcmc(panel.data, spec, sched, RUN_SEED, device="cuda")
     same = (torch.equal(res.final_state.z, res2.final_state.z)
+            and torch.equal(res.final_state.zz, res2.final_state.zz)
+            and torch.equal(res.final_state.freq, res2.final_state.freq)
+            and torch.equal(res.final_state.prior_mu,
+                            res2.final_state.prior_mu)
             and torch.equal(res.final_state.rates, res2.final_state.rates)
             and torch.equal(res.final_state.gen, res2.final_state.gen)
             and torch.equal(res.accum.mean.rates, res2.accum.mean.rates)
@@ -963,10 +1160,11 @@ def drive_path(tag, panel, spec, n_iter, smi, profile_sweeps=100) -> dict:
                              "bitwise equal")
     if profile_sweeps:
         emit("sweep_profile", path=tag, card=smi,
-             **sweep_profile(data, spec, profile_sweeps))
+             **sweep_profile(data, spec, profile_sweeps, n_prof))
     mean_rates = acc.mean.rates.cpu()
     emit(tag.split(":")[0], path=tag, card=smi, mode=mode,
-         panel=dict(N=n, L=l, A=a, packed=fs.is_packed(data)), steps=steps,
+         panel=dict(N=n, L=l, A=a, K=k, packed=fs.is_packed(data)),
+         sweep="fused" if fused else "unfused", steps=steps,
          chains=N_CHAINS, n_retries=res.n_retries,
          wall_seconds=round(wall, 3),
          chain_steps_per_second=round(N_CHAINS * steps / wall, 1),
@@ -1053,9 +1251,79 @@ def phase_modes(panel, panel_a, smi: str) -> dict:
     return launches
 
 
+def phase_unfused(panel, panel_w, smi: str) -> dict:
+    """The unfused sweep (P, then S or F, then G, then Z and Q through K8)
+    at full width -- mode 2 on the wide panel, whose K*A = 80 the fused sweep
+    cannot run -- and, shorter: modes 1, 3, 4, 5 on that panel, mode 0 and
+    ``use_pallas=False`` and K = 12 on the headline panel; then the arms of
+    the fused sweep that run plain updates in place of a kernel or beside it
+    (the normal prior, the adaptive-independence proposal).  Returns
+    launches by kernel entry, each from the path that runs it."""
+    agreement = {}
+    for a in (2, 4):
+        for mode in (0, 1, 2, 3, 4, 5):
+            agreement[f"unfused mode {mode}, A={a}"] = small_agreement(
+                mode, a, use_pallas=False)
+    normal = Priors(family=PriorFamily.NORMAL)
+    arms = ((3, dict(priors=normal), "the normal prior"),
+            (5, dict(priors=normal), "the normal prior"),
+            (2, dict(back_refl=0), "back_refl=0"),
+            (4, dict(back_refl=0), "back_refl=0"))
+    for mode, kw, what in arms:
+        for sweep in (None, False):
+            agreement[f"mode {mode}, {what}, use_pallas={sweep}"] = \
+                small_agreement(mode, 2, use_pallas=sweep, **kw)
+    emit("small_agreement", sweeps=3, max_abs_err=agreement)
+
+    short = dict(n_iter=UNFUSED_ITER, smi=smi, profile_sweeps=30, n_prof=10)
+    launches = {}
+    got = drive_path("unfused: mode 2, wide panel (K*A = 80)", panel_w,
+                     ModelSpec(mode=2, n_pops=WIDE_POPS,
+                               s_subsweeps=SUBSWEEPS), N_ITER, smi,
+                     profile_sweeps=50)
+    launches.update({name: got[name] for name in ("zq_sample_counts",
+                                                  "allele_counts_wide")})
+    for mode in (1, 3, 4, 5):
+        drive_path(f"unfused: mode {mode}, wide panel", panel_w,
+                   ModelSpec(mode=mode, n_pops=WIDE_POPS,
+                             s_subsweeps=SUBSWEEPS), **short)
+    drive_path("unfused: mode 0, headline panel", panel,
+               ModelSpec(mode=0, n_pops=N_POPS), N_ITER, smi,
+               profile_sweeps=30, n_prof=10)
+    got = drive_path("unfused: mode 2, headline panel, use_pallas=False",
+                     panel, ModelSpec(mode=2, n_pops=N_POPS,
+                                      s_subsweeps=SUBSWEEPS,
+                                      use_pallas=False), **short)
+    launches["zq_sample_counts_headline"] = got["zq_sample_counts"]
+    drive_path("unfused: mode 2, headline panel, K = 12", panel,
+               ModelSpec(mode=2, n_pops=12, s_subsweeps=SUBSWEEPS), **short)
+    for mode, kw, what in arms:
+        drive_path(f"unfused: the fused sweep with {what}, mode {mode}",
+                   panel, ModelSpec(mode=mode, n_pops=N_POPS,
+                                    s_subsweeps=SUBSWEEPS, **kw), **short)
+    # no sweep runs a ploidy-4 panel yet: K8 called as a user would, held to
+    # what defines its counts
+    _build.reset_launches()
+    keys, q, freq, geno, site_valid = ploidy4_inputs()
+    z, qqnum = zqk.zq_sample_counts(keys, 8, q, freq, geno, site_valid,
+                                    n_pops=N_POPS)
+    valid = site_valid.repeat(1, 4)[None]
+    want = torch.stack([(valid & (z == kk)).sum(dim=2) for kk in
+                        range(N_POPS)], dim=2).to(torch.float32)
+    if not torch.equal(qqnum, want):
+        raise AssertionError("direct call, ploidy 4: qqnum is not the count "
+                             "of the valid copies of z per pop")
+    emit("direct_calls", launches=dict(_build.launches),
+         identities=["ploidy 4: qqnum == counts of the returned z"])
+    launches["zq_sample_counts_ploidy4"] = int(
+        _build.launches["zq_sample_counts"])
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="build,kernels,main_path,modes")
+    ap.add_argument("--phases",
+                    default="build,kernels,main_path,modes,unfused")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -1073,14 +1341,20 @@ def main(argv=None) -> int:
     panel_a = synthetic_panel(N_INDV, GEN_LOCI, n_pops=N_POPS,
                               n_alleles=GEN_ALLELES, selfing_rates=rates,
                               admixture_alpha=0.1, seed=PANEL_SEED)
-    entries = (phase_kernels(panel, panel_a, philox_entry)
+    panel_w = synthetic_panel(N_INDV, WIDE_LOCI, n_pops=WIDE_POPS,
+                              n_alleles=WIDE_ALLELES,
+                              selfing_rates=np.array(WIDE_RATES),
+                              admixture_alpha=0.1, seed=PANEL_SEED)
+    entries = (phase_kernels(panel, panel_a, panel_w, philox_entry)
                if "kernels" in phases else {})
     launches = (phase_main_path(panel, smi)
                 if "main_path" in phases else {})
     if "modes" in phases:
         # a kernel of the main path keeps the main path's count
         launches = {**phase_modes(panel, panel_a, smi), **launches}
-    full = {"kernels", "main_path", "modes"} <= phases
+    if "unfused" in phases:
+        launches = {**phase_unfused(panel, panel_w, smi), **launches}
+    full = {"kernels", "main_path", "modes", "unfused"} <= phases
     if full:
         keys = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

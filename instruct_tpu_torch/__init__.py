@@ -7,10 +7,12 @@ first use, bound with ``ctypes``) wherever the JAX package has a Pallas
 kernel.  The package imports ``torch`` and numpy only, never ``jax`` and
 nothing of ``instruct_tpu``.
 
-Ported so far: the fused sweeps of the diploid modes 1-5 (admixture,
-population- and individual-level selfing, population- and individual-level
-inbreeding; uniform prior, back-reflection proposal, K <= 8) on packed
-biallelic and on multi-allelic panels, end to end through :func:`run_mcmc`.
+Ported so far: the diploid modes 0-5 (no admixture, admixture, population-
+and individual-level selfing, population- and individual-level inbreeding;
+uniform and normal prior, back-reflection and adaptive-independence
+proposal, any number of pops and alleles) on packed biallelic and on
+multi-allelic panels, end to end through :func:`run_mcmc`, as a fused and an
+unfused sweep (``mcmc/step.py``).
 Sub-packages and functions keep the names of their counterparts in
 ``instruct_tpu``.  Entry points run on ``device="cuda"`` unless the caller
 asks for the CPU, where the kernels' plain PyTorch versions run instead.

@@ -108,12 +108,14 @@ class ModelSpec:
     #   (mcmc.c:479); also used as the upper bound of the uniform prior in our
     #   (corrected) alpha MH update
     alpha_sd: float = 1.0              # alpha proposal sd (mcmc.c:1249)
-    use_pallas: Optional[bool] = None  # "use the hand kernels".  The name
-    #   is kept from the JAX package so a reader finds the counterpart.  In
-    #   the port the fused step is the only step: on CUDA tensors it runs
-    #   the hand-written CUDA kernels, on CPU tensors their plain PyTorch
-    #   versions, so None/True select the same path; False is refused
-    #   (the unfused "G, then Z" sweep is not ported).
+    use_pallas: Optional[bool] = None  # which SWEEP runs; the name is kept
+    #   from the JAX package so a reader finds the counterpart.  None/True:
+    #   the fused sweep ("Z, then G | z" in one pass over the sites) for the
+    #   diploid modes 1-5 with K <= 8 and K*A <= 64, the unfused sweep (the
+    #   reference's "G or F, then Z" order) for everything else.  False: the
+    #   unfused sweep always.  It never chooses whether a hand kernel runs:
+    #   on CUDA tensors both sweeps launch the hand-written CUDA kernels, on
+    #   CPU tensors their plain PyTorch versions (mcmc/step.py:use_fused).
 
     @property
     def rates_are_per_pop(self) -> bool:

@@ -12,7 +12,10 @@
 // individuals and counts in a small private table, so loads are coalesced
 // along L and the strip costs one atomicAdd per non-empty (pop, allele)
 // cell.  The counts are integer-valued floats (<= 2N, far below 2^24), so
-// the atomic sum is exact whatever its order.
+// the atomic sum is exact whatever its order.  Beyond K * A = 64 cells (a
+// microsatellite panel, or many pops) the table no longer fits a thread: the
+// wide kernel walks the same strip and adds each run of equal cells to the
+// counts directly.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -20,7 +23,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kRows = 64;
-constexpr int kMaxCells = 64;   // K * A, the bound of the fused step
+constexpr int kMaxCells = 64;   // K * A that the private table holds
 
 __global__ void __launch_bounds__(kThreads) allele_counts_kernel(
     const int8_t* __restrict__ z, const int8_t* __restrict__ bits2,
@@ -64,19 +67,63 @@ __global__ void __launch_bounds__(kThreads) allele_counts_kernel(
     }
 }
 
+// K * A > kMaxCells: no private table; consecutive copies that fall into one
+// cell are merged into one atomicAdd.
+__global__ void __launch_bounds__(kThreads) allele_counts_wide_kernel(
+    const int8_t* __restrict__ z, const int8_t* __restrict__ geno,
+    const bool* __restrict__ valid, float* __restrict__ counts, int N, int L,
+    int K, int A) {
+  const int l = blockIdx.x * kThreads + threadIdx.x;
+  const int c = blockIdx.z;
+  if (l >= L) return;
+  float* col = counts + (long long)c * K * L * A + (long long)l * A;
+  const long long kstride = (long long)L * A;
+  long long pending = -1;         // offset of the cell being counted
+  int run = 0;
+  const int n_begin = blockIdx.y * kRows;
+  const int n_end = min(N, n_begin + kRows);
+  for (int n = n_begin; n < n_end; ++n) {
+    if (!valid[(long long)n * L + l]) continue;
+    const int8_t* grow = geno + (long long)n * 2 * L;
+    const int8_t* zrow = z + ((long long)c * N + n) * 2 * L;
+#pragma unroll
+    for (int copy = 0; copy < 2; ++copy) {
+      const int g = grow[copy * L + l], zz = zrow[copy * L + l];
+      if (zz < 0 || zz >= K || g < 0 || g >= A) continue;
+      const long long cell = zz * kstride + g;
+      if (cell == pending) {
+        run += 1;
+        continue;
+      }
+      if (run != 0) atomicAdd(col + pending, (float)run);
+      pending = cell;
+      run = 1;
+    }
+  }
+  if (run != 0) atomicAdd(col + pending, (float)run);
+}
+
 }  // namespace
 
 extern "C" int allele_counts_launch(const void* z, const void* bits2,
                                     const void* geno, const void* valid,
                                     void* counts, int C, int N, int L, int K,
                                     int A, void* stream) {
-  if (K * A > kMaxCells || K < 1 || A < 1) return (int)cudaErrorInvalidValue;
+  if (K < 1 || A < 1) return (int)cudaErrorInvalidValue;
+  // the wide kernel reads the allele codes, not the packed plane (A = 2)
+  if (K * A > kMaxCells && geno == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaMemsetAsync(counts, 0, sizeof(float) * (size_t)C * K * L * A, s);
   if (C == 0 || N == 0 || L == 0) return (int)cudaGetLastError();
   const dim3 grid((L + kThreads - 1) / kThreads, (N + kRows - 1) / kRows, C);
-  allele_counts_kernel<<<grid, kThreads, 0, s>>>(
-      (const int8_t*)z, (const int8_t*)bits2, (const int8_t*)geno,
-      (const bool*)valid, (float*)counts, N, L, K, A);
+  if (K * A > kMaxCells) {
+    allele_counts_wide_kernel<<<grid, kThreads, 0, s>>>(
+        (const int8_t*)z, (const int8_t*)geno, (const bool*)valid,
+        (float*)counts, N, L, K, A);
+  } else {
+    allele_counts_kernel<<<grid, kThreads, 0, s>>>(
+        (const int8_t*)z, (const int8_t*)bits2, (const int8_t*)geno,
+        (const bool*)valid, (float*)counts, N, L, K, A);
+  }
   return (int)cudaGetLastError();
 }

@@ -71,6 +71,9 @@ _SIGNATURES = {
        for path in ("packed", "generic") for half in ("sample", "eval")},
     # z, bits2, geno, valid, counts, C, N, L, K, A, stream
     "allele_counts_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, freq_t, geno, valid, u, z, qqnum, C, N, L, K, A, ploidy, k0, k1,
+    # chain_key, step, stream
+    "zq_sample_launch": [_P] * 7 + [_I] * 6 + [_U, _U, _P, _U, _P],
     # L -> locus tiles per row of the site pass (not a launch)
     "site_pass_tiles": [_I],
 }

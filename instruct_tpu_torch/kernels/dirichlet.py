@@ -45,16 +45,18 @@ def n_test_draws(rounds: int = 3) -> int:
     return 3 * rounds + 3
 
 
-def _normal(u1, u2):
+def box_muller(u1, u2):
+    """A standard normal from two uniforms in (0, 1)."""
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
 
 
-def _gamma_normalised(conc, valid, u, rounds, group_dim, margins=None):
-    """Plain version on logical cells: ``conc`` f32[...], ``valid`` bool
-    broadcastable or None, ``u`` f32[nd, ...] uniform planes; normalises
-    over ``group_dim``.  ``margins``, when a list, receives one tensor: per
-    cell the least distance of a rejection round's accept test from its
-    threshold (what tells a knife-edge flip from a wrong kernel)."""
+def gamma_cells(conc, valid, u, rounds: int = 3, margins=None):
+    """Gamma(conc) variates by the fixed-round sampler, plain version on
+    logical cells: ``conc`` f32[...], ``valid`` bool broadcastable or None
+    (invalid cells draw 0), ``u`` f32[n_test_draws(rounds), ...] uniform
+    planes.  ``margins``, when a list, receives one tensor: per cell the
+    least distance of a rejection round's accept test from its threshold
+    (what tells a knife-edge flip from a wrong kernel)."""
     if valid is None:
         a0 = conc
     else:
@@ -66,7 +68,7 @@ def _gamma_normalised(conc, valid, u, rounds, group_dim, margins=None):
     g = torch.zeros_like(a)
     acc = torch.zeros_like(a, dtype=torch.bool)
     for r in range(rounds):
-        z = _normal(u[3 * r], u[3 * r + 1])
+        z = box_muller(u[3 * r], u[3 * r + 1])
         v1 = 1.0 + c * z
         v = v1 * v1 * v1
         logu = torch.log(u[3 * r + 2])
@@ -79,7 +81,7 @@ def _gamma_normalised(conc, valid, u, rounds, group_dim, margins=None):
                            else torch.minimum(margins.pop(), gap))
         g = torch.where(ok & ~acc, d * v, g)
         acc = acc | ok
-    zf = _normal(u[3 * rounds], u[3 * rounds + 1])
+    zf = box_muller(u[3 * rounds], u[3 * rounds + 1])
     w1 = 1.0 - 1.0 / (9.0 * a) + zf * torch.rsqrt(9.0 * a)
     wh = a * w1 * w1 * w1
     g = torch.where(acc, g, torch.clamp_min(wh, _TINY))
@@ -88,6 +90,12 @@ def _gamma_normalised(conc, valid, u, rounds, group_dim, margins=None):
     g = torch.where(small, boost, g)
     if valid is not None:
         g = torch.where(valid, g, torch.zeros_like(g))
+    return g
+
+
+def _gamma_normalised(conc, valid, u, rounds, group_dim, margins=None):
+    """:func:`gamma_cells`, normalised over ``group_dim``."""
+    g = gamma_cells(conc, valid, u, rounds, margins)
     tot = g.select(group_dim, 0)
     for j in range(1, g.shape[group_dim]):
         tot = tot + g.select(group_dim, j)

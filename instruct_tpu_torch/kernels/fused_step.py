@@ -113,7 +113,9 @@ def allele_counts(z: torch.Tensor, geno: torch.Tensor,
 
     z int8[C, N, 2L] copy-major; geno int8[N, 2L]; site_valid bool[N, L];
     ``bits2`` int8[N, L], when given (packed biallelic panel), is read in
-    place of geno and site_valid by the kernel.
+    place of geno and site_valid by the kernel, as long as the K * A cells of
+    a locus fit a thread's private table (<= 64); beyond that the kernel
+    reads the allele codes and adds to the counts directly.
     """
     if z.dim() != 3:
         raise ValueError("z must be [C, N, 2L]")
@@ -122,10 +124,9 @@ def allele_counts(z: torch.Tensor, geno: torch.Tensor,
                                        max_alleles=max_alleles, bits2=bits2)
     c, n, s = z.shape
     l = s // 2
-    if n_pops * max_alleles > 64:
-        raise ValueError("allele_counts supports n_pops * max_alleles <= 64")
     _build.check(z, "z", torch.int8, (c, n, 2 * l))
-    if bits2 is not None and max_alleles == 2:
+    wide = n_pops * max_alleles > 64
+    if bits2 is not None and max_alleles == 2 and not wide:
         _build.check(bits2, "bits2", torch.int8, (n, l))
         geno = site_valid = None
     else:
@@ -135,9 +136,10 @@ def allele_counts(z: torch.Tensor, geno: torch.Tensor,
     counts = torch.empty((c, n_pops, l, max_alleles), dtype=torch.float32,
                          device=z.device)
     p = _build.ptr
-    _build.launch("allele_counts", "allele_counts_launch", p(z), p(bits2),
-                  p(geno), p(site_valid), p(counts), c, n, l, n_pops,
-                  max_alleles)
+    # the wide table is another kernel of the source: counted apart
+    _build.launch("allele_counts_wide" if wide else "allele_counts",
+                  "allele_counts_launch", p(z), p(bits2), p(geno),
+                  p(site_valid), p(counts), c, n, l, n_pops, max_alleles)
     return counts
 
 

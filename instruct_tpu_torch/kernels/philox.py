@@ -36,13 +36,17 @@ STREAM_S_LOGU = 5   # S tail: log-uniforms of the G accept
 STREAM_Z = 6        # per-copy z draw of the site pass
 STREAM_Q = 7        # Dirichlet draw of the admixture proportions Q
 STREAM_ALPHA = 8    # alpha MH step (normal proposal + accept uniform)
-# The tails that are plain tensor code (modes 3-5) draw from four consecutive
-# streams, so one launch of ``random_streams`` fills them all; word
+# The updates that are plain tensor code draw from consecutive streams, so
+# one launch of ``random_streams`` fills all that a sweep needs; word
 # ``j * R + i`` of a stream belongs to (subsweep j, element i).
-STREAM_R_PROP = 9   # S/F random-walk proposals
+STREAM_R_PROP = 9   # S/F proposals (random walk, or the adaptive sampler's
+#                     state transition)
 STREAM_R_ACC = 10   # S/F MH accept uniforms
-STREAM_G_PROP = 11  # geometric G proposal (mode 3)
-STREAM_G_ACC = 12   # log-uniforms of the G accept (mode 3)
+STREAM_G_PROP = 11  # geometric G proposal
+STREAM_G_ACC = 12   # log-uniforms of the G accept
+STREAM_R_FRESH = 13  # adaptive-independence sampler: the fresh U(0, 1) value
+STREAM_HYPER = 14   # normal prior: the conjugate (mu, sigma^2) draw
+STREAM_ZZ = 15      # mode 0: one z per individual
 
 
 class RngKeys(NamedTuple):

@@ -68,10 +68,15 @@ def extract_stats(spec: ModelSpec, state: McmcState, track_freq: bool
     c = state.q.shape[0]
     empty = torch.zeros((c, 0), dtype=torch.float32, device=state.q.device)
     gen = state.gen.to(torch.float32) if spec.has_selfing else empty
+    q = state.q
+    if spec.mode == 0:
+        # no admixture: each individual's Q row is the indicator of its pop
+        q = torch.nn.functional.one_hot(state.zz.to(torch.int64),
+                                        spec.n_pops).to(torch.float32)
     return TrackedStats(
         total_ll=state.loglik_total,
         indv_ll=state.loglik_indv,
-        q=state.q,
+        q=q,
         rates=state.rates,
         gen=gen,
         freq=state.freq if track_freq else empty,

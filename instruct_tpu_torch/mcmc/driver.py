@@ -22,6 +22,7 @@ reporting.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -150,7 +151,8 @@ def _run_chains(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
     accum = init_accum(spec, sched, data, track_freq, n_chains, device)
     step_core, add_loglik = build_step_parts(spec, data)
     add_marg = build_marg_loglik(spec, data)
-    check_at = sched.nstep_check_empty_cluster
+    # mode 0 has no Q to run empty: the guard never latches (mcmc.c:111-115)
+    check_at = -1 if spec.mode == 0 else sched.nstep_check_empty_cluster
     last = sched.n_iter - 1
     for i in range(sched.n_iter):
         state = step_core(state, keys, i)
@@ -223,5 +225,10 @@ def _plugin_loglik(spec: ModelSpec, data: Dataset, accum: ChainAccum
     simplex-valid by linearity, and genofreq's closed form accepts the
     real-valued posterior-mean generations)."""
     m = accum.mean
+    if spec.mode == 0:
+        # the uniform mixture over the K single-pop log-liks
+        ll = lk.loglik_matrix_nopop_admix(data, m.freq)
+        return _np((torch.logsumexp(ll, dim=2)
+                    - math.log(spec.n_pops)).sum(dim=-1))
     return _np(lk.marginal_indv_loglik(spec, data, m.freq, m.q, m.gen,
                                        m.rates).sum(dim=-1))

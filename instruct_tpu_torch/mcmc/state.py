@@ -3,8 +3,8 @@
 Counterpart of ``instruct_tpu/mcmc/state.py``.  The JAX package holds one
 chain's state and ``vmap``s over chains; here the chains are a written-out
 leading axis ``C`` on every tensor, and one kernel launch serves all chains.
-Every field name is kept; fields the ported slice does not use are
-zero-size (or ``None`` where the JAX default is ``None``).
+Every field name is kept; fields a mode does not use are zero-size (or
+``None`` where the JAX default is ``None``).
 """
 
 from __future__ import annotations
@@ -22,14 +22,16 @@ class McmcState(NamedTuple):
 
     freq: torch.Tensor         # f32[C, K, L, A] P (allele freqs per pop/locus)
     z: torch.Tensor            # i8[C, N, S] per-copy pop assignments, flat,
-    #   S = L * ploid, copy-major
-    zz: torch.Tensor           # i32[C, 0] (mode 0 only; not ported)
+    #   S = L * ploid, copy-major (i8[C, 0, 0] in mode 0)
+    zz: torch.Tensor           # i32[C, N] one pop per individual (mode 0;
+    #   i32[C, 0] otherwise)
     q: torch.Tensor            # f32[C, N, K] admixture proportions
+    #   (f32[C, 0, 0] in mode 0)
     alpha: torch.Tensor        # f32[C] Dirichlet concentration of Q's prior
     rates: torch.Tensor        # f32[C, R] selfing rates S or inbreeding F
     #   (R = K for modes 2/4, N for 3/5, 0 for mode 1)
     ais_state: torch.Tensor    # i32[C, R] 3-state flag of the adaptive
-    #   independence sampler (dt_stat, mcmc.c:1524-1546); carried, unused
+    #   independence sampler (dt_stat, mcmc.c:1524-1546); carried unchanged
     #   under back-reflection
     gen: torch.Tensor          # i32[C, N] selfing generations (modes 2/3;
     #   i32[C, 0] otherwise)
@@ -38,13 +40,14 @@ class McmcState(NamedTuple):
     dpm_values: torch.Tensor   # f32[C, 0] (DPM prior; not ported)
     dpm_counts: torch.Tensor   # i32[C, 0]
     dpm_assign: torch.Tensor   # i32[C, 0]
-    prior_mu: torch.Tensor     # f32[C] normal-prior mean (not ported)
-    prior_sigma2: torch.Tensor  # f32[C]
+    prior_mu: torch.Tensor     # f32[C] normal prior's mean (modes 3/5)
+    prior_sigma2: torch.Tensor  # f32[C] and variance
     freq2: Optional[torch.Tensor] = None   # allotetraploid only
     geno: Optional[torch.Tensor] = None    # tetraploid only
     zcounts: Optional[torch.Tensor] = None  # f32[C, K, L, A] allele-pop
-    #   counts of the current z, carried so the P update needs no pass over
-    #   the site tensors
+    #   counts of the current z, carried by the fused sweep so that its P
+    #   update needs no pass over the site tensors; the unfused sweep
+    #   recounts from z and leaves the field as it found it (None in mode 0)
     loglik_marg: Optional[torch.Tensor] = None  # f32[C, N] Z-marginalized
     #   per-individual log-lik, refreshed every Schedule.dic_every-th stored
     #   step; feeds the corrected DIC and WAIC
@@ -91,23 +94,25 @@ def init_state(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
     """Draw the initial state of ``n_chains`` chains on ``device``.
 
     Mirrors the per-mode initialisation of the JAX package
-    (``instruct_tpu/mcmc/state.py:77``) for the diploid modes 1-5: alpha ~
+    (``instruct_tpu/mcmc/state.py:77``) for the diploid modes 0-5: alpha ~
     U[0, alpha_prior_max]; S or F from ``init_rates`` f32[C, R] or U[0, 1]
-    (R = ``spec.n_rates(N)``: K for modes 2/4, N for 3/5, none for mode 1);
-    G ~ Geom with a random success probability (mode 2) or Geom(1 - s_i)
-    (mode 3), capped, none for modes 1/4/5; Z uniform, then Q | Z; P starts
-    at the uniform simplex (the first sweep overwrites it before any use).
-    ``state.zcounts`` is seeded with the :func:`allele_counts` kernel.
+    (R = ``spec.n_rates(N)``: K for modes 2/4, N for 3/5, none for modes
+    0/1); G ~ Geom with a random success probability (mode 2) or
+    Geom(1 - s_i) (mode 3), capped, none for the other modes; Z uniform,
+    then Q | Z; P starts at the uniform simplex (the first sweep overwrites
+    it before any use).  Mode 0 has one uniform ``zz`` per individual, empty
+    z and q, alpha 0 and no ``zcounts``; elsewhere ``state.zcounts`` is
+    seeded with the :func:`allele_counts` kernel.
     ``chain_key`` gives one integer key per chain (default ``range(C)``).
     """
     from instruct_tpu_torch.kernels.fused_step import allele_counts
     from instruct_tpu_torch.mcmc import updates as up
 
-    if spec.ploid != 2 or spec.mode not in (1, 2, 3, 4, 5):
+    if spec.ploid != 2 or spec.mode not in (0, 1, 2, 3, 4, 5):
         raise NotImplementedError(
-            f"init_state is ported for the diploid modes 1-5 (got mode "
-            f"{spec.mode}, ploid {spec.ploid}); see ROADMAP: mode 0 and the "
-            "tetraploid engine are still to be ported")
+            f"init_state is ported for the diploid modes 0-5 (got mode "
+            f"{spec.mode}, ploid {spec.ploid}); the tetraploid engine is "
+            "still to be ported (ROADMAP: K5-K7 with the tetraploid engine)")
     dev = torch.device(device)
     data = data.to(dev)
     c = n_chains
@@ -126,9 +131,12 @@ def init_state(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
     freq = freq[None, None].expand(c, k, l, a).contiguous()
 
     f32 = dict(dtype=torch.float32, device=dev)
-    z = torch.empty((c, n, l * p), dtype=torch.int8, device=dev)
-    q = torch.empty((c, n, k), **f32)
-    alpha = torch.empty((c,), **f32)
+    admix = spec.has_admixture
+    z = torch.empty((c, n, l * p) if admix else (c, 0, 0), dtype=torch.int8,
+                    device=dev)
+    zz = torch.empty((c, 0 if admix else n), dtype=torch.int32, device=dev)
+    q = torch.empty((c, n, k) if admix else (c, 0, 0), **f32)
+    alpha = torch.zeros((c,), **f32)
     rates = torch.empty((c, r), **f32)
     gen = torch.empty((c, n if spec.has_selfing else 0), dtype=torch.int32,
                       device=dev)
@@ -137,12 +145,16 @@ def init_state(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
              else torch.as_tensor(init_rates, **f32).reshape(c, r))
     for ci, ck in enumerate(chain_key):
         g = chain_generator(seed, ck, dev)
-        z[ci] = torch.randint(0, k, (n, l * p), generator=g, device=dev,
-                              dtype=torch.int8)
-        alpha[ci] = (torch.rand((), generator=g, device=dev)
-                     * spec.alpha_prior_max)
-        counts = masked_z_counts(z[ci][None], data, k)[0]
-        q[ci] = up.dirichlet_from_counts(g, counts + alpha[ci])
+        if admix:
+            z[ci] = torch.randint(0, k, (n, l * p), generator=g, device=dev,
+                                  dtype=torch.int8)
+            alpha[ci] = (torch.rand((), generator=g, device=dev)
+                         * spec.alpha_prior_max)
+            counts = masked_z_counts(z[ci][None], data, k)[0]
+            q[ci] = up.dirichlet_from_counts(g, counts + alpha[ci])
+        else:
+            zz[ci] = torch.randint(0, k, (n,), generator=g, device=dev,
+                                   dtype=torch.int32)
         rates[ci] = torch.rand((r,), generator=g, device=dev)
         if given is not None:
             rates[ci] = given[ci]
@@ -159,12 +171,14 @@ def init_state(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
         gi = 1 + torch.floor(torch.log(u) / torch.log1p(-psucc))
         gen[ci] = torch.clamp(gi, 1, spec.gen_cap).to(torch.int32)
 
-    zcounts = allele_counts(z, data.geno, data.site_valid, n_pops=k,
-                            max_alleles=a, bits2=data.bits2)
+    zcounts = None
+    if admix:
+        zcounts = allele_counts(z, data.geno, data.site_valid, n_pops=k,
+                                max_alleles=a, bits2=data.bits2)
     zero = lambda *shape, dtype=torch.float32: torch.zeros(  # noqa: E731
         shape, dtype=dtype, device=dev)
     return McmcState(
-        freq=freq, z=z, zz=zero(c, 0, dtype=torch.int32), q=q, alpha=alpha,
+        freq=freq, z=z, zz=zz, q=q, alpha=alpha,
         rates=rates, ais_state=_dt_stat(rates), gen=gen,
         loglik_indv=zero(c, n), loglik_total=zero(c),
         dpm_values=zero(c, 0), dpm_counts=zero(c, 0, dtype=torch.int32),

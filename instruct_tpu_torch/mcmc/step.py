@@ -1,42 +1,57 @@
-"""Composition of the update kernels into one fused MCMC sweep (modes 1-5).
+"""Composition of the update kernels into one MCMC sweep (modes 0-5).
 
-Counterpart of ``instruct_tpu/mcmc/step.py``: ``_build_fused_parts``
-(:122-356 there), ``build_marg_loglik`` (:480, diploid branch) and
+Counterpart of ``instruct_tpu/mcmc/step.py``: ``_use_fused`` (:102 there),
+``_build_fused_parts`` (:122-356), the unfused step and ``_cal_lkh``
+(:23-35, :411-477), ``build_marg_loglik`` (:480, diploid branches) and
 ``build_step`` (:549).  One call of ``step`` is one full sweep for ALL
-chains (leading axis ``C``):
+chains (leading axis ``C``).  There are two sweeps, and the spec's
+``use_pallas`` chooses between them (never whether a hand kernel runs: on
+the card both launch kernels, on the CPU both run the plain versions).
+
+The **fused** sweep (``use_pallas`` None or True, modes 1-5, K <= 8,
+K*A <= 64) draws Z and evaluates the G or F MH log-ratio at the fresh z in
+one pass over the sites ("Z, then G | z" / "Z, then F | z"):
 
     P | Z        Dirichlet(zcounts + 1)              kernels/dirichlet.py
     S or F tail  mode 2: J*K MH subsweeps + G proposal, one kernel
                                                      kernels/s_pop.py
+                 (plain updates under the adaptive-independence proposal)
                  mode 3: J elementwise MH subsweeps + G proposal
-                 modes 4/5: the F random-walk proposal
-                                                     mcmc/updates.py
+                 modes 4/5: the F proposal           mcmc/updates.py
     Z, G|z, F|z  site pass: z draw, counts, MH ratio kernels/fused_step.py
     Q | Z        Dirichlet(qqnum + alpha)            kernels/dirichlet.py
     alpha        MH                                  mcmc/updates.py
 
-Update order per mode (the reference loops, mcmc.c:150-155, 208-215,
-334-348, 263-269, 420-434):
+The **unfused** sweep (everything else: mode 0, K > 8, K*A > 64, or
+``use_pallas=False``) keeps the reference's order, G or F first and then Z
+(mcmc.c:111-115, 150-155, 208-215, 334-348, 263-269, 420-434):
 
-    mode 1: P, Z, Q, alpha
-    mode 2: P, S_pop, (Z, then G | z), Q, alpha
-    mode 3: P, S_ind, (Z, then G | z), Q, alpha
-    mode 4: P, (Z, then F_pop | z), Q, alpha
-    mode 5: P, (Z, then F_ind | z), Q, alpha
+    mode 0: P, Z
+    mode 1: P, ZQ, alpha
+    mode 2: P, S_pop, G, ZQ, alpha
+    mode 3: P, S_ind, G, ZQ, alpha
+    mode 4: P, F_pop, ZQ, alpha
+    mode 5: P, F_ind, ZQ, alpha
 
-Sweep order: the site pass evaluates the G or F MH log-ratio at the z it
-has just drawn ("Z, then G | z" / "Z, then F | z"), a permutation of the
-reference's G/F-then-Z order with the same invariant distribution.
+    P | Z        counts, then Dirichlet(counts + 1)  kernels/fused_step.py
+                                                     (allele_counts),
+                                                     kernels/dirichlet.py
+    S, F, G      MH at the carried z                 mcmc/updates.py
+    Z, counts    z ~ Cat(q_k P[k, l, a]), any K*A    kernels/zq.py
+    Q | Z, alpha as above
 
-The sweep never synchronises with the host: every accept is a
-``torch.where`` on device tensors.  Randomness is counter-based
-(``kernels/philox.py``): ``step(state, keys, step_idx)`` draws from the
-(chain key, step index) counter space, so a trajectory is a function of the
-seed alone.
+The two orders have the same invariant distribution but draw different
+trajectories, so a fused and an unfused run agree only statistically.
+
+Neither sweep synchronises with the host: every accept is a ``torch.where``
+on device tensors.  Randomness is counter-based (``kernels/philox.py``):
+``step(state, keys, step_idx)`` draws from the (chain key, step index)
+counter space, so a trajectory is a function of the seed alone.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -54,22 +69,39 @@ from instruct_tpu_torch.model import likelihood as lk
 
 class StepDraws(NamedTuple):
     """Injected uniforms of one sweep, in the layouts of the kernels'
-    ``test_draws`` / ``u`` arguments (tests feed the JAX kernels the same
+    ``test_draws`` / ``u`` arguments (tests feed the JAX functions the same
     numbers).  ``None`` fields draw from Philox."""
 
     p: Optional[torch.Tensor] = None      # f32[C, n_test_draws, K*A, L]
-    s: Optional[tuple] = None             # the S or F tail's uniforms:
+    s: Optional[tuple] = None             # the S or F update's uniforms:
     #   mode 2  (u_prop, u_acc f32[C, J*K], ug, ul f32[C, N])
     #   mode 3  (u_prop, u_acc f32[C, J, N], ug, ul f32[C, N])
     #   modes 4/5  (u_prop, u_acc f32[C, R])
+    #   under the adaptive-independence proposal (modes 2, 4) one more,
+    #   the fresh values, shaped like u_prop
     z: Optional[torch.Tensor] = None      # f32[C, N, 2L]
     q: Optional[torch.Tensor] = None      # f32[C, n_test_draws, K, N]
     alpha: Optional[tuple] = None         # (normal f32[C], uniform f32[C])
+    hyper: Optional[torch.Tensor] = None  # f32[C, n_hyper_draws()], the
+    #   normal prior's (mu, sigma^2) draw (modes 3/5)
+    zz: Optional[torch.Tensor] = None     # f32[C, N], mode 0's z draw
+
+
+class _Tail(NamedTuple):
+    """The uniforms of one sweep's S/F/G updates that are plain tensor
+    code."""
+
+    u_prop: torch.Tensor                  # [C, J, R] (modes 2/3), [C, R]
+    u_acc: torch.Tensor
+    ug: Optional[torch.Tensor] = None     # [C, N] G proposal (modes 2/3)
+    ul: Optional[torch.Tensor] = None     # [C, N] G accept
+    fresh: Optional[torch.Tensor] = None  # shaped like u_prop
+    hyper: Optional[torch.Tensor] = None  # [C, n_hyper_draws()]
 
 
 def check_supported(spec: ModelSpec, data: Dataset) -> None:
     """Raise ``NotImplementedError`` (naming the ROADMAP item) for every
-    model outside the ported slices -- never a silent other path."""
+    model the port does not run yet -- never a silent other path."""
     def no(what, item):
         raise NotImplementedError(
             f"instruct_tpu_torch: {what} is still to be ported "
@@ -78,42 +110,89 @@ def check_supported(spec: ModelSpec, data: Dataset) -> None:
         no(f"ploidy {spec.ploid}", "K5-K7 with the tetraploid engine")
     if spec.mode not in (0, 1, 2, 3, 4, 5):
         raise ValueError(f"unknown mode {spec.mode}")
-    if spec.mode == 0:
-        no("mode 0", "K8, the unfused sweep and mode 0")
-    if spec.priors.family != PriorFamily.UNIFORM:
-        no(f"the {spec.priors.family.value} prior", "normal and DPM priors")
+    if spec.priors.family == PriorFamily.DPM:
+        no("the dpm prior", "the DPM prior")
     if spec.marginalize_g:
         no("marginalize_g", "marg_g")
-    if spec.back_refl != 1:
-        no("the adaptive-independence proposal (back_refl=0)",
-           "adaptive-independence proposal")
-    if spec.use_pallas is False:
-        no("the unfused sweep (use_pallas=False)",
-           "K8, the unfused sweep and mode 0")
-    if spec.n_pops * data.max_alleles > 64:
-        no("a panel with n_pops * max_alleles > 64",
-           "K8, the unfused sweep and mode 0")
-    if spec.n_pops > fs.MAX_POPS:
-        no(f"n_pops > {fs.MAX_POPS}", "wide-K site pass and S tail")
 
 
-def build_step_parts(spec: ModelSpec, data: Dataset):
-    """Return ``(step_core, add_loglik)`` for the fused sweep of the spec's
-    mode.
+def use_fused(spec: ModelSpec, data: Dataset) -> bool:
+    """Whether the spec runs the fused sweep: diploid modes 1-5 within the
+    site pass's bounds (K <= 8, K*A <= 64) unless ``use_pallas`` is False.
+    Everything else runs the unfused sweep."""
+    return (spec.use_pallas is not False and spec.ploid == 2
+            and spec.mode in (1, 2, 3, 4, 5)
+            and spec.n_pops <= fs.MAX_POPS
+            and spec.n_pops * data.max_alleles <= 64)
 
-    ``step_core(state, keys, step_idx, draws=None)`` runs the full
-    parameter sweep of all chains; ``add_loglik(state)`` fills
-    ``loglik_indv`` / ``loglik_total`` (cal_lkh, mcmc.c:1916-1942).  The
-    split lets ``run_mcmc`` evaluate the log-likelihood only on stored or
-    reported steps: it is an observable, not an input to any update.
-    ``data`` must live on the device of the state.
-    """
-    check_supported(spec, data)
+
+def _is_normal(spec: ModelSpec) -> bool:
+    """The normal prior applies to the per-individual rates only; the other
+    modes ignore it."""
+    return spec.priors.family == PriorFamily.NORMAL and spec.mode in (3, 5)
+
+
+def _is_adaptive(spec: ModelSpec) -> bool:
+    """The adaptive-independence proposal applies to the per-pop rates
+    only; the per-individual updates always walk with back-reflection."""
+    return spec.back_refl != 1 and spec.mode in (2, 4)
+
+
+def _tail_draws(spec: ModelSpec, keys, step_idx: int, d: StepDraws,
+                n: int) -> _Tail:
+    """The uniforms of the sweep's plain S/F/G updates, injected (``d.s``,
+    ``d.hyper``) or from one launch over the consecutive tail streams."""
+    with_g = spec.mode in (2, 3)
+    adaptive, normal = _is_adaptive(spec), _is_normal(spec)
+    sweeps = max(1, spec.s_subsweeps) if with_g else 1
+    m = sweeps * spec.n_rates(n)
+    if d.s is not None:
+        s = tuple(d.s)
+        u_prop, u_acc = s[0], s[1]
+        ug, ul = (s[2], s[3]) if with_g else (None, None)
+        fresh = s[4 if with_g else 2] if adaptive else None
+        hyper = d.hyper if normal else None
+    else:
+        n_hyper = up.n_hyper_draws() if normal else 0
+        n_streams = 6 if normal else 5 if adaptive else 4 if with_g else 2
+        w = up.tail_uniforms(keys, step_idx, n_streams,
+                             max(m, n if with_g else 0, n_hyper))
+        u_prop, u_acc = w[:, 0, :m], w[:, 1, :m]
+        ug, ul = (w[:, 2, :n], w[:, 3, :n]) if with_g else (None, None)
+        fresh = w[:, 4, :m] if adaptive else None
+        hyper = w[:, 5, :n_hyper] if normal else None
+    if with_g:
+        shape = (u_prop.shape[0], sweeps, -1)
+        u_prop, u_acc = u_prop.reshape(shape), u_acc.reshape(shape)
+        fresh = None if fresh is None else fresh.reshape(shape)
+    return _Tail(u_prop, u_acc, ug, ul, fresh, hyper)
+
+
+def _prior_args(spec: ModelSpec, state: McmcState):
+    """(prior_mu, prior_sigma2) of the per-individual S/F updates: the
+    state's hyperparameters under the normal prior, else none."""
+    if _is_normal(spec):
+        return state.prior_mu, state.prior_sigma2
+    return None, None
+
+
+def _hyper_update(spec: ModelSpec, state: McmcState, tail: _Tail, rates):
+    """The state's fields after the S/F update of modes 3/5: the new rates
+    and, under the normal prior, the conjugate (mu, sigma^2) draw given
+    them."""
+    changed = dict(rates=rates)
+    if _is_normal(spec):
+        mu, s2 = up.update_normal_hyper(tail.hyper, rates, spec.priors)
+        changed.update(prior_mu=mu, prior_sigma2=s2)
+    return changed
+
+
+def _build_fused_parts(spec: ModelSpec, data: Dataset):
+    """``(step_core, add_loglik)`` of the fused sweep."""
     k = spec.n_pops
     a = data.max_alleles
     n = data.n_indv
     structure = spec.type_freq == 1
-    sweeps = max(1, spec.s_subsweeps)
 
     def finish(state, keys, step_idx, d, z, qqnum, zcounts, **changed):
         """Q | Z ~ Dirichlet(counts + alpha), one draw per (chain,
@@ -132,43 +211,63 @@ def build_step_parts(spec: ModelSpec, data: Dataset):
         return state._replace(z=z, q=q_new, alpha=alpha, zcounts=zcounts,
                               **changed)
 
-    def s_ind_tail(state, keys, step_idx, d):
-        """Mode 3: J elementwise MH subsweeps on the per-individual S
-        (update_S_IND), then the G proposal g' ~ Geom(1 - s_i), the
-        generation weights 2^(1-g) and the accept log-uniforms."""
-        if d.s is None:
-            w = up.tail_uniforms(keys, step_idx, 4, sweeps * n)
-            u_prop, u_acc = (w[:, i].reshape(-1, sweeps, n) for i in (0, 1))
-            ug, ul = w[:, 2, :n], w[:, 3, :n]
+    def s_tail(state, keys, step_idx, d):
+        """The S updates that are plain tensor code -- mode 3's J
+        elementwise MH subsweeps (update_S_IND) with the normal prior's
+        hyper draw, or mode 2's J sweeps over the pops under the
+        adaptive-independence proposal (update_S_POP) -- then the G
+        proposal g' ~ Geom(1 - sbar_i), the generation weights 2^(1-g) and
+        the accept log-uniforms."""
+        tail = _tail_draws(spec, keys, step_idx, d, n)
+        if spec.mode == 2:
+            rates, ais = up.update_s_pop(tail.u_prop, tail.u_acc, spec,
+                                         state.q, state.gen, state.rates,
+                                         state.ais_state, tail.fresh)
+            changed = dict(rates=rates, ais_state=ais)
+            sbar = up.mix_rates(state.q, rates)
         else:
-            u_prop, u_acc, ug, ul = d.s
-        rates = up.update_s_ind(u_prop, u_acc, spec, state.gen, state.rates)
-        gen_prop = up.sample_geometric(ug, rates, spec.gen_cap)
+            rates = up.update_s_ind(tail.u_prop, tail.u_acc, spec, state.gen,
+                                    state.rates, *_prior_args(spec, state))
+            changed = _hyper_update(spec, state, tail, rates)
+            sbar = rates
+        gen_prop = up.sample_geometric(tail.ug, sbar, spec.gen_cap)
         wg_pair = torch.exp2(1.0 - torch.stack(
             [state.gen, gen_prop], dim=-1).to(torch.float32))
-        return rates, gen_prop, wg_pair, torch.log(ul)
+        return changed, gen_prop, wg_pair, torch.log(tail.ul)
 
     def f_sweep(state, keys, step_idx, d, freq):
-        """Modes 4/5: the F random-walk proposal, the fused Z-Gibbs + F-MH
-        pass, the accept (mcmc_POP_inbreedcoff / mcmc_INDV_inbreedcoff,
+        """Modes 4/5: the F proposal, the fused Z-Gibbs + F-MH pass, the
+        accept (mcmc_POP_inbreedcoff / mcmc_INDV_inbreedcoff,
         mcmc.c:242-293, 386-468)."""
-        r = state.rates.shape[1]
-        if d.s is None:
-            w = up.tail_uniforms(keys, step_idx, 2, r)
-            u_prop, u_acc = w[:, 0], w[:, 1]
+        tail = _tail_draws(spec, keys, step_idx, d, n)
+        if _is_adaptive(spec):
+            prop, prop_states, log_hast = up.propose_adaptive_independence(
+                tail.u_prop, tail.fresh, state.rates, state.ais_state)
         else:
-            u_prop, u_acc = d.s
-        prop = up.propose_back_reflection(u_prop, state.rates,
-                                          spec.mh_step_s)
+            prop = up.propose_back_reflection(tail.u_prop, state.rates,
+                                              spec.mh_step_s)
+            prop_states, log_hast = state.ais_state, None
         f_pair = torch.stack([state.rates, prop], dim=-1)     # [C, R, 2]
         z, qqnum, ll, zcounts = fs.zq_f_pass(
             keys, step_idx, state.q, freq, data, f_pair,
             pop=(spec.mode == 4), u=d.z)
         # mode 4: the per-individual sums of each pop add up over N
         log_ratio = ll.sum(dim=1) if spec.mode == 4 else ll
-        rates = torch.where(torch.log(u_acc) < log_ratio, prop, state.rates)
+        if log_hast is not None:
+            log_ratio = log_ratio + log_hast
+        pm, ps2 = _prior_args(spec, state)
+        if pm is not None:
+            log_ratio = log_ratio + (
+                up.normal_prior(prop, pm, ps2)
+                - up.normal_prior(state.rates, pm, ps2))
+        accept = torch.log(tail.u_acc) < log_ratio
+        rates = torch.where(accept, prop, state.rates)
+        changed = _hyper_update(spec, state, tail, rates)
+        if log_hast is not None:
+            changed["ais_state"] = torch.where(accept, prop_states,
+                                               state.ais_state)
         return finish(state, keys, step_idx, d, z, qqnum, zcounts,
-                      freq=freq, rates=rates)
+                      freq=freq, **changed)
 
     def step(state: McmcState, keys: px.RngKeys, step_idx: int,
              draws: Optional[StepDraws] = None) -> McmcState:
@@ -187,20 +286,21 @@ def build_step_parts(spec: ModelSpec, data: Dataset):
                           freq=freq)
         # modes 2/3: S subsweeps + G proposal + generation weights + accept
         # uniforms, then the fused Z-Gibbs + G-MH pass and the G accept
-        if spec.mode == 2:
+        if spec.mode == 2 and spec.back_refl == 1:
             rates, gen_prop, wg_pair, logu = s_pop_tail(
                 keys, step_idx, state.q, state.gen, state.rates,
                 subsweeps=spec.s_subsweeps, delta0=spec.mh_step_s,
                 gen_cap=spec.gen_cap, test_draws=d.s)
+            changed = dict(rates=rates)
         else:
-            rates, gen_prop, wg_pair, logu = s_ind_tail(state, keys,
-                                                        step_idx, d)
+            changed, gen_prop, wg_pair, logu = s_tail(state, keys, step_idx,
+                                                      d)
         z, qqnum, ll_diff, zcounts = fs.zq_gendiff_pass(
             keys, step_idx, state.q, freq, data, wg_pair,
             structure=structure, u=d.z)
         gen = torch.where(logu < ll_diff, gen_prop, state.gen)
         return finish(state, keys, step_idx, d, z, qqnum, zcounts,
-                      freq=freq, rates=rates, gen=gen)
+                      freq=freq, gen=gen, **changed)
 
     def add_loglik(state: McmcState) -> McmcState:
         if spec.mode == 1:
@@ -220,17 +320,103 @@ def build_step_parts(spec: ModelSpec, data: Dataset):
     return step, add_loglik
 
 
+def _build_unfused_parts(spec: ModelSpec, data: Dataset):
+    """``(step_core, add_loglik)`` of the unfused sweep, in the reference's
+    order: P, then S or F, then G, then Z and Q, then alpha."""
+    n = data.n_indv
+
+    def step(state: McmcState, keys: px.RngKeys, step_idx: int,
+             draws: Optional[StepDraws] = None) -> McmcState:
+        d = draws if draws is not None else StepDraws()
+        freq = up.update_freq(keys, step_idx, spec, data, state.z, state.zz,
+                              test_draws=d.p)
+        if spec.mode == 0:
+            u = d.zz
+            if u is None:
+                u = px.u01_open(px.random_words(keys, step_idx, px.STREAM_ZZ,
+                                                n))
+            return state._replace(freq=freq,
+                                  zz=up.update_z_noadmix(u, data, freq))
+        changed = dict(freq=freq)
+        if spec.mode != 1:
+            tail = _tail_draws(spec, keys, step_idx, d, n)
+        if spec.mode == 2:
+            rates, ais = up.update_s_pop(tail.u_prop, tail.u_acc, spec,
+                                         state.q, state.gen, state.rates,
+                                         state.ais_state, tail.fresh)
+            changed.update(rates=rates, ais_state=ais)
+        elif spec.mode == 3:
+            rates = up.update_s_ind(tail.u_prop, tail.u_acc, spec, state.gen,
+                                    state.rates, *_prior_args(spec, state))
+            changed.update(_hyper_update(spec, state, tail, rates))
+        elif spec.mode == 4:
+            rates, ais = up.update_f_pop(tail.u_prop, tail.u_acc, spec, data,
+                                         freq, state.z, state.rates,
+                                         state.ais_state, tail.fresh)
+            changed.update(rates=rates, ais_state=ais)
+        elif spec.mode == 5:
+            rates = up.update_f_ind(tail.u_prop, tail.u_acc, spec, data,
+                                    freq, state.z, state.rates,
+                                    *_prior_args(spec, state))
+            changed.update(_hyper_update(spec, state, tail, rates))
+        if spec.has_selfing:
+            changed["gen"] = up.update_gen(tail.ug, tail.ul, spec, data, freq,
+                                           state.z, state.q, rates,
+                                           state.gen)
+        z, q, _ = up.update_zq(keys, step_idx, spec, data, freq, state.q,
+                               state.alpha, u=d.z, q_draws=d.q)
+        alpha = up.update_alpha(keys, step_idx, spec, q, state.alpha,
+                                test_draws=d.alpha)
+        return state._replace(z=z, q=q, alpha=alpha, **changed)
+
+    def add_loglik(state: McmcState) -> McmcState:
+        """cal_lkh (mcmc.c:1916-1942) in plain tensor code, for any K."""
+        if spec.mode == 0:
+            ll = lk.loglik_matrix_nopop_admix(data, state.freq)
+            ll_indv = torch.gather(
+                ll, 2, state.zz.to(torch.int64)[:, :, None])[:, :, 0]
+        else:
+            ll_indv = lk.per_indv_loglik(spec, data, state.freq, state.z,
+                                         state.q, state.gen, state.rates)
+        return state._replace(loglik_indv=ll_indv,
+                              loglik_total=ll_indv.sum(dim=-1))
+
+    return step, add_loglik
+
+
+def build_step_parts(spec: ModelSpec, data: Dataset):
+    """Return ``(step_core, add_loglik)`` for the sweep the spec selects
+    (:func:`use_fused`).
+
+    ``step_core(state, keys, step_idx, draws=None)`` runs the full
+    parameter sweep of all chains; ``add_loglik(state)`` fills
+    ``loglik_indv`` / ``loglik_total`` (cal_lkh, mcmc.c:1916-1942).  The
+    split lets ``run_mcmc`` evaluate the log-likelihood only on stored or
+    reported steps: it is an observable, not an input to any update.
+    ``data`` must live on the device of the state.
+    """
+    check_supported(spec, data)
+    if use_fused(spec, data):
+        return _build_fused_parts(spec, data)
+    return _build_unfused_parts(spec, data)
+
+
 def build_marg_loglik(spec: ModelSpec, data: Dataset):
     """``add_marg(state) -> state`` filling ``state.loglik_marg`` with the
-    Z-marginalized per-individual log-likelihood
-    (``model/likelihood.py:marginal_site_loglik``) that feeds WAIC and the
-    corrected DIC.  ``run_mcmc`` calls it only every
-    ``Schedule.dic_every``-th stored step."""
+    Z-marginalized per-individual log-likelihood that feeds WAIC and the
+    corrected DIC: ``model/likelihood.py:marginal_site_loglik`` in modes
+    1-5, the uniform mixture over the K single-pop log-liks in mode 0.
+    ``run_mcmc`` calls it only every ``Schedule.dic_every``-th stored
+    step."""
     check_supported(spec, data)
 
     def add_marg(state: McmcState) -> McmcState:
-        indv = lk.marginal_indv_loglik(spec, data, state.freq, state.q,
-                                       state.gen, state.rates)
+        if spec.mode == 0:
+            ll = lk.loglik_matrix_nopop_admix(data, state.freq)
+            indv = torch.logsumexp(ll, dim=2) - math.log(spec.n_pops)
+        else:
+            indv = lk.marginal_indv_loglik(spec, data, state.freq, state.q,
+                                           state.gen, state.rates)
         return state._replace(loglik_marg=indv)
 
     return add_marg

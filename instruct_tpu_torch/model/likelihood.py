@@ -1,5 +1,4 @@
-"""Genotype-likelihood math of the diploid admixture modes (1-5), in plain
-PyTorch.
+"""Genotype-likelihood math of the diploid modes (0-5), in plain PyTorch.
 
 Counterpart of ``instruct_tpu/model/likelihood.py`` (the JAX package
 computes these outside any Pallas kernel, so they stay plain tensor code
@@ -12,7 +11,8 @@ Ported: :func:`genofreq_selfing`, :func:`genofreq_inbreeding`,
 :func:`per_pop_copy_probs`, :func:`gather_freq_at_z`,
 :func:`mixture_copy_probs`, :func:`split_copies`, :func:`site_loglik` /
 :func:`per_indv_loglik` and :func:`marginal_site_loglik` /
-:func:`marginal_indv_loglik`.  The mode-0 matrix waits for its mode.
+:func:`marginal_indv_loglik`, and mode 0's :func:`allele_count_matrix` /
+:func:`loglik_matrix_nopop_admix`.
 """
 
 from __future__ import annotations
@@ -30,8 +30,9 @@ def _need_admixture(spec: ModelSpec, what: str) -> None:
     if spec.ploid != 2 or spec.mode not in (1, 2, 3, 4, 5):
         raise NotImplementedError(
             f"{what} is ported for the diploid modes 1-5 (got mode "
-            f"{spec.mode}, ploid {spec.ploid}); see ROADMAP: mode 0 and the "
-            "tetraploid engine are still to be ported")
+            f"{spec.mode}, ploid {spec.ploid}); mode 0 has its own matrix, "
+            "loglik_matrix_nopop_admix, and the tetraploid engine is still "
+            "to be ported (ROADMAP: K5-K7 with the tetraploid engine)")
 
 
 def genofreq_selfing(p0, p1, hom, gen):
@@ -205,3 +206,35 @@ def marginal_site_loglik(spec: ModelSpec, data: Dataset, freq, q, gen,
 def marginal_indv_loglik(spec, data, freq, q, gen, rates=None):
     """f32[C, N] Z-marginalized per-individual log-lik."""
     return marginal_site_loglik(spec, data, freq, q, gen, rates).sum(dim=-1)
+
+
+def allele_count_matrix(data: Dataset):
+    """cnt f32[N, A, L]: per individual and (allele, locus), the number of
+    valid copies carrying that allele.  Shared by the mode-0 likelihood and
+    the no-admixture P counts (update_P's mode == 0 branch,
+    mcmc.c:825-831)."""
+    valid = data.site_valid
+    cols = []
+    for ai in range(data.max_alleles):
+        cnt = torch.zeros(valid.shape, dtype=torch.float32,
+                          device=valid.device)
+        for gc in split_copies(data.geno, data.ploid):
+            cnt = cnt + (valid & (gc == ai)).to(torch.float32)
+        cols.append(cnt)
+    return torch.stack(cols, dim=1)
+
+
+def loglik_matrix_nopop_admix(data: Dataset, freq):
+    """ll f32[C, N, K]: log-lik of each individual under a single-pop
+    assignment to every k -- log_ld_indv_K (mcmc.c:1893-1914) for all (i, k)
+    as one matrix product: ll = cnt @ log(freq)^T + het bonus."""
+    c, k, l, a = freq.shape
+    cnt = allele_count_matrix(data).reshape(-1, a * l)       # [N, A*L]
+    logf = _safe_log(torch.clamp_min(freq, 0.0))
+    logf = torch.where(data.allele_valid[None, None], logf,
+                       torch.zeros_like(logf))
+    logf = logf.transpose(2, 3).reshape(c, k, a * l)         # [C, K, A*L]
+    ll = torch.matmul(cnt[None], logf.transpose(1, 2))       # [C, N, K]
+    het_bonus = ((~data.hom).to(torch.float32) * _LOG2
+                 * data.site_valid).sum(dim=1)
+    return ll + het_bonus[None, :, None]

@@ -4,9 +4,10 @@
     python3 -m instruct_tpu_torch.tools.site_pass_variants
 
 Compiles the packed sampling instantiation of
-``instruct_tpu_torch/csrc/site_pass.cuh`` several times with ``nvcc`` (K = 3
-only) -- once per launch shape (the ``SITE_THREADS``, ``SITE_ROWS`` and
-``SITE_MIN_BLOCKS`` macros of the source) and once per ablation (a textual
+``instruct_tpu_torch/csrc/site_pass.cuh`` (with its ``quad.cuh``) several
+times with ``nvcc`` (K = 3 only) -- once per launch shape (the
+``SITE_THREADS``, ``SITE_ROWS`` and ``SITE_MIN_BLOCKS`` macros of the
+source) and once per ablation (a textual
 patch that removes one part of the sampling kernel's work: the count
 atomics, the Philox rounds, the log, the z stores, the warp reductions, the
 memset) -- and times the ``zq_gendiff_pass`` launch of each at the headline
@@ -79,12 +80,16 @@ LAUNCH = "site_packed_sample_launch"
 GENDIFF = 3            # the family id of zq_gendiff_pass (site_pass.cuh)
 
 
-def build(work: pathlib.Path, tag: str, header: str, defines):
-    """Compile the packed sampling source against the (patched) ``header``
-    text of site_pass.cuh, for K = 3 only."""
+HEADERS = ("site_pass.cuh", "quad.cuh")
+
+
+def build(work: pathlib.Path, tag: str, headers: dict, defines):
+    """Compile the packed sampling source against the (patched) texts of
+    ``HEADERS``, for K = 3 only."""
     inc = work / f"v{tag}"
     inc.mkdir()
-    (inc / "site_pass.cuh").write_text(header)
+    for name, text in headers.items():
+        (inc / name).write_text(text)
     src = inc / "site_packed_sample.cu"
     src.write_text((_build.CSRC / "site_packed_sample.cu").read_text())
     so = work / f"v{tag}.so"
@@ -169,15 +174,16 @@ def main() -> int:
             times.append(a.elapsed_time(b) / inner)
         return statistics.median(times)
 
-    source = (_build.CSRC / "site_pass.cuh").read_text()
+    source = {name: (_build.CSRC / name).read_text() for name in HEADERS}
     variants = [(tag, source, d) for tag, d in SHAPES.items()]
     for tag, patches in ABLATIONS.items():
-        src = source
+        src = dict(source)
         for old, new in patches:
-            if old not in src:
+            hit = [name for name in HEADERS if old in src[name]]
+            if not hit:
                 raise RuntimeError(f"ablation {tag!r}: {old!r} is no longer "
-                                   "in site_pass.cuh")
-            src = src.replace(old, new)
+                                   f"in {' or '.join(HEADERS)}")
+            src[hit[0]] = src[hit[0]].replace(old, new)
         variants.append((tag, src, []))
     ref = None
     with tempfile.TemporaryDirectory() as tmp:

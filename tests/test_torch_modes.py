@@ -259,7 +259,13 @@ def test_tail_updates_match_jax():
                                    _t(gen), _t(rates))
         else:
             fn = tup.update_f_pop if mode == 4 else tup.update_f_ind
-            got = fn(u_prop, u_acc, spec, data, _t(freq), _t(z), _t(rates))
+            args = (u_prop, u_acc, spec, data, _t(freq), _t(z), _t(rates))
+            if mode == 4:
+                ais = torch.ones((c, r), dtype=torch.int32)
+                got, carried = fn(*args, ais)
+                assert torch.equal(carried, ais)   # back-reflection
+            else:
+                got = fn(*args)
         got, want = got.numpy(), np.stack([np.asarray(w) for w in want])
         # an accept may flip only at a knife-edge of its f32 log-ratio
         off = ~np.isclose(got, want, rtol=1e-6)
@@ -285,22 +291,58 @@ def test_tail_uniform_streams_are_disjoint_and_reproducible():
     assert not torch.equal(u, tup.tail_uniforms(keys, 8, 2, 33))
 
 
-@pytest.mark.parametrize("kwargs,what", [
-    (dict(mode=0), "mode 0"),
-    (dict(mode=1, use_pallas=False), "unfused"),
-    (dict(mode=3, priors=Priors(family=PriorFamily.DPM)), "dpm prior"),
-    (dict(mode=5, priors=Priors(family=PriorFamily.NORMAL)), "normal prior"),
-    (dict(mode=5, back_refl=0), "adaptive-independence"),
+@pytest.mark.parametrize("kwargs,what,item", [
+    (dict(mode=3, priors=Priors(family=PriorFamily.DPM)), "dpm prior",
+     "the DPM prior"),
+    (dict(mode=1, priors=Priors(family=PriorFamily.DPM)), "dpm prior",
+     "the DPM prior"),
+    (dict(mode=3, marginalize_g=True), "marginalize_g", "marg_g"),
+    (dict(mode=0, ploid=4), "ploidy 4", "tetraploid engine"),
+    (dict(mode=5, ploid=4), "ploidy 4", "K5-K7"),
 ])
-def test_what_is_left_still_raises(kwargs, what):
+def test_what_is_left_still_raises(kwargs, what, item):
+    """Each refusal names what is refused and its ROADMAP item."""
     _, data = _panel(8, 9, 2, 2)
     spec = ModelSpec(**{"n_pops": 2, **kwargs})
     with pytest.raises(NotImplementedError, match="ROADMAP") as e:
         step_mod.check_supported(spec, data)
-    assert what in str(e.value)
-    if spec.mode == 0:
+    assert what in str(e.value) and item in str(e.value)
+    if spec.ploid == 4:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_state(0, spec, data, 1, device="cpu")
+    with pytest.raises(NotImplementedError, match="kselect"):
+        tup.update_alpha(None, 0, spec, None, None, active=torch.ones(2))
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(mode=0), dict(mode=1, use_pallas=False),
+    dict(mode=5, priors=Priors(family=PriorFamily.NORMAL)),
+    dict(mode=5, back_refl=0), dict(mode=1, back_refl=0),
+    dict(mode=4, priors=Priors(family=PriorFamily.NORMAL)),
+])
+def test_what_was_refused_before_now_runs(kwargs):
+    """Mode 0, the unfused sweep, the normal prior and ``back_refl=0`` are
+    supported; where the JAX package ignores an option (the normal prior
+    outside modes 3/5, ``back_refl=0`` outside modes 2/4) the port does too:
+    the trajectory is that of the default spec."""
+    _, data = _panel(8, 9, 2, 2)
+    spec = ModelSpec(**{"n_pops": 2, **kwargs})
+    step_mod.check_supported(spec, data)
+    keys = px.make_keys(1, 2, "cpu")
+    state = init_state(1, spec, data, 2, device="cpu")
+    new = build_step(spec, data)(state, keys, 0)
+    assert torch.isfinite(new.loglik_total).all()
+    ignored = (("back_refl" in kwargs and spec.mode not in (2, 4))
+               or ("priors" in kwargs and spec.mode not in (3, 5)))
+    plain = build_step(ModelSpec(mode=spec.mode, n_pops=2), data)(
+        init_state(1, ModelSpec(mode=spec.mode, n_pops=2), data, 2,
+                   device="cpu"), keys, 0)
+    same = all((x is None and y is None) or torch.equal(x, y)
+               for x, y in zip(new, plain))
+    if ignored:
+        assert same
+    elif "priors" in kwargs:
+        assert not same
 
 
 # ---------------------------------------------------------------------------
@@ -499,7 +541,8 @@ def test_fused_f_pass_agrees_with_the_unfused_update(mode, n_alleles):
         new = step(state, keys, i)
         w = tup.tail_uniforms(keys, i, 2, state.rates.shape[1])
         fn = tup.update_f_pop if mode == 4 else tup.update_f_ind
-        want = fn(w[:, 0], w[:, 1], spec, data, new.freq, new.z, state.rates)
+        args = (w[:, 0], w[:, 1], spec, data, new.freq, new.z, state.rates)
+        want = fn(*args, state.ais_state)[0] if mode == 4 else fn(*args)
         assert np.isclose(new.rates.numpy(), want.numpy(),
                           rtol=1e-6).mean() >= 0.98
         state = new

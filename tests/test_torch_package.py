@@ -72,18 +72,11 @@ def test_exports_and_defaults():
 
 
 @pytest.mark.parametrize("kwargs,what", [
-    (dict(mode=0), "mode 0"),
     (dict(mode=3, marginalize_g=True), "marginalize_g"),
-    (dict(mode=3, priors=Priors(family=PriorFamily.NORMAL)), "normal prior"),
-    (dict(mode=4, back_refl=0), "adaptive-independence"),
     (dict(mode=5, priors=Priors(family=PriorFamily.DPM)), "dpm prior"),
     (dict(mode=2, ploid=4), "ploidy 4"),
     (dict(mode=2, marginalize_g=True), "marginalize_g"),
-    (dict(mode=2, back_refl=0), "adaptive-independence"),
-    (dict(mode=2, use_pallas=False), "unfused"),
     (dict(mode=2, priors=Priors(family=PriorFamily.DPM)), "dpm prior"),
-    (dict(mode=2, priors=Priors(family=PriorFamily.NORMAL)), "normal prior"),
-    (dict(mode=2, n_pops=9), "n_pops > 8"),
 ])
 def test_outside_the_slice_raises_not_implemented(panel, kwargs, what):
     spec = ModelSpec(**{"n_pops": 2, **kwargs})
@@ -95,19 +88,54 @@ def test_outside_the_slice_raises_not_implemented(panel, kwargs, what):
         step_mod.build_step_parts(spec, panel.data)
 
 
+@pytest.mark.parametrize("kwargs,fused", [
+    (dict(mode=0), False),
+    (dict(mode=3, priors=Priors(family=PriorFamily.NORMAL)), True),
+    (dict(mode=4, back_refl=0), True),
+    (dict(mode=2, back_refl=0), True),
+    (dict(mode=2, use_pallas=False), False),
+    (dict(mode=2, priors=Priors(family=PriorFamily.NORMAL)), True),
+    (dict(mode=2, n_pops=9), False),
+])
+def test_wider_specs_build_their_step_and_take_a_sweep(panel, kwargs, fused):
+    """Mode 0, the normal prior, ``back_refl=0``, ``use_pallas=False`` and
+    K > 8 build their step, route to the sweep that runs them and take a
+    sweep from Philox, twice alike."""
+    spec = ModelSpec(**{"n_pops": 2, **kwargs})
+    step_mod.check_supported(spec, panel.data)
+    assert step_mod.use_fused(spec, panel.data) == fused
+    step = step_mod.build_step(spec, panel.data)
+    state = init_state(2, spec, panel.data, n_chains=2, device="cpu")
+    keys = px.make_keys(2, 2, "cpu")
+    new, again = step(state, keys, 0), step(state, keys, 0)
+    assert torch.isfinite(new.loglik_total).all()
+    assert new.loglik_indv.shape == (2, panel.n_indv)
+    for x, y in zip(new, again):
+        assert (x is None and y is None) or torch.equal(x, y)
+    moved = new.zz if spec.mode == 0 else new.z
+    assert not torch.equal(moved, state.zz if spec.mode == 0 else state.z)
+    # the normal prior moves its hyperparameters only where it applies
+    normal = (spec.priors.family == PriorFamily.NORMAL
+              and spec.mode in (3, 5))
+    assert torch.equal(new.prior_mu, state.prior_mu) != normal
+
+
 def test_multiallelic_panel_raises_not_implemented():
-    """A multi-allelic panel runs (the generic site path) as long as
-    n_pops * max_alleles <= 64, the bound of the fused step; beyond it the
-    port still raises."""
+    """A multi-allelic panel runs the fused sweep (the generic site path) as
+    long as n_pops * max_alleles <= 64 and the unfused sweep beyond; only an
+    unknown mode raises."""
     p3 = synthetic_panel(12, 15, n_pops=2, n_alleles=3, seed=1)
     assert p3.data.bits2 is None
-    res = run_mcmc(p3.data, ModelSpec(mode=2, n_pops=2), Schedule(**SCHED),
-                   0, device="cpu")
+    spec = ModelSpec(mode=2, n_pops=2)
+    assert step_mod.use_fused(spec, p3.data)
+    res = run_mcmc(p3.data, spec, Schedule(**SCHED), 0, device="cpu")
     assert torch.isfinite(res.accum.mean.total_ll).all()
     p9 = synthetic_panel(12, 15, n_pops=2, n_alleles=9, seed=1)
-    with pytest.raises(NotImplementedError, match="max_alleles > 64"):
-        run_mcmc(p9.data, ModelSpec(mode=2, n_pops=8), Schedule(**SCHED), 0,
-                 device="cpu")
+    wide = ModelSpec(mode=2, n_pops=8)
+    assert not step_mod.use_fused(wide, p9.data)
+    res = run_mcmc(p9.data, wide, Schedule(**SCHED), 0, device="cpu")
+    assert torch.isfinite(res.accum.mean.total_ll).all()
+    assert res.final_state.freq.shape == (2, 8, 15, 9)
     with pytest.raises(ValueError, match="unknown mode"):
         step_mod.check_supported(ModelSpec(mode=7), p3.data)
 
@@ -308,6 +336,11 @@ def test_the_step_loop_has_no_host_synchronisation():
     latch are torch.where."""
     sources = [inspect.getsource(f) for f in (
         driver._run_chains, step_mod.build_step_parts,
+        step_mod._build_fused_parts, step_mod._build_unfused_parts,
+        step_mod._tail_draws, step_mod._hyper_update,
+        updates.update_freq, updates.update_zq, updates.update_z_noadmix,
+        updates.update_s_pop, updates.update_gen,
+        updates.propose_adaptive_independence, updates.update_normal_hyper,
         accumulators.accum_update, accumulators.extract_stats,
         updates.update_alpha, updates.alpha_draws,
         updates.empty_cluster_flag)]
