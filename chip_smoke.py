@@ -9,14 +9,17 @@ PyTorch version on the card at the sampler's headline shapes (N = 1000
 individuals x L = 10 000 loci, K = 3, 4 chains, packed biallelic panel;
 N = 1000 x L = 2000 with A = 8 alleles for the generic site path; and
 N = 1000 x L = 2000 with A = 16 alleles and K = 5, a microsatellite panel
-whose K*A = 80 only the unfused sweep runs), then drives the main path --
-``run_mcmc`` on the diploid mode-2 biallelic panel -- and the other paths --
-``run_mcmc`` in modes 1, 3, 4, 5 on that panel and in every mode on the A = 8
-panel (the fused sweep); the unfused sweep in mode 2 and modes 1, 3, 4, 5 on
-the wide panel, mode 0, ``use_pallas=False``, K = 12, and the fused sweep
-under the normal prior and the adaptive-independence proposal -- and checks
-that each went through its kernels, that its output is sane and that two runs
-from one seed are bitwise equal.
+whose K*A = 80 only the unfused sweep runs), and the tetraploid engine's
+kernels on its benchmark panels (N = 500 x L = 5000, K = 3, A = 4, auto and
+allo), then drives the main path -- ``run_mcmc`` on the diploid mode-2
+biallelic panel -- and the other paths -- ``run_mcmc`` in modes 1, 3, 4, 5 on
+that panel and in every mode on the A = 8 panel (the fused sweep); the
+unfused sweep in mode 2 and modes 1, 3, 4, 5 on the wide panel, mode 0,
+``use_pallas=False``, K = 12, and the fused sweep under the normal prior and
+the adaptive-independence proposal; the tetraploid engine, auto and allo, and
+its plain S path, adaptive proposal and unfused sweep -- and checks that each
+went through its kernels, that its output is sane and that two runs from one
+seed are bitwise equal.
 Every phase prints one JSON line; any failure raises, so the exit code is
 non-zero.  There is no CPU path: without a CUDA device the script exits with
 code 1 and prints no result.
@@ -25,8 +28,8 @@ The line before the last is the card's name and power limit as ``nvidia-smi``
 prints them; the line before that is the ``{"kernels": [...]}`` summary; the
 last line is ``{"ok": true, "device": {...}}``.
 
-``--phases`` runs a subset of build, kernels, main_path, modes, unfused
-(development aid); the device and Philox phases always run.
+``--phases`` runs a subset of build, kernels, main_path, modes, unfused,
+tetra (development aid); the device and Philox phases always run.
 """
 
 from __future__ import annotations
@@ -52,8 +55,11 @@ from instruct_tpu_torch.kernels import fused_step as fs
 from instruct_tpu_torch.kernels import philox as px
 from instruct_tpu_torch.kernels import s_pop as sp
 from instruct_tpu_torch.kernels import zq as zqk
+from instruct_tpu_torch.data.synthetic import synthetic_tetra_panel
+from instruct_tpu_torch.kernels import tetra_geno as tg
 from instruct_tpu_torch.mcmc.state import init_state
 from instruct_tpu_torch.mcmc.step import build_step_parts, use_fused
+from instruct_tpu_torch.tetra import engine as te
 
 # Headline shapes of the main path.
 N_INDV, N_LOCI, N_POPS, N_CHAINS, SUBSWEEPS = 1000, 10_000, 3, 4, 12
@@ -65,6 +71,9 @@ GEN_LOCI, GEN_ALLELES = 2000, 8
 WIDE_LOCI, WIDE_ALLELES, WIDE_POPS = 2000, 16, 5
 WIDE_RATES = (0.1, 0.3, 0.5, 0.7, 0.9)
 UNFUSED_ITER = 40      # sweeps of the shorter unfused and new-arm paths
+# The tetraploid benchmark panels (the JAX package's, bench.py:100-130).
+TETRA_INDV, TETRA_LOCI, TETRA_ALLELES, TETRA_SEED = 500, 5000, 4, 7
+TETRA_ITER = 100       # sweeps of the tetraploid paths (half burn-in)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
 # the float32 rate outside the tensor cores.  The bound of a kernel is the
@@ -279,7 +288,7 @@ def zq_agrees(tag, keys, q, freq, geno, site_valid, u=None):
         if not torch.equal(a, b):
             raise AssertionError(f"{tag}: {nm} differs from the plain "
                                  f"version at {int((a != b).sum())} elements")
-    ploid = geno.shape[1] // site_valid.shape[1]
+    ploid = geno.shape[-1] // site_valid.shape[1]
     total = float(ploid) * float(site_valid.sum())
     for ch in range(q.shape[0]):
         if float(got[1][ch].sum()) != total:
@@ -874,9 +883,10 @@ def phase_edge_shapes() -> None:
                    for c, n, l, k, a, p in zq_cases], all_match=True)
 
 
-def phase_kernels(panel, panel_a, panel_w, philox_entry):
+def phase_kernels(panel, panel_a, panel_w, philox_entry, tetra_panels):
     """Entries by kernel name at the main paths' variant (structure way);
-    the expectation-way runs of the site pass are reported as variants."""
+    the expectation-way runs of the site pass (and K6 on the auto panel)
+    are reported as variants."""
     x = kernel_inputs(panel)
     main = [philox_entry, check_allele_counts(x), *check_site_entries(x),
             check_s_pop_tail(x), *check_dirichlet(x)]
@@ -903,12 +913,17 @@ def phase_kernels(panel, panel_a, panel_w, philox_entry):
     main += check_site_entries(xa)
     variants += check_site_entries(xa, structure=False, only=EXP_WAY)
     phase_edge_shapes()
+    torch.cuda.empty_cache()
+    main += check_tetra_kernels(tetra_panels)
+    variants += tetra_variants
     emit("kernels", shapes=dict(C=N_CHAINS, N=N_INDV, L=N_LOCI, K=N_POPS,
                                 A=2, J=SUBSWEEPS),
          generic_shapes=dict(C=N_CHAINS, N=N_INDV, L=GEN_LOCI, K=N_POPS,
                              A=GEN_ALLELES),
          wide_shapes=dict(C=N_CHAINS, N=N_INDV, L=WIDE_LOCI, K=WIDE_POPS,
                           A=WIDE_ALLELES),
+         tetra_shapes=dict(C=N_CHAINS, N=TETRA_INDV, L=TETRA_LOCI, K=N_POPS,
+                           A=TETRA_ALLELES),
          kernels=main, variants=variants)
     return {e["name"]: e for e in main}
 
@@ -1320,10 +1335,545 @@ def phase_unfused(panel, panel_w, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the tetraploid engine (K5-K7 and the paths that run them)
+# ---------------------------------------------------------------------------
+
+TETRA_LINES = {"geno_choice_pass": 340, "s_delta_pass": 168,
+               "site_ll_pass": 279}
+# kernel entries timed beside the listed ones (K6 on the auto panel)
+tetra_variants: list = []
+
+
+def tetra_panel(autopoly: bool, n=TETRA_INDV, l=TETRA_LOCI, k=N_POPS,
+                a=TETRA_ALLELES, missing=0.0, seed=TETRA_SEED):
+    return synthetic_tetra_panel(n, l, n_pops=k, n_alleles=a,
+                                 autopoly=autopoly, missing_rate=missing,
+                                 seed=seed)
+
+
+def tetra_inputs(panel, autopoly: bool, k=N_POPS, c=N_CHAINS, seed=31):
+    """State-like inputs of the tetraploid kernels at the panel's shapes,
+    from a seed: each individual's copies sit in one dominant pop with
+    probability 0.85 (about two thirds of the sites same-z, as in a run
+    at admixture 0.1), a random candidate ordering per site, S and a
+    proposal one random-walk step away."""
+    data = panel.data.to("cuda")
+    spec = ModelSpec(mode=2, ploid=4, n_pops=k, autopoly=autopoly)
+    tables = te.build_tables(spec, data)
+    n, l, a = data.n_indv, data.n_loci, data.max_alleles
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device="cuda")
+
+    def simplex(*shape, conc=1.0, mask=None):
+        x = torch._standard_gamma(torch.full(shape, conc, device="cuda"),
+                                  generator=g).clamp_min(1e-20)
+        x = x if mask is None else x * mask
+        return (x / x.sum(-1, keepdim=True)).contiguous()
+
+    dom = (rand(c, n, 1) * k).long().clamp_max(k - 1)
+    other = (rand(c, n, 4 * l) * k).long().clamp_max(k - 1)
+    z = torch.where(rand(c, n, 4 * l) < 0.85, dom, other).to(torch.int8)
+    choice = torch.minimum(torch.floor(rand(c, n, l)
+                                       * tables.cand_nc.float()),
+                           tables.cand_nc.float() - 1).to(torch.int8)
+    rates = (rand(c, k) * 0.9 + 0.05).contiguous()
+    prop = (rates + (rand(c, k) - 0.5) * 0.1).clamp(0.01, 0.99).contiguous()
+    av = data.allele_valid.float()
+    freq, freq2 = simplex(c, k, l, a, mask=av), simplex(c, k, l, a, mask=av)
+    tab_cur = te.class_table(tables, spec, freq, freq2, rates).contiguous()
+    tab_prop = te.class_table(tables, spec, freq, freq2, prop).contiguous()
+    return dict(data=data, spec=spec, tables=tables, z=z,
+                geno=te.reconstruct_geno(tables, choice), q=simplex(c, n, k,
+                                                                    conc=0.3),
+                freq=freq, freq2=freq2, table=tab_cur, tab_cur=tab_cur,
+                tab_prop=tab_prop, keys=px.make_keys(RUN_SEED, c, "cuda"))
+
+
+def _k5_args(x, step=5):
+    t = x["tables"]
+    return (x["keys"], step, x["table"], x["z"], t.dist8, t.cand_nc, x["q"],
+            x["freq"], x["freq2"], t.cand_sel, t.cand_cls, t.cand_mult)
+
+
+def _k6_args(x):
+    return (x["tab_cur"], x["tab_prop"], x["tables"].lookup_l, x["z"],
+            x["geno"], x["data"].site_valid)
+
+
+def _k7_args(x):
+    t = x["tables"]
+    return (x["table"], t.lookup_l, t.log_mult_l, x["freq"], x["freq2"],
+            x["z"], x["geno"], x["data"].site_valid)
+
+
+def k5_agrees(tag, x, gumbel=None) -> torch.Tensor:
+    auto = bool(x["spec"].autopoly)
+    got = tg.geno_choice_pass(*_k5_args(x), autopoly=auto, gumbel=gumbel)
+    want = tg.geno_choice_pass_reference(*_k5_args(x), autopoly=auto,
+                                         gumbel=gumbel)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{tag}: choice differs from the plain version "
+                             f"at {int((got != want).sum())} sites")
+    if bool((got.long() >= x["tables"].cand_nc.long()).any()):
+        raise AssertionError(f"{tag}: a choice beyond the site's candidates")
+    return got
+
+
+def k6_agrees(tag, x):
+    """delta to rtol 1e-5 and atol 1e-6 x the sum of |terms| of its pop (f32
+    sums in another order); an MH decision may differ only within that of
+    its threshold.  Returns (delta, plain delta, atol)."""
+    got = tg.s_delta_pass(*_k6_args(x))
+    want = tg.s_delta_pass_reference(*_k6_args(x))
+    # the sum of |terms| per (chain, pop): the plain version on |tp - tc|
+    mag = tg.s_delta_pass_reference(
+        x["tab_cur"], x["tab_cur"] + (x["tab_prop"] - x["tab_cur"]).abs(),
+        *_k6_args(x)[2:])
+    atol = 1e-6 * mag
+    if bool(((got - want).abs() > 1e-5 * want.abs() + atol).any()):
+        raise AssertionError(f"{tag}: delta differs, max abs err "
+                             f"{max_err(got, want):.3e}")
+    logu = want + torch.linspace(-1.0, 1.0, want.numel(),
+                                 device="cuda").reshape(want.shape)
+    flip = (logu < got) != (logu < want)
+    if bool(((logu - want).abs()[flip] > atol[flip] + 1e-5 * want.abs()[flip]
+             ).any()):
+        raise AssertionError(f"{tag}: an S accept differs away from a "
+                             "knife-edge")
+    if not torch.equal(got, tg.s_delta_pass(*_k6_args(x))):
+        raise AssertionError(f"{tag}: two launches are not bitwise equal")
+    return got, want, atol
+
+
+def k7_agrees(tag, x):
+    """ll to rtol 1e-5 and atol 1e-6 x the sum of |site terms|."""
+    auto = bool(x["spec"].autopoly)
+    got = tg.site_ll_pass(*_k7_args(x), autopoly=auto)
+    want = tg.site_ll_pass_reference(*_k7_args(x), autopoly=auto)
+    mag = tg.site_loglik(*_k7_args(x), autopoly=auto).abs().sum(dim=2)
+    if bool(((got - want).abs() > 1e-5 * want.abs() + 1e-6 * mag).any()):
+        raise AssertionError(f"{tag}: ll differs, max abs err "
+                             f"{max_err(got, want):.3e}")
+    if not torch.equal(got, tg.site_ll_pass(*_k7_args(x), autopoly=auto)):
+        raise AssertionError(f"{tag}: two launches are not bitwise equal")
+    return got, want
+
+
+def views_agree(tag, x):
+    """K1, K4 and K8 on the per-chain planes of the tetraploid views (the
+    latent genotype is per chain) against their plain versions."""
+    d, spec, keys = x["data"], x["spec"], x["keys"]
+    k = spec.n_pops
+    view = te.view_dataset(spec, d, x["geno"])
+    f2l = te.freq_2l(spec, x["freq"], x["freq2"])
+    got = fs.zq_sample_pass(keys, 5, x["q"], f2l, view)
+    want = fs.zq_sample_pass_reference(keys, 5, x["q"], f2l, view)
+    for nm, a_, b_ in zip(("z", "qqnum"), got[:2], want[:2]):
+        if not torch.equal(a_, b_):
+            raise AssertionError(f"{tag}: zq_sample_pass on the view: {nm} "
+                                 "differs from the plain version")
+    kw = dict(n_pops=k, max_alleles=d.max_alleles)
+    zv, gv = te.diploid_view(spec, x["z"]), te.diploid_view(spec, x["geno"])
+    v2 = d.site_valid.repeat(1, 2)
+    if not torch.equal(fs.allele_counts(zv, gv, v2, **kw),
+                       fs.allele_counts_reference(zv, gv, v2, **kw)):
+        raise AssertionError(f"{tag}: allele_counts on the view differs")
+    geno8 = x["geno"] if spec.autopoly else gv
+    f8 = x["freq"] if spec.autopoly else f2l
+    sv = d.site_valid if spec.autopoly else v2
+    zq_agrees(f"{tag}: zq_sample_counts on per-chain planes", keys, x["q"],
+              f8, geno8, sv)
+
+
+def tetra_work(x):
+    """(bytes, operations) of one call of K5, K6, K7 on these inputs: each
+    operand read once, each result written once; operations counted from
+    this run's masks (same-z sites, valid candidates)."""
+    d, t, spec = x["data"], x["tables"], x["spec"]
+    c, k, l, g = x["table"].shape
+    n, a, v = d.n_indv, d.max_alleles, t.lookup_l.shape[1]
+    n_sys = 1 if spec.autopoly else 2
+    zc = tg.split4(x["z"])
+    same = tg.same_z(zc)
+    valid = d.site_valid[None]
+    n_same = int((same & valid).sum())
+    n_sites = c * n * l
+    n_valid = c * int(d.site_valid.sum())
+    ncand = t.cand_nc.long()[None].expand(c, n, l)
+    cand_same = int(ncand[same].sum())
+    cand_mixed = int(ncand[~same].sum())
+    n_mixed_sites = n_sites - int(same.sum())
+    planes = c * n * 4 * l
+    k5_bytes = (planes + n * 4 * l + n * l + t.n_cand * n * l * 4
+                + c * n * k * 4 + n_sys * c * k * l * a * 4
+                + c * k * l * g * 4 + c * n * l)
+    k5_ops = (n_mixed_sites * n_sys * 4 * 2 * k
+              + cand_mixed * (5 * OPS_TRANSC + 5) + cand_same * 1
+              + (cand_same + cand_mixed) * (2 * OPS_TRANSC + OPS_PHILOX / 4
+                                            + 3))
+    k6_bytes = 2 * c * k * l * g * 4 + l * v * 4 + 2 * planes + n * l \
+        + c * k * 4
+    k6_ops = n_same * (12 + 1 + k)
+    k7_bytes = (c * k * l * g * 4 + l * v * 4 + l * g * 4
+                + n_sys * c * k * l * a * 4 + 2 * planes + n * l + c * n * 4)
+    k7_ops = n_same * 12 + (n_valid - n_same) * (4 * OPS_TRANSC + 17)
+    return dict(geno_choice_pass=(k5_bytes, k5_ops),
+                s_delta_pass=(k6_bytes, k6_ops),
+                site_ll_pass=(k7_bytes, k7_ops))
+
+
+def _tetra_entry(name, counter, x, work, err, run, plain, compared, notes):
+    b_ms, b_by = bound(*work)
+    return dict(name=counter, route="cuda",
+                source="instruct_tpu_torch/csrc/tetra_geno.cu",
+                replaces="instruct_tpu/kernels/tetra_geno_pallas.py:"
+                         f"{TETRA_LINES[name]}",
+                max_abs_err=err, ms=time_ms(run),
+                plain_ms=time_ms(plain, reps=3, warm=1, inner=1),
+                bound_ms=b_ms, bound_by=b_by,
+                # no one PyTorch call computes the weights + Gumbel-argmax,
+                # the class-indexed masked per-pop sum or the two-branch
+                # site log-lik
+                library_ms=None, bytes=work[0], ops=work[1], notes=notes,
+                shape=dict(C=N_CHAINS, N=x["data"].n_indv,
+                           L=x["data"].n_loci, K=x["spec"].n_pops,
+                           A=x["data"].max_alleles, G=x["tables"].g_max,
+                           n_cand=x["tables"].n_cand),
+                compared=compared)
+
+
+def check_tetra_kernels(panels) -> list:
+    """K5 (auto and allo), K6 and K7 against their plain versions at full
+    width, with Philox and with injected Gumbel planes, plus the K1/K4/K8
+    launches on the per-chain planes of the views; their times and bounds.
+    K6 is reported once (the allo panel, G = 100); its auto time is a
+    variant."""
+    entries = []
+    for auto, panel in panels.items():
+        mode = "auto" if auto else "allo"
+        x = tetra_inputs(panel, auto)
+        tag = f"tetra kernels ({mode})"
+        choice = k5_agrees(tag + " geno_choice_pass", x)
+        c, n, l = choice.shape
+        gum = -torch.log(-torch.log(torch.rand(
+            (c, x["tables"].n_cand, n, l), device="cuda",
+            generator=torch.Generator("cuda").manual_seed(8)).clamp(
+                1e-7, 1 - 1e-7)))
+        k5_agrees(tag + " geno_choice_pass under injected Gumbel planes", x,
+                  gum)
+        del gum
+        if not torch.equal(choice, k5_agrees(tag, x)):
+            raise AssertionError(f"{tag}: two K5 launches differ")
+        d6, p6, atol6 = k6_agrees(tag + " s_delta_pass", x)
+        d7, p7 = k7_agrees(tag + " site_ll_pass", x)
+        views_agree(tag, x)
+        work = tetra_work(x)
+        a5 = _k5_args(x)
+        share = float(tg.same_z(tg.split4(x["z"])).float().mean())
+        entries.append(_tetra_entry(
+            "geno_choice_pass", f"geno_choice_pass_{mode}", x,
+            work["geno_choice_pass"], 0.0,
+            lambda: tg.geno_choice_pass(*a5, autopoly=auto),
+            lambda: tg.geno_choice_pass_reference(*a5, autopoly=auto),
+            "choice exactly equal (Philox and injected Gumbel planes)",
+            [f"same-z share {share:.3f}"]))
+        a6 = _k6_args(x)
+        e6 = _tetra_entry(
+            "s_delta_pass", "s_delta_pass", x, work["s_delta_pass"],
+            max_err(d6, p6), lambda: tg.s_delta_pass(*a6),
+            lambda: tg.s_delta_pass_reference(*a6),
+            "delta rtol 1e-5, atol 1e-6 x sum |terms| (max "
+            f"{float(atol6.max()):.2e}); MH decisions off only within it",
+            [f"|delta| max {float(p6.abs().max()):.3e}"])
+        if auto:
+            e6["name"] = "s_delta_pass(auto)"
+            tetra_variants.append(e6)
+        else:
+            entries.append(e6)
+        a7 = _k7_args(x)
+        entries.append(_tetra_entry(
+            "site_ll_pass", f"site_ll_pass_{mode}", x, work["site_ll_pass"],
+            max_err(d7, p7),
+            lambda: tg.site_ll_pass(*a7, autopoly=auto),
+            lambda: tg.site_ll_pass_reference(*a7, autopoly=auto),
+            "ll rtol 1e-5, atol 1e-6 x sum |site terms|",
+            [f"|ll| max {float(p7.abs().max()):.3e}"]))
+        del x
+        torch.cuda.empty_cache()
+    tetra_edge_shapes()
+    return entries
+
+
+def tetra_edge_shapes() -> None:
+    """K5-K7 and the view launches at small ragged shapes: N = 1, L not a
+    multiple of the block, missing sites, K = 1..5, A = 2, 3, auto and
+    allo."""
+    cases = [(1, 1, 37, 2, 2), (2, 33, 258, 3, 3), (1, 7, 1, 1, 2),
+             (2, 50, 301, 5, 3), (3, 19, 130, 4, 2)]
+    for c, n, l, k, a in cases:
+        for auto in (True, False):
+            panel = tetra_panel(auto, n=n, l=l, k=k, a=a, missing=0.15,
+                                seed=n + l)
+            x = tetra_inputs(panel, auto, k=k, c=c, seed=l)
+            tag = f"tetra edge shape C={c} N={n} L={l} K={k} A={a} auto={auto}"
+            k5_agrees(tag, x)
+            k6_agrees(tag, x)
+            k7_agrees(tag, x)
+            views_agree(tag, x)
+    emit("tetra_edge_shapes", cases=[dict(C=c, N=n, L=l, K=k, A=a)
+                                     for c, n, l, k, a in cases],
+         all_match=True)
+
+
+def tetra_expected_launches(spec, data, steps, evals, margs, attempts):
+    """Launches per kernel that ``run_mcmc``'s schedule predicts for the
+    tetraploid engine."""
+    auto = bool(spec.autopoly)
+    mode = "auto" if auto else "allo"
+    fused = te.tetra_use_fused(spec, data)
+    kernels = fused and spec.n_pops * te.build_tables(
+        spec, data, with_candidates=False).g_max <= te.MAX_TABLE_CELLS
+    n_sweeps = max(1, spec.s_subsweeps)
+    # S tail + alpha per sweep; the plain move's Gumbel planes; the initial
+    # state's geno, z, alpha and S words
+    want = {"allele_counts" if spec.n_pops * data.max_alleles <= 64
+            else "allele_counts_wide": steps,
+            "dirichlet_kla": steps * (1 if auto else 2),
+            "dirichlet_nk": steps + attempts,
+            "philox_words": steps * (2 + int(not kernels)) + 4 * attempts}
+    if fused:
+        want["site_pass_sample" + ("" if data.max_alleles == 2
+                                   else "_generic")] = steps
+    else:
+        want["zq_sample_counts"] = steps
+    if kernels:
+        want[f"geno_choice_pass_{mode}"] = steps
+        want[f"site_ll_pass_{mode}"] = evals + margs
+        if n_sweeps == 1:
+            want["s_delta_pass"] = steps
+    return want
+
+
+def geno_is_an_ordering(data, geno) -> bool:
+    """Every valid site's latent genotype holds exactly the observed
+    distinct alleles."""
+    n, l = data.n_indv, data.n_loci
+    dist = data.distinct.reshape(n, 4, l)[None]            # [1, N, 4, L]
+    g = geno.to(torch.int32).reshape(-1, n, 4, l)
+    nd = data.n_distinct[None, :, None, :]
+    live = torch.arange(4, device=geno.device)[None, None, :, None] < nd
+    # each slot's allele is one of the site's distinct alleles ...
+    in_dist = ((g[:, :, :, None] == dist[:, :, None]) & live[:, :, None]
+               ).any(dim=3)
+    # ... and each distinct allele appears in some slot
+    covered = ((dist[:, :, :, None] == g[:, :, None]).any(dim=3) | ~live)
+    v = data.site_valid[None, :, None, :]
+    return bool(((in_dist | ~v).all()) and ((covered | ~v).all()))
+
+
+def tetra_small_agreement(autopoly: bool, **spec_kw) -> dict:
+    """The port on the card against the port on the CPU (plain versions),
+    same seed, a 40 x 120 panel, 3 sweeps from an initial state drawn on
+    each device (the tetraploid initial state is a function of Philox
+    words, so the two draw the same).  The class tables are float64 solves
+    cast to float32 on both (cuSOLVER vs LAPACK): z, geno, rates and
+    ais_state must agree exactly, or the sites that differ are counted and
+    bounded (at most 0.5%, from a near-tie in a z threshold or in the move's
+    argmax; a chain in which they differ may then also differ in its S).
+    The class tables of the same (P, P2, S) agree to 1e-5 on the two."""
+    panel = tetra_panel(autopoly, n=40, l=120, a=3, missing=0.1, seed=3)
+    spec = ModelSpec(mode=2, ploid=4, n_pops=N_POPS, autopoly=autopoly,
+                     **spec_kw)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        data = panel.data.to(dev)
+        keys = px.make_keys(11, 2, dev)
+        state = init_state(11, spec, data, n_chains=2, device=dev)
+        out[dev + "_init"] = state
+        step, add_loglik = build_step_parts(spec, data)
+        for i in range(3):
+            state = step(state, keys, i)
+        out[dev] = add_loglik(state)
+    tag = f"tetra small agreement (auto={autopoly}, {spec_kw})"
+    a_, b_ = out["cpu"], out["cuda"]
+    ia, ib = out["cpu_init"], out["cuda_init"]
+    for name in ("z", "geno", "rates"):
+        if not torch.equal(getattr(ia, name), getattr(ib, name).cpu()):
+            raise AssertionError(f"{tag}: the initial {name} differs")
+    errs = {}
+    for name in ("z", "geno"):
+        off = float((getattr(a_, name) != getattr(b_, name).cpu()).float()
+                    .mean())
+        errs[name + "_sites_differ"] = off
+        if off > 5e-3:
+            raise AssertionError(f"{tag}: {name} differs at {off:.2%}")
+    exact = errs["z_sites_differ"] == 0 and errs["geno_sites_differ"] == 0
+    for name in ("rates", "ais_state"):
+        if exact and not torch.equal(getattr(a_, name),
+                                     getattr(b_, name).cpu()):
+            raise AssertionError(f"{tag}: {name} differs between the card "
+                                 "and the CPU")
+    # the solve: one (P, P2, S), two devices
+    ta = te.class_table(te.build_tables(spec, panel.data,
+                                        with_candidates=False), spec,
+                        a_.freq, a_.freq2, a_.rates)
+    tb = te.class_table(te.build_tables(spec, panel.data.to("cuda"),
+                                        with_candidates=False), spec,
+                        a_.freq.cuda(), a_.freq2.cuda(), a_.rates.cuda())
+    fin = ta > -1e29
+    errs["table"] = max_err(ta[fin], tb.cpu()[fin])
+    if errs["table"] > 1e-5:
+        raise AssertionError(f"{tag}: class table differs by "
+                             f"{errs['table']:.3e}")
+    for name, tol in (("rates", 0.0), ("q", 1e-4), ("freq", 1e-4),
+                      ("freq2", 1e-4), ("alpha", 1e-5),
+                      ("loglik_indv", 1e-2)):
+        errs[name] = max_err(getattr(a_, name), getattr(b_, name).cpu())
+        if exact and errs[name] > tol:
+            raise AssertionError(f"{tag}: {name} differs by "
+                                 f"{errs[name]:.3e} (> {tol})")
+    return errs
+
+
+def drive_tetra(tag, panel, spec, n_iter, smi, profile_sweeps=100,
+                n_prof=30) -> dict:
+    """``run_mcmc`` on a tetraploid panel with the launch counts set to 0
+    just before and read just after; counts against the schedule, the
+    output's checks, a second run from the seed bitwise equal."""
+    stored = n_iter // 2 // 10
+    sched = Schedule(n_iter=n_iter, burnin=n_iter // 2, thinning=10,
+                     n_chains=N_CHAINS, ckrep=min(20, stored),
+                     nstep_check_empty_cluster=min(20, stored),
+                     dic_every=2)
+    data = panel.data.to("cuda")
+    n, l, a, k = data.n_indv, data.n_loci, data.max_alleles, spec.n_pops
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.time()
+    res = run_mcmc(panel.data, spec, sched, RUN_SEED, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {name: int(cnt) for name, cnt in _build.launches.items()}
+    attempts = 1 + res.n_retries
+    steps = n_iter * attempts
+    last_extra = 0 if (n_iter - sched.burnin) % sched.thinning == 0 else 1
+    margs = len(range(0, sched.n_stored, sched.dic_every)) * attempts
+    want = tetra_expected_launches(spec, data, steps,
+                                   (sched.n_stored + last_extra) * attempts,
+                                   margs, attempts)
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, the schedule "
+                             f"predicts {want}")
+    st, acc = res.final_state, res.accum
+    allo = not spec.autopoly
+    checks = {
+        "loglik finite": bool(torch.isfinite(st.loglik_indv).all()
+                              and torch.isfinite(acc.mean.total_ll).all()
+                              and torch.isfinite(acc.mean.ll_marg).all()),
+        "rates in [0,1]": bool(((st.rates >= 0) & (st.rates <= 1)).all()),
+        "Q rows sum to 1": bool(torch.allclose(
+            st.q.sum(-1), torch.ones_like(st.q.sum(-1)), atol=1e-4)),
+        "freq rows sum to 1": bool(torch.allclose(
+            st.freq.sum(-1), torch.ones_like(st.freq.sum(-1)), atol=1e-4)
+            and (not allo or torch.allclose(
+                st.freq2.sum(-1), torch.ones_like(st.freq2.sum(-1)),
+                atol=1e-4))),
+        "shapes": (tuple(st.z.shape) == (N_CHAINS, n, 4 * l)
+                   and tuple(st.geno.shape) == (N_CHAINS, n, 4 * l)
+                   and tuple(st.q.shape) == (N_CHAINS, n, k)
+                   and tuple(st.freq2.shape) == (N_CHAINS, k, l, a)
+                   and tuple(acc.mean.rates.shape) == (N_CHAINS, k)),
+        "geno is an ordering of the observed alleles": geno_is_an_ordering(
+            data, st.geno),
+        "stored count": bool((acc.count == sched.n_stored).all()),
+        "labels in range": bool(st.z.min() >= 0 and st.z.max() < k),
+        "retries not exhausted": res.n_retries < 10,
+        "waic finite": res.waic() is not None and bool(
+            np.isfinite(res.waic()).all()),
+    }
+    bad = [name for name, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"{tag}: failed checks {bad}")
+    res2 = run_mcmc(panel.data, spec, sched, RUN_SEED, device="cuda")
+    f2 = res2.final_state
+    same = (torch.equal(st.z, f2.z) and torch.equal(st.geno, f2.geno)
+            and torch.equal(st.freq, f2.freq)
+            and torch.equal(st.freq2, f2.freq2)
+            and torch.equal(st.rates, f2.rates)
+            and torch.equal(acc.mean.rates, res2.accum.mean.rates)
+            and torch.equal(acc.mean.total_ll, res2.accum.mean.total_ll))
+    same = same and torch.equal(rates_trajectory(data, spec, 30),
+                                rates_trajectory(data, spec, 30))
+    if not same:
+        raise AssertionError(f"{tag}: two runs from one seed are not "
+                             "bitwise equal")
+    if profile_sweeps:
+        emit("sweep_profile", path=tag, card=smi,
+             **sweep_profile(data, spec, profile_sweeps, n_prof))
+    emit("tetra", path=tag, card=smi,
+         panel=dict(N=n, L=l, A=a, K=k, autopoly=bool(spec.autopoly)),
+         sweep="fused" if te.tetra_use_fused(spec, data) else "unfused",
+         s_subsweeps=spec.s_subsweeps, back_refl=spec.back_refl,
+         steps=steps, chains=N_CHAINS, n_retries=res.n_retries,
+         wall_seconds=round(wall, 3),
+         chain_steps_per_second=round(N_CHAINS * steps / wall, 1),
+         ms_per_step=round(1e3 * wall / steps, 4), launches=launches,
+         mean_rates=[[round(float(v), 4) for v in row]
+                     for row in acc.mean.rates.cpu()],
+         checks=sorted(checks), bitwise_reproducible=True)
+    return launches
+
+
+def phase_tetra(panels, smi: str) -> dict:
+    """The tetraploid engine through ``run_mcmc`` at full width, auto and
+    allo (the main path of this engine: the fused sweep with K5, K6, K7);
+    shorter: the plain S path (``s_subsweeps=4``), the adaptive-independence
+    proposal (``back_refl=0``) and the unfused sweep (``use_pallas=False``,
+    through K8).  Returns launches by kernel entry, each from the path that
+    runs it."""
+    agreement = {}
+    for auto in (True, False):
+        mode = "auto" if auto else "allo"
+        agreement[mode] = tetra_small_agreement(auto)
+        agreement[mode + ", use_pallas=False"] = tetra_small_agreement(
+            auto, use_pallas=False)
+    agreement["allo, s_subsweeps=4"] = tetra_small_agreement(
+        False, s_subsweeps=4)
+    agreement["auto, back_refl=0"] = tetra_small_agreement(True,
+                                                           back_refl=0)
+    emit("tetra_small_agreement", sweeps=3, max_abs_err=agreement)
+    launches = {}
+    for auto, panel in panels.items():
+        mode = "auto" if auto else "allo"
+        spec = ModelSpec(mode=2, ploid=4, n_pops=N_POPS, autopoly=auto)
+        got = drive_tetra(f"tetra: {mode}, fused sweep", panel, spec,
+                          TETRA_ITER, smi)
+        for name in (f"geno_choice_pass_{mode}", f"site_ll_pass_{mode}"):
+            launches[name] = got[name]
+        if not auto:
+            launches["s_delta_pass"] = got["s_delta_pass"]
+    short = dict(n_iter=UNFUSED_ITER, smi=smi, profile_sweeps=30, n_prof=10)
+    drive_tetra("tetra: auto, s_subsweeps=4 (plain S path)", panels[True],
+                ModelSpec(mode=2, ploid=4, n_pops=N_POPS, s_subsweeps=4),
+                **short)
+    drive_tetra("tetra: allo, back_refl=0", panels[False],
+                ModelSpec(mode=2, ploid=4, n_pops=N_POPS, autopoly=False,
+                          back_refl=0), **short)
+    for auto, panel in panels.items():
+        mode = "auto" if auto else "allo"
+        drive_tetra(f"tetra: {mode}, use_pallas=False (unfused, K8)", panel,
+                    ModelSpec(mode=2, ploid=4, n_pops=N_POPS, autopoly=auto,
+                              use_pallas=False), **short)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,main_path,modes,unfused")
+                    default="build,kernels,main_path,modes,unfused,tetra")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -1345,7 +1895,10 @@ def main(argv=None) -> int:
                               n_alleles=WIDE_ALLELES,
                               selfing_rates=np.array(WIDE_RATES),
                               admixture_alpha=0.1, seed=PANEL_SEED)
-    entries = (phase_kernels(panel, panel_a, panel_w, philox_entry)
+    tetra_panels = ({auto: tetra_panel(auto) for auto in (True, False)}
+                    if phases & {"kernels", "tetra"} else {})
+    entries = (phase_kernels(panel, panel_a, panel_w, philox_entry,
+                             tetra_panels)
                if "kernels" in phases else {})
     launches = (phase_main_path(panel, smi)
                 if "main_path" in phases else {})
@@ -1354,7 +1907,9 @@ def main(argv=None) -> int:
         launches = {**phase_modes(panel, panel_a, smi), **launches}
     if "unfused" in phases:
         launches = {**phase_unfused(panel, panel_w, smi), **launches}
-    full = {"kernels", "main_path", "modes", "unfused"} <= phases
+    if "tetra" in phases:
+        launches = {**phase_tetra(tetra_panels, smi), **launches}
+    full = {"kernels", "main_path", "modes", "unfused", "tetra"} <= phases
     if full:
         keys = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -12,7 +12,8 @@ and individual-level selfing, population- and individual-level inbreeding;
 uniform and normal prior, back-reflection and adaptive-independence
 proposal, any number of pops and alleles) on packed biallelic and on
 multi-allelic panels, end to end through :func:`run_mcmc`, as a fused and an
-unfused sweep (``mcmc/step.py``).
+unfused sweep (``mcmc/step.py``); and the tetraploid engine, auto- and
+allotetraploid (``tetra/engine.py``).
 Sub-packages and functions keep the names of their counterparts in
 ``instruct_tpu``.  Entry points run on ``device="cuda"`` unless the caller
 asks for the CPU, where the kernels' plain PyTorch versions run instead.

@@ -23,7 +23,7 @@ _STATE_RANK = dict(freq=3, z=2, zz=1, q=2, alpha=0, rates=1, ais_state=1,
                    freq2=3, geno=2, zcounts=3, loglik_marg=1, active=1)
 _STATE_DTYPE = dict(z=torch.int8, zz=torch.int32, ais_state=torch.int32,
                     gen=torch.int32, dpm_counts=torch.int32,
-                    dpm_assign=torch.int32, geno=torch.int32)
+                    dpm_assign=torch.int32, geno=torch.int8)
 
 
 def dataset_from_numpy(fields: Mapping[str, np.ndarray],

@@ -7,6 +7,9 @@
 // What bounds it: bytes.  Per chain it must read z (2*N*L bytes) and the
 // panel (bits2, N*L bytes, when the panel is packed biallelic; otherwise
 // geno 2*N*L + site_valid N*L); the output is K*L*A floats.
+// The panel planes (bits2 or geno) are shared by the chains, or -- the
+// tetraploid engine's latent genotype -- one per chain (chain stride
+// plane_cs).
 // Design: the TPU grid walks the N blocks in order into a resident output
 // block.  Here a thread owns one locus of one chain over a strip of 64
 // individuals and counts in a small private table, so loads are coalesced
@@ -28,11 +31,14 @@ constexpr int kMaxCells = 64;   // K * A that the private table holds
 __global__ void __launch_bounds__(kThreads) allele_counts_kernel(
     const int8_t* __restrict__ z, const int8_t* __restrict__ bits2,
     const int8_t* __restrict__ geno, const bool* __restrict__ valid,
-    float* __restrict__ counts, int N, int L, int K, int A) {
+    float* __restrict__ counts, int N, int L, int K, int A,
+    long long plane_cs) {
   const int l = blockIdx.x * kThreads + threadIdx.x;
   const int c = blockIdx.z;
   if (l >= L) return;
   const int cells = K * A;
+  if (bits2 != nullptr) bits2 += c * plane_cs;
+  if (geno != nullptr) geno += c * plane_cs;
   int cnt[kMaxCells];
   for (int i = 0; i < cells; ++i) cnt[i] = 0;
 
@@ -72,10 +78,11 @@ __global__ void __launch_bounds__(kThreads) allele_counts_kernel(
 __global__ void __launch_bounds__(kThreads) allele_counts_wide_kernel(
     const int8_t* __restrict__ z, const int8_t* __restrict__ geno,
     const bool* __restrict__ valid, float* __restrict__ counts, int N, int L,
-    int K, int A) {
+    int K, int A, long long plane_cs) {
   const int l = blockIdx.x * kThreads + threadIdx.x;
   const int c = blockIdx.z;
   if (l >= L) return;
+  geno += c * plane_cs;
   float* col = counts + (long long)c * K * L * A + (long long)l * A;
   const long long kstride = (long long)L * A;
   long long pending = -1;         // offset of the cell being counted
@@ -108,7 +115,8 @@ __global__ void __launch_bounds__(kThreads) allele_counts_wide_kernel(
 extern "C" int allele_counts_launch(const void* z, const void* bits2,
                                     const void* geno, const void* valid,
                                     void* counts, int C, int N, int L, int K,
-                                    int A, void* stream) {
+                                    int A, long long plane_cs,
+                                    void* stream) {
   if (K < 1 || A < 1) return (int)cudaErrorInvalidValue;
   // the wide kernel reads the allele codes, not the packed plane (A = 2)
   if (K * A > kMaxCells && geno == nullptr) return (int)cudaErrorInvalidValue;
@@ -119,11 +127,11 @@ extern "C" int allele_counts_launch(const void* z, const void* bits2,
   if (K * A > kMaxCells) {
     allele_counts_wide_kernel<<<grid, kThreads, 0, s>>>(
         (const int8_t*)z, (const int8_t*)geno, (const bool*)valid,
-        (float*)counts, N, L, K, A);
+        (float*)counts, N, L, K, A, plane_cs);
   } else {
     allele_counts_kernel<<<grid, kThreads, 0, s>>>(
         (const int8_t*)z, (const int8_t*)bits2, (const int8_t*)geno,
-        (const bool*)valid, (float*)counts, N, L, K, A);
+        (const bool*)valid, (float*)counts, N, L, K, A, plane_cs);
   }
   return (int)cudaGetLastError();
 }

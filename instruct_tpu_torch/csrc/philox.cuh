@@ -59,3 +59,4 @@ __device__ __forceinline__ float u01_open(uint32_t bits) {
 #define STREAM_S_GEN 4u
 #define STREAM_S_LOGU 5u
 #define STREAM_Z 6u
+#define STREAM_GENO 16u

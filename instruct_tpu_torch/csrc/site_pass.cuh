@@ -98,8 +98,8 @@ struct Cols {
 struct SiteArgs {
   const float* q;          // [C, N, K]; may be null where it is not read
   const float* freq;       // [C, K, L, A]
-  const int8_t* bits2;     // [N, L] packed plane
-  const int8_t* geno;      // [N, 2L] allele codes (generic)
+  const int8_t* bits2;     // [N, L] packed plane (or one per chain)
+  const int8_t* geno;      // [N, 2L] allele codes (generic; or per chain)
   const int8_t* valid;     // [N, L] bool (generic)
   const int8_t* hom;       // [N, L] bool (generic)
   const int8_t* z_in;      // [C, N, 2L] carried z (stored-step pass)
@@ -111,6 +111,9 @@ struct SiteArgs {
   float* ll_part;          // [C, N, T, kOut]
   float* qq_part;          // [C, N, T, K]
   int N, L, A, T, structure;
+  long long plane_cs;      // chain stride of bits2 / geno: 0 when the chains
+  //                          share the panel, N*L / N*2L when each chain has
+  //                          its own (the tetraploid engine's latent genotype)
   uint32_t k0, k1, step;
   const int* chain_key;
 };
@@ -273,7 +276,8 @@ site_kernel(const SiteArgs a) {
       int g0v[kQuad], g1v[kQuad], okv[kQuad], homv[kQuad];
       if constexpr (kPacked) {
         int bits[kQuad];
-        load_bytes(a.bits2 + (long long)n * L, l0, L, vec, bits);
+        load_bytes(a.bits2 + c * a.plane_cs + (long long)n * L, l0, L, vec,
+                   bits);
 #pragma unroll
         for (int j = 0; j < kQuad; ++j) {
           g0v[j] = bits[j] & 1;
@@ -282,7 +286,7 @@ site_kernel(const SiteArgs a) {
           homv[j] = g0v[j] == g1v[j] ? 1 : 0;
         }
       } else {
-        const int8_t* grow = a.geno + (long long)n * 2 * L;
+        const int8_t* grow = a.geno + c * a.plane_cs + (long long)n * 2 * L;
         load_bytes(grow, l0, L, vec, g0v);
         load_bytes(grow + L, l0, L, vec, g1v);
         load_bytes(a.valid + (long long)n * L, l0, L, vec, okv);
@@ -535,8 +539,8 @@ extern "C" int SITE_LAUNCH(
     const void* valid, const void* hom, const void* z_in, const void* colv,
     const void* fvals, const void* u, void* z, void* qqnum, void* zcounts,
     void* ll, void* ll_part, void* qq_part, int C, int N, int L, int K, int A,
-    int fam, int structure, unsigned k0, unsigned k1, const void* chain_key,
-    unsigned step, void* stream) {
+    int fam, int structure, long long plane_cs, unsigned k0, unsigned k1,
+    const void* chain_key, unsigned step, void* stream) {
   if (C == 0 || N == 0 || L == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   SiteArgs a;
@@ -559,6 +563,7 @@ extern "C" int SITE_LAUNCH(
   a.A = A;
   a.T = site_tiles(L);
   a.structure = structure;
+  a.plane_cs = plane_cs;
   a.k0 = k0;
   a.k1 = k1;
   a.step = step;

@@ -54,12 +54,15 @@ constexpr int kMaxPops = 127;             // z is int8
 struct ZqArgs {
   const float* q;          // [C, N, K]
   const float* freq_t;     // [C, L, A, K]: P[k, l, a] with the pop axis last
-  const int8_t* geno;      // [N, S] allele codes, copy-major, S = P * L
+  const int8_t* geno;      // [N, S] allele codes, copy-major, S = P * L, or
+  //                          one such plane per chain (the tetraploid latent
+  //                          genotype), chain stride geno_cs
   const int8_t* valid;     // [N, L] bool
   const float* u;          // [C, N, S] injected uniforms, or null
   int8_t* z;               // [C, N, S] out
   float* qqnum;            // [C, N, K] out, zeroed by the launch function
   int N, L, K, A, P;
+  long long geno_cs;
   uint32_t k0, k1, step;
   const int* chain_key;
 };
@@ -108,7 +111,7 @@ __global__ void __launch_bounds__(kThreads) zq_sample_kernel(const ZqArgs a) {
         const long long row = (long long)n * S + (long long)p * L;
         int gv[kQuad], zv[kQuad];
         float uq[kQuad];
-        load_bytes(a.geno + row, l0, L, vec, gv);
+        load_bytes(a.geno + c * a.geno_cs + row, l0, L, vec, gv);
         quad_uniforms(inj, row + l0, n_live, a.step, chain, a.k0, a.k1, uq);
 #pragma unroll
         for (int j = 0; j < kQuad; ++j) {
@@ -159,7 +162,7 @@ extern "C" int zq_sample_launch(const void* q, const void* freq_t,
                                 const void* geno, const void* valid,
                                 const void* u, void* z, void* qqnum, int C,
                                 int N, int L, int K, int A, int P,
-                                unsigned k0, unsigned k1,
+                                long long geno_cs, unsigned k0, unsigned k1,
                                 const void* chain_key, unsigned step,
                                 void* stream) {
   if (K < 1 || K > kMaxPops || A < 1 || P < 1 || P > kMaxPloid)
@@ -180,6 +183,7 @@ extern "C" int zq_sample_launch(const void* q, const void* freq_t,
   a.K = K;
   a.A = A;
   a.P = P;
+  a.geno_cs = geno_cs;
   a.k0 = k0;
   a.k1 = k1;
   a.step = step;

@@ -15,8 +15,11 @@ copy's [N, L] plane is a contiguous column slice).
                      one byte (bit0 = copy-0 allele, bit1 = copy-1 allele,
                      bit2 = site_valid; hom is bit0 == bit1).  The site
                      kernels read this single plane.
-  * ``distinct`` / ``n_distinct`` are tetraploid fields; they stay ``None``
-    until the tetraploid engine is ported.
+  * ``distinct``     int32[N, 4L] tetraploid only: the sorted distinct
+                     alleles observed at each site, copy-major like ``geno``
+                     (unused slots 0), ``n_distinct`` int32[N, L] their number
+                     (0 where missing); the latent-genotype move routes them
+                     through its candidate orderings (``tetra/engine.py``).
 
 The panel tensors carry no chain axis: every chain reads the same panel.
 """
@@ -43,7 +46,7 @@ class Dataset(NamedTuple):
 
     @property
     def n_indv(self) -> int:
-        return self.geno.shape[0]
+        return self.site_valid.shape[0]
 
     @property
     def n_loci(self) -> int:
@@ -51,7 +54,7 @@ class Dataset(NamedTuple):
 
     @property
     def ploid(self) -> int:
-        return self.geno.shape[1] // self.site_valid.shape[1]
+        return self.geno.shape[-1] // self.site_valid.shape[1]
 
     @property
     def max_alleles(self) -> int:
@@ -71,14 +74,18 @@ class Dataset(NamedTuple):
 
 def make_dataset(geno: np.ndarray, missing: np.ndarray,
                  n_alleles: Optional[np.ndarray] = None,
+                 distinct: Optional[np.ndarray] = None,
+                 n_distinct: Optional[np.ndarray] = None,
                  device="cpu") -> Dataset:
     """Build a :class:`Dataset` from host arrays.
 
     ``geno`` int[N, L, ploid] with allele codes (missing entries arbitrary),
     ``missing`` bool[N, L] marks loci unobserved for an individual (any copy
     missing drops the whole site, as in get_missing,
-    data_interface.c:826-833).  The panel is built on the host and placed on
-    ``device``; `run_mcmc` moves it to its own device anyway.
+    data_interface.c:826-833).  A tetraploid panel also passes ``distinct``
+    int[N, L, 4] and ``n_distinct`` int[N, L].  The panel is built on the
+    host and placed on ``device``; `run_mcmc` moves it to its own device
+    anyway.
     """
     geno = np.asarray(geno, dtype=np.int32)
     missing = np.asarray(missing, dtype=bool)
@@ -109,6 +116,11 @@ def make_dataset(geno: np.ndarray, missing: np.ndarray,
         site_valid=torch.from_numpy(site_valid),
         allele_valid=torch.from_numpy(allele_valid),
         hom=torch.from_numpy(hom),
+        distinct=(None if distinct is None else torch.from_numpy(
+            np.ascontiguousarray(np.asarray(distinct, np.int32)
+                                 .transpose(0, 2, 1).reshape(n, -1)))),
+        n_distinct=(None if n_distinct is None else torch.from_numpy(
+            np.ascontiguousarray(np.asarray(n_distinct, np.int32)))),
         bits2=bits2,
     ).to(device)
 

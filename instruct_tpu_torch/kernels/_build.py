@@ -64,16 +64,28 @@ _SIGNATURES = {
     "s_pop_tail_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _F, _I, _U, _U, _P, _U, _P],
     # q, freq, bits2, geno, valid, hom, z_in, colv, fvals, u, z, qqnum,
-    # zcounts, ll, ll_part, qq_part, C, N, L, K, A, family, structure, k0, k1,
-    # chain_key, step, stream -- one per source of the site pass
-    **{f"site_{path}_{half}_launch": [_P] * 16 + [_I] * 7 + [_U, _U, _P, _U,
-                                                           _P]
+    # zcounts, ll, ll_part, qq_part, C, N, L, K, A, family, structure,
+    # plane chain stride, k0, k1, chain_key, step, stream -- one per source of
+    # the site pass
+    **{f"site_{path}_{half}_launch": [_P] * 16 + [_I] * 7 + [_L, _U, _U, _P,
+                                                           _U, _P]
        for path in ("packed", "generic") for half in ("sample", "eval")},
-    # z, bits2, geno, valid, counts, C, N, L, K, A, stream
-    "allele_counts_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # q, freq_t, geno, valid, u, z, qqnum, C, N, L, K, A, ploidy, k0, k1,
-    # chain_key, step, stream
-    "zq_sample_launch": [_P] * 7 + [_I] * 6 + [_U, _U, _P, _U, _P],
+    # z, bits2, geno, valid, counts, C, N, L, K, A, plane chain stride,
+    # stream
+    "allele_counts_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P],
+    # q, freq_t, geno, valid, u, z, qqnum, C, N, L, K, A, ploidy, geno chain
+    # stride, k0, k1, chain_key, step, stream
+    "zq_sample_launch": [_P] * 7 + [_I] * 6 + [_L, _U, _U, _P, _U, _P],
+    # table, z, dist, nc, q, freq, freq2, cand_sel, cand_cls, cand_mult,
+    # gumbel, choice, C, N, L, K, A, G, n_cand, autopoly, k0, k1, chain_key,
+    # step, stream
+    "geno_choice_launch": [_P] * 12 + [_I] * 8 + [_U, _U, _P, _U, _P],
+    # tab_cur, tab_prop, lookup, z, geno, valid, part, delta, C, N, L, K, G,
+    # V, n_max, stream
+    "s_delta_launch": [_P] * 8 + [_I] * 7 + [_P],
+    # table, lookup, log_mult, freq, freq2, z, geno, valid, ll, C, N, L, K,
+    # A, G, V, n_max, autopoly, stream
+    "site_ll_launch": [_P] * 9 + [_I] * 9 + [_P],
     # L -> locus tiles per row of the site pass (not a launch)
     "site_pass_tiles": [_I],
 }
@@ -159,6 +171,16 @@ def launch(kernel: str, fn_name: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch "
                            f"(cudaGetLastError = {rc})")
     launches[kernel] += 1
+
+
+def plane_stride(t: torch.Tensor, name: str, c: int, n: int, cols: int,
+                 dtype) -> int:
+    """Chain stride (in elements) of a panel plane that is either shared by
+    the chains, [N, cols] (stride 0), or one per chain, [C, N, cols]; checks
+    it as :func:`check` does."""
+    per_chain = t.dim() == 3
+    check(t, name, dtype, (c, n, cols) if per_chain else (n, cols))
+    return n * cols if per_chain else 0
 
 
 def ptr(t):

@@ -135,12 +135,11 @@ def dirichlet_rows_reference(keys, step: int, stream: int, conc, valid=None,
 
 def dirichlet_kla_reference(keys, step: int, counts_kla, allele_valid=None,
                             *, rounds: int = 3, test_draws=None,
-                            margins=None):
+                            stream: int = px.STREAM_P, margins=None):
     """Plain PyTorch version of :func:`dirichlet_kla` (same signature, plus
     ``margins``)."""
     n_chains, k, l, a = counts_kla.shape
-    u = _planes(keys, step, px.STREAM_P, n_chains, rounds, k * a, l,
-                test_draws)
+    u = _planes(keys, step, stream, n_chains, rounds, k * a, l, test_draws)
     # rows layout [K*A, L] of the planes -> the [K, L, A] layout of counts
     u = u.reshape(-1, n_chains, k, a, l).transpose(3, 4)
     v = None if allele_valid is None else allele_valid[None, None]
@@ -202,16 +201,20 @@ def dirichlet_rows(keys, step: int, stream: int, conc: torch.Tensor,
 
 def dirichlet_kla(keys, step: int, counts_kla: torch.Tensor,
                   allele_valid: Optional[torch.Tensor] = None, *,
-                  rounds: int = 3, test_draws=None):
+                  rounds: int = 3, test_draws=None,
+                  stream: int = px.STREAM_P):
     """P update: counts f32[C, K, L, A] (prior already added), allele_valid
     bool[L, A] -> freq f32[C, K, L, A], one Dirichlet per (chain, pop,
     locus).  ``test_draws`` f32[C, n_test_draws, K*A, L] is in the JAX
-    kernel's row layout (row = k*A + a)."""
+    kernel's row layout (row = k*A + a).  ``stream``: the Philox stream id
+    (the allotetraploid engine's second frequency system draws from
+    ``STREAM_P2``)."""
     if counts_kla.dim() != 4:
         raise ValueError("counts_kla must be [C, K, L, A]")
     if not counts_kla.is_cuda:
         return dirichlet_kla_reference(keys, step, counts_kla, allele_valid,
-                                       rounds=rounds, test_draws=test_draws)
+                                       rounds=rounds, test_draws=test_draws,
+                                       stream=stream)
     c, k, l, a = counts_kla.shape
     _build.check(counts_kla, "counts_kla", torch.float32)
     if allele_valid is not None:
@@ -219,7 +222,7 @@ def dirichlet_kla(keys, step: int, counts_kla: torch.Tensor,
     out = torch.empty_like(counts_kla)
     _launch("dirichlet_kla", counts_kla, allele_valid, test_draws, out,
             c, k, a, l, (k * l * a, l * a, 1, a), (0, 1, a), rounds, keys,
-            step, px.STREAM_P)
+            step, stream)
     return out
 
 

@@ -31,9 +31,12 @@ kernel's biallelic fast path, ``fused_step.py:258-286``).  Any other panel
 runs the generic path: ``cum += q_k * w_k`` with ``w_k = P[k, l, a]`` picked
 by the allele code (:288-299, :374-390).  The two round differently, so
 each path is its own plain version; ``data._replace(bits2=None)`` sends a
-biallelic panel down the generic path.  The generic sampling passes carry
-no allele-pop counts (``zcounts`` is ``None``): the step recounts with
-:func:`allele_counts`, as the JAX step does over its VMEM budget.
+biallelic panel down the generic path.  The panel planes (``bits2`` or
+``geno``) are shared by the chains, or one per chain ([C, N, ...]: the
+tetraploid engine's latent genotype, ``tetra/engine.py``).  The generic
+sampling passes carry no allele-pop counts (``zcounts`` is ``None``): the
+step recounts with :func:`allele_counts`, as the JAX step does over its VMEM
+budget.
 
 Chains are a written-out leading axis ``C`` on every state tensor; the panel
 tensors carry none.  On CUDA tensors the wrappers launch the kernels of
@@ -94,9 +97,10 @@ def allele_counts_reference(z, geno, site_valid, *, n_pops: int,
     l = s // 2
     valid = site_valid[None]
     out = z.new_zeros((c, n_pops, l, max_alleles), dtype=torch.float32)
+    geno = geno if geno.dim() == 3 else geno[None]
     for copy in range(2):
         zc = z[:, :, copy * l:(copy + 1) * l]
-        gc = geno[None, :, copy * l:(copy + 1) * l]
+        gc = geno[:, :, copy * l:(copy + 1) * l]
         for k in range(n_pops):
             zm = valid & (zc == k)
             for a in range(max_alleles):
@@ -111,8 +115,9 @@ def allele_counts(z: torch.Tensor, geno: torch.Tensor,
     """counts f32[C, K, L, A] of valid allele copies per (chain, pop, locus,
     allele).
 
-    z int8[C, N, 2L] copy-major; geno int8[N, 2L]; site_valid bool[N, L];
-    ``bits2`` int8[N, L], when given (packed biallelic panel), is read in
+    z int8[C, N, 2L] copy-major; geno int8[N, 2L] (or [C, N, 2L], one per
+    chain); site_valid bool[N, L]; ``bits2`` int8[N, L] (or [C, N, L]), when
+    given (packed biallelic panel), is read in
     place of geno and site_valid by the kernel, as long as the K * A cells of
     a locus fit a thread's private table (<= 64); beyond that the kernel
     reads the allele codes and adds to the counts directly.
@@ -127,11 +132,11 @@ def allele_counts(z: torch.Tensor, geno: torch.Tensor,
     _build.check(z, "z", torch.int8, (c, n, 2 * l))
     wide = n_pops * max_alleles > 64
     if bits2 is not None and max_alleles == 2 and not wide:
-        _build.check(bits2, "bits2", torch.int8, (n, l))
+        plane_cs = _build.plane_stride(bits2, "bits2", c, n, l, torch.int8)
         geno = site_valid = None
     else:
         bits2 = None
-        _build.check(geno, "geno", torch.int8, (n, 2 * l))
+        plane_cs = _build.plane_stride(geno, "geno", c, n, 2 * l, torch.int8)
         _build.check(site_valid, "site_valid", torch.bool, (n, l))
     counts = torch.empty((c, n_pops, l, max_alleles), dtype=torch.float32,
                          device=z.device)
@@ -139,7 +144,8 @@ def allele_counts(z: torch.Tensor, geno: torch.Tensor,
     # the wide table is another kernel of the source: counted apart
     _build.launch("allele_counts_wide" if wide else "allele_counts",
                   "allele_counts_launch", p(z), p(bits2), p(geno),
-                  p(site_valid), p(counts), c, n, l, n_pops, max_alleles)
+                  p(site_valid), p(counts), c, n, l, n_pops, max_alleles,
+                  plane_cs)
     return counts
 
 
@@ -179,10 +185,12 @@ def _site_pass_reference(keys, step, q, freq, data: Dataset, z_in, colv,
     if packed:
         g0, g1, valid, hom = unpack_bits2(data.bits2)
     else:
-        g0 = data.geno[:, :l].to(torch.int64)
-        g1 = data.geno[:, l:].to(torch.int64)
+        g0 = data.geno[..., :l].to(torch.int64)
+        g1 = data.geno[..., l:].to(torch.int64)
         valid, hom = data.site_valid, data.hom
-    g0, g1, valid, hom = g0[None], g1[None], valid[None], hom[None]
+    # a shared panel plane gets the chain axis; a per-chain one has it
+    g0, g1, valid, hom = [t if t.dim() == 3 else t[None]
+                          for t in (g0, g1, valid, hom)]
     vf = valid.to(torch.float32)
     gen_fam = ll_kind in ("gen", "gendiff")
     mix = gen_fam and not structure      # expectation way: the Q mixture
@@ -362,10 +370,12 @@ def _site_pass(name: str, keys, step, q, freq, data: Dataset, z_in, colv,
     if q is not None:
         chk(q, "q", torch.float32, (c, n, k))
     if packed:
-        chk(data.bits2, "bits2", torch.int8, (n, l))
+        plane_cs = _build.plane_stride(data.bits2, "bits2", c, n, l,
+                                       torch.int8)
         planes = (data.bits2, None, None, None)
     else:
-        chk(data.geno, "geno", torch.int8, (n, 2 * l))
+        plane_cs = _build.plane_stride(data.geno, "geno", c, n, 2 * l,
+                                       torch.int8)
         chk(data.site_valid, "site_valid", torch.bool, (n, l))
         chk(data.hom, "hom", torch.bool, (n, l))
         planes = (None, data.geno, data.site_valid, data.hom)
@@ -401,7 +411,7 @@ def _site_pass(name: str, keys, step, q, freq, data: Dataset, z_in, colv,
     _build.launch(name if packed else name + "_generic", fn, p(q), p(freq),
                   *[p(x) for x in planes], p(z_in), p(colv), p(fvals), p(u),
                   p(z), p(qqnum), p(zcounts), p(ll), p(ll_part), p(qq_part),
-                  c, n, l, k, a, _FAMILY[ll_kind], int(structure),
+                  c, n, l, k, a, _FAMILY[ll_kind], int(structure), plane_cs,
                   keys.k0 if sample else 0, keys.k1 if sample else 0,
                   p(chain_key), step if sample else 0)
     return res

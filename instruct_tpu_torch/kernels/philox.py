@@ -47,6 +47,12 @@ STREAM_G_ACC = 12   # log-uniforms of the G accept
 STREAM_R_FRESH = 13  # adaptive-independence sampler: the fresh U(0, 1) value
 STREAM_HYPER = 14   # normal prior: the conjugate (mu, sigma^2) draw
 STREAM_ZZ = 15      # mode 0: one z per individual
+STREAM_GENO = 16    # tetraploid latent-genotype move: the Gumbel noise
+STREAM_P2 = 17      # tetraploid (allo): Dirichlet draw of the second
+#                     subgenome's allele frequencies
+# The initial state of the tetraploid engine draws at step INIT_STEP, a step
+# index no sweep reaches, from the streams of the sweep's same draws
+INIT_STEP = 0xFFFFFFFF
 
 
 class RngKeys(NamedTuple):

@@ -46,7 +46,10 @@ def _shapes(q, freq, geno, site_valid, n_pops, u):
     if q.dim() != 3 or freq.dim() != 4:
         raise ValueError("q must be [C, N, K] and freq [C, K, L, A]")
     c, k, l, a = freq.shape
-    n, s = geno.shape
+    n, s = geno.shape[-2:]
+    if geno.dim() == 3 and geno.shape[0] != c:
+        raise ValueError(f"geno {tuple(geno.shape)}: one plane per chain "
+                         f"expected, C = {c}")
     if k != n_pops or tuple(q.shape) != (c, n, k):
         raise ValueError(f"q {tuple(q.shape)} and freq {tuple(freq.shape)} "
                          f"do not fit n_pops = {n_pops} and N = {n}")
@@ -73,12 +76,13 @@ def zq_sample_counts_reference(keys, step: int, q, freq, geno, site_valid, *,
     u = u.to(torch.float32)
     valid = site_valid[None]
     qc = [q[:, :, kk][:, :, None] for kk in range(k)]
+    geno = geno if geno.dim() == 3 else geno[None]
     zs = []
     qqnum = torch.zeros((c, n, k), dtype=torch.float32, device=freq.device)
     for copy in range(p):
-        code = geno[:, copy * l:(copy + 1) * l].to(torch.int64)
-        ok = ((code >= 0) & (code < a))[None]
-        idx = code.clamp(0, a - 1)[None, :, :, None].expand(c, n, l, 1)
+        code = geno[:, :, copy * l:(copy + 1) * l].to(torch.int64)
+        ok = (code >= 0) & (code < a)
+        idx = code.clamp(0, a - 1)[:, :, :, None].expand(c, n, l, 1)
         terms = []
         for kk in range(k):
             w = torch.gather(freq[:, kk][:, None].expand(c, n, l, a), 3,
@@ -108,7 +112,8 @@ def zq_sample_counts(keys, step: int, q: torch.Tensor, freq: torch.Tensor,
     keys        RngKeys (seed + per-chain keys); step  the step index
     q           f32[C, N, K]     admixture proportions
     freq        f32[C, K, L, A]  allele frequencies
-    geno        int8[N, S]       allele codes, copy-major, S = ploidy * L
+    geno        int8[N, S]       allele codes, copy-major, S = ploidy * L,
+                                 or int8[C, N, S], one plane per chain
     site_valid  bool[N, L]
     u           optional f32[C, N, S] injected uniforms
 
@@ -126,7 +131,7 @@ def zq_sample_counts(keys, step: int, q: torch.Tensor, freq: torch.Tensor,
     chk = _build.check
     chk(q, "q", torch.float32, (c, n, k))
     chk(freq, "freq", torch.float32, (c, k, l, a))
-    chk(geno, "geno", torch.int8, (n, s))
+    geno_cs = _build.plane_stride(geno, "geno", c, n, s, torch.int8)
     chk(site_valid, "site_valid", torch.bool, (n, l))
     chk(keys.chain_key, "chain_key", torch.int32, (c,))
     if u is not None:
@@ -138,5 +143,5 @@ def zq_sample_counts(keys, step: int, q: torch.Tensor, freq: torch.Tensor,
     freq_t = freq.permute(0, 2, 3, 1).contiguous()
     _build.launch("zq_sample_counts", "zq_sample_launch", p(q), p(freq_t),
                   p(geno), p(site_valid), p(u), p(z), p(qqnum), c, n, l, k, a,
-                  s // l, keys.k0, keys.k1, p(keys.chain_key), step)
+                  s // l, geno_cs, keys.k0, keys.k1, p(keys.chain_key), step)
     return z, qqnum

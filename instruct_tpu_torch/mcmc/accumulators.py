@@ -40,7 +40,8 @@ class TrackedStats(NamedTuple):
     #   constant between refreshes (repeats weight the subsample uniformly).
     #   mean -> the E[logL] term of the corrected DIC; the centered
     #   accumulator below -> WAIC's pwaic.
-    freq2: torch.Tensor      # f32[C, 0] (allotetraploid only; not ported)
+    freq2: torch.Tensor      # f32[C, K, L, A] allotetraploid with
+    #   track_freq (the second subgenome's P), else f32[C, 0]
 
 
 class ChainAccum(NamedTuple):
@@ -69,7 +70,7 @@ def extract_stats(spec: ModelSpec, state: McmcState, track_freq: bool
     empty = torch.zeros((c, 0), dtype=torch.float32, device=state.q.device)
     gen = state.gen.to(torch.float32) if spec.has_selfing else empty
     q = state.q
-    if spec.mode == 0:
+    if spec.mode == 0 and spec.ploid == 2:
         # no admixture: each individual's Q row is the indicator of its pop
         q = torch.nn.functional.one_hot(state.zz.to(torch.int64),
                                         spec.n_pops).to(torch.float32)
@@ -82,8 +83,12 @@ def extract_stats(spec: ModelSpec, state: McmcState, track_freq: bool
         freq=state.freq if track_freq else empty,
         ll_marg=(state.loglik_marg if state.loglik_marg is not None
                  else empty),
-        freq2=empty,
+        freq2=state.freq2 if _track_freq2(spec, track_freq) else empty,
     )
+
+
+def _track_freq2(spec: ModelSpec, track_freq: bool) -> bool:
+    return track_freq and spec.ploid == 4 and not spec.autopoly
 
 
 def init_accum(spec: ModelSpec, sched: Schedule, data: Dataset,
@@ -101,7 +106,9 @@ def init_accum(spec: ModelSpec, sched: Schedule, data: Dataset,
             total_ll=z(c), indv_ll=z(c, n), q=z(c, n, k), rates=z(c, r),
             gen=z(c, n if spec.has_selfing else 0),
             freq=z(c, k, l, a) if track_freq else z(c, 0),
-            ll_marg=z(c, n), freq2=z(c, 0))
+            ll_marg=z(c, n),
+            freq2=(z(c, k, l, a) if _track_freq2(spec, track_freq)
+                   else z(c, 0)))
 
     return ChainAccum(
         count=torch.zeros((c,), dtype=torch.int32, device=device),

@@ -39,6 +39,7 @@ from instruct_tpu_torch.mcmc.state import McmcState, init_state
 from instruct_tpu_torch.mcmc.step import (build_marg_loglik,
                                           build_step_parts, check_supported)
 from instruct_tpu_torch.model import likelihood as lk
+from instruct_tpu_torch.tetra import engine as te
 
 
 def _np(x) -> np.ndarray:
@@ -142,17 +143,20 @@ def unhealthy_flags(state: McmcState, accum: ChainAccum) -> np.ndarray:
 
 
 def _run_chains(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
-                chain_key, init_rates, track_freq: bool, device):
+                chain_key, init_rates, track_freq: bool, device,
+                tetra_tables=None):
     """One attempt: initialise all chains and run the whole schedule."""
     n_chains = sched.n_chains
     keys = px.make_keys(seed, n_chains, device, chain_key=chain_key)
     state = init_state(seed, spec, data, n_chains, init_rates, device,
-                       chain_key=chain_key)
+                       chain_key=chain_key, tetra_tables=tetra_tables)
     accum = init_accum(spec, sched, data, track_freq, n_chains, device)
-    step_core, add_loglik = build_step_parts(spec, data)
-    add_marg = build_marg_loglik(spec, data)
-    # mode 0 has no Q to run empty: the guard never latches (mcmc.c:111-115)
-    check_at = -1 if spec.mode == 0 else sched.nstep_check_empty_cluster
+    step_core, add_loglik = build_step_parts(spec, data, tetra_tables)
+    add_marg = build_marg_loglik(spec, data, tetra_tables)
+    # diploid mode 0 has no Q to run empty: the guard never latches
+    # (mcmc.c:111-115); the tetraploid engine always has one
+    check_at = (-1 if (spec.mode == 0 and spec.ploid == 2)
+                else sched.nstep_check_empty_cluster)
     last = sched.n_iter - 1
     for i in range(sched.n_iter):
         state = step_core(state, keys, i)
@@ -183,7 +187,8 @@ def run_mcmc(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
     are bitwise equal.  ``init_rates`` optionally gives per-chain initial S
     or F vectors [n_chains, R], R = ``spec.n_rates(N)`` (the role of the
     ``-i`` initial file, initial.c:38-126); otherwise each chain draws
-    U(0, 1) starts.
+    U(0, 1) starts.  ``spec.ploid == 4`` runs the tetraploid engine
+    (``tetra/engine.py``) on a panel with ``distinct`` / ``n_distinct``.
     """
     check_supported(spec, data)
     dev = torch.device(device)
@@ -192,9 +197,11 @@ def run_mcmc(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
     if init_rates is not None:
         init_rates = np.asarray(init_rates, np.float32).reshape(n_chains, -1)
 
+    # the tetraploid engine's data-only tables, built once per run
+    tables = te.build_tables(spec, data) if spec.ploid == 4 else None
     chain_key = list(range(n_chains))
     state, accum = _run_chains(data, spec, sched, seed, chain_key,
-                               init_rates, track_freq, dev)
+                               init_rates, track_freq, dev, tables)
     retries = 0
     flags = unhealthy_flags(state, accum)
     while flags.any() and retries < max_retries:
@@ -203,7 +210,7 @@ def run_mcmc(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
         chain_key = [10_000 * retries + c if flags[c] else chain_key[c]
                      for c in range(n_chains)]
         state, accum = _run_chains(data, spec, sched, seed, chain_key,
-                                   init_rates, track_freq, dev)
+                                   init_rates, track_freq, dev, tables)
         flags = unhealthy_flags(state, accum)
     if flags.any():
         print(f"[instruct_tpu_torch] WARNING: {int(flags.sum())} chain(s) "
@@ -212,7 +219,10 @@ def run_mcmc(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
               flush=True)
 
     plugin_ll = None
-    if track_freq:
+    if track_freq and spec.ploid == 4:
+        plugin_ll = _np(te.plugin_loglik(spec, data, accum.mean, state,
+                                         tables))
+    elif track_freq:
         plugin_ll = _plugin_loglik(spec, data, accum)
     return RunResult(accum=accum, final_state=state, n_retries=retries,
                      plugin_ll=plugin_ll)

@@ -90,7 +90,8 @@ def chain_generator(seed: int, chain_key: int, device) -> torch.Generator:
 
 def init_state(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
                init_rates=None, device="cuda",
-               chain_key: Optional[Sequence[int]] = None) -> McmcState:
+               chain_key: Optional[Sequence[int]] = None,
+               tetra_tables=None) -> McmcState:
     """Draw the initial state of ``n_chains`` chains on ``device``.
 
     Mirrors the per-mode initialisation of the JAX package
@@ -104,15 +105,20 @@ def init_state(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
     z and q, alpha 0 and no ``zcounts``; elsewhere ``state.zcounts`` is
     seeded with the :func:`allele_counts` kernel.
     ``chain_key`` gives one integer key per chain (default ``range(C)``).
+    Ploidy 4 runs the tetraploid engine's initialisation
+    (``tetra/engine.py:init_tetra_state``, with the run's ``tetra_tables``
+    when given).
     """
     from instruct_tpu_torch.kernels.fused_step import allele_counts
     from instruct_tpu_torch.mcmc import updates as up
 
+    if spec.ploid == 4:
+        from instruct_tpu_torch.tetra.engine import init_tetra_state
+        return init_tetra_state(seed, spec, data, n_chains, init_rates,
+                                device, chain_key, tetra_tables)
     if spec.ploid != 2 or spec.mode not in (0, 1, 2, 3, 4, 5):
-        raise NotImplementedError(
-            f"init_state is ported for the diploid modes 0-5 (got mode "
-            f"{spec.mode}, ploid {spec.ploid}); the tetraploid engine is "
-            "still to be ported (ROADMAP: K5-K7 with the tetraploid engine)")
+        raise ValueError(f"init_state: no model with mode {spec.mode} and "
+                         f"ploidy {spec.ploid}")
     dev = torch.device(device)
     data = data.to(dev)
     c = n_chains

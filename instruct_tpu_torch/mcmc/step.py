@@ -1,4 +1,5 @@
-"""Composition of the update kernels into one MCMC sweep (modes 0-5).
+"""Composition of the update kernels into one MCMC sweep (modes 0-5, and
+the tetraploid engine's sweep, ``tetra/engine.py``).
 
 Counterpart of ``instruct_tpu/mcmc/step.py``: ``_use_fused`` (:102 there),
 ``_build_fused_parts`` (:122-356), the unfused step and ``_cal_lkh``
@@ -65,6 +66,7 @@ from instruct_tpu_torch.kernels.s_pop import s_pop_tail
 from instruct_tpu_torch.mcmc import updates as up
 from instruct_tpu_torch.mcmc.state import McmcState
 from instruct_tpu_torch.model import likelihood as lk
+from instruct_tpu_torch.tetra import engine as te
 
 
 class StepDraws(NamedTuple):
@@ -85,6 +87,13 @@ class StepDraws(NamedTuple):
     hyper: Optional[torch.Tensor] = None  # f32[C, n_hyper_draws()], the
     #   normal prior's (mu, sigma^2) draw (modes 3/5)
     zz: Optional[torch.Tensor] = None     # f32[C, N], mode 0's z draw
+    # the tetraploid engine (tetra/engine.py) also reads p (system 1, or
+    # every slot when autopoly), s = (u_prop, u_acc[, fresh]) f32[C, J, K],
+    # z f32[C, N, 4L] (copy-major), q, alpha and:
+    p2: Optional[torch.Tensor] = None     # f32[C, n_test_draws, K*A, L],
+    #   the allotetraploid second system's P draw
+    geno: Optional[torch.Tensor] = None   # f32[C, n_cand, N, L] Gumbel noise
+    #   of the latent-genotype move
 
 
 class _Tail(NamedTuple):
@@ -106,12 +115,24 @@ def check_supported(spec: ModelSpec, data: Dataset) -> None:
         raise NotImplementedError(
             f"instruct_tpu_torch: {what} is still to be ported "
             f"(ROADMAP: {item})")
-    if spec.ploid != 2:
-        no(f"ploidy {spec.ploid}", "K5-K7 with the tetraploid engine")
+    if spec.ploid not in (2, 4):
+        raise ValueError(f"ploidy {spec.ploid}: the models are diploid or "
+                         "tetraploid")
     if spec.mode not in (0, 1, 2, 3, 4, 5):
         raise ValueError(f"unknown mode {spec.mode}")
     if spec.priors.family == PriorFamily.DPM:
         no("the dpm prior", "the DPM prior")
+    if spec.ploid == 4:
+        # the tetraploid engine has per-pop selfing rates in every mode
+        # (JAX mcmc/step.py:390-398)
+        if spec.marginalize_g:
+            raise ValueError("marginalize_g applies to the diploid selfing "
+                             "modes 2/3 (the only modes with generation "
+                             "latents)")
+        if data.distinct is None or data.n_distinct is None:
+            raise ValueError("the tetraploid engine needs Dataset.distinct "
+                             "/ n_distinct (build the panel with ploid 4)")
+        return
     if spec.marginalize_g:
         no("marginalize_g", "marg_g")
 
@@ -119,7 +140,10 @@ def check_supported(spec: ModelSpec, data: Dataset) -> None:
 def use_fused(spec: ModelSpec, data: Dataset) -> bool:
     """Whether the spec runs the fused sweep: diploid modes 1-5 within the
     site pass's bounds (K <= 8, K*A <= 64) unless ``use_pallas`` is False.
-    Everything else runs the unfused sweep."""
+    Everything else runs the unfused sweep.  The tetraploid engine has its
+    own gate (``tetra/engine.py:tetra_use_fused``: K <= 8, K*A <= 64)."""
+    if spec.ploid == 4:
+        return te.tetra_use_fused(spec, data)
     return (spec.use_pallas is not False and spec.ploid == 2
             and spec.mode in (1, 2, 3, 4, 5)
             and spec.n_pops <= fs.MAX_POPS
@@ -384,9 +408,10 @@ def _build_unfused_parts(spec: ModelSpec, data: Dataset):
     return step, add_loglik
 
 
-def build_step_parts(spec: ModelSpec, data: Dataset):
+def build_step_parts(spec: ModelSpec, data: Dataset, tetra_tables=None):
     """Return ``(step_core, add_loglik)`` for the sweep the spec selects
-    (:func:`use_fused`).
+    (:func:`use_fused`; ploidy 4: ``tetra/engine.py:build_tetra_step``,
+    with the run's ``tetra_tables`` when given).
 
     ``step_core(state, keys, step_idx, draws=None)`` runs the full
     parameter sweep of all chains; ``add_loglik(state)`` fills
@@ -396,19 +421,24 @@ def build_step_parts(spec: ModelSpec, data: Dataset):
     ``data`` must live on the device of the state.
     """
     check_supported(spec, data)
+    if spec.ploid == 4:
+        return te.build_tetra_step(spec, data, tetra_tables)
     if use_fused(spec, data):
         return _build_fused_parts(spec, data)
     return _build_unfused_parts(spec, data)
 
 
-def build_marg_loglik(spec: ModelSpec, data: Dataset):
+def build_marg_loglik(spec: ModelSpec, data: Dataset, tetra_tables=None):
     """``add_marg(state) -> state`` filling ``state.loglik_marg`` with the
     Z-marginalized per-individual log-likelihood that feeds WAIC and the
     corrected DIC: ``model/likelihood.py:marginal_site_loglik`` in modes
-    1-5, the uniform mixture over the K single-pop log-liks in mode 0.
-    ``run_mcmc`` calls it only every ``Schedule.dic_every``-th stored
-    step."""
+    1-5, the uniform mixture over the K single-pop log-liks in mode 0, the
+    (z, geno)-conditional log-lik of the tetraploid engine
+    (``tetra/engine.py:build_marg_loglik``).  ``run_mcmc`` calls it only
+    every ``Schedule.dic_every``-th stored step."""
     check_supported(spec, data)
+    if spec.ploid == 4:
+        return te.build_marg_loglik(spec, data, tetra_tables)
 
     def add_marg(state: McmcState) -> McmcState:
         if spec.mode == 0:

@@ -28,11 +28,11 @@ _EPS = 1e-30  # guards log(0) for Dirichlet draws that underflow
 
 def _need_admixture(spec: ModelSpec, what: str) -> None:
     if spec.ploid != 2 or spec.mode not in (1, 2, 3, 4, 5):
-        raise NotImplementedError(
-            f"{what} is ported for the diploid modes 1-5 (got mode "
+        raise ValueError(
+            f"{what} is the log-lik of the diploid modes 1-5 (got mode "
             f"{spec.mode}, ploid {spec.ploid}); mode 0 has its own matrix, "
-            "loglik_matrix_nopop_admix, and the tetraploid engine is still "
-            "to be ported (ROADMAP: K5-K7 with the tetraploid engine)")
+            "loglik_matrix_nopop_admix, and the tetraploid engine its own "
+            "site log-lik, tetra/engine.py:site_indv_loglik")
 
 
 def genofreq_selfing(p0, p1, hom, gen):

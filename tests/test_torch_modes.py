@@ -297,8 +297,11 @@ def test_tail_uniform_streams_are_disjoint_and_reproducible():
     (dict(mode=1, priors=Priors(family=PriorFamily.DPM)), "dpm prior",
      "the DPM prior"),
     (dict(mode=3, marginalize_g=True), "marginalize_g", "marg_g"),
-    (dict(mode=0, ploid=4), "ploidy 4", "tetraploid engine"),
-    (dict(mode=5, ploid=4), "ploidy 4", "K5-K7"),
+    # ploidy 4 runs (tests/test_torch_tetra.py); its DPM prior does not
+    (dict(mode=0, ploid=4, priors=Priors(family=PriorFamily.DPM)),
+     "dpm prior", "the DPM prior"),
+    (dict(mode=5, ploid=4, priors=Priors(family=PriorFamily.DPM)),
+     "dpm prior", "the DPM prior"),
 ])
 def test_what_is_left_still_raises(kwargs, what, item):
     """Each refusal names what is refused and its ROADMAP item."""
@@ -307,9 +310,6 @@ def test_what_is_left_still_raises(kwargs, what, item):
     with pytest.raises(NotImplementedError, match="ROADMAP") as e:
         step_mod.check_supported(spec, data)
     assert what in str(e.value) and item in str(e.value)
-    if spec.ploid == 4:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_state(0, spec, data, 1, device="cpu")
     with pytest.raises(NotImplementedError, match="kselect"):
         tup.update_alpha(None, 0, spec, None, None, active=torch.ones(2))
 

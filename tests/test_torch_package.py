@@ -74,7 +74,8 @@ def test_exports_and_defaults():
 @pytest.mark.parametrize("kwargs,what", [
     (dict(mode=3, marginalize_g=True), "marginalize_g"),
     (dict(mode=5, priors=Priors(family=PriorFamily.DPM)), "dpm prior"),
-    (dict(mode=2, ploid=4), "ploidy 4"),
+    (dict(mode=2, ploid=4, priors=Priors(family=PriorFamily.DPM)),
+     "dpm prior"),
     (dict(mode=2, marginalize_g=True), "marginalize_g"),
     (dict(mode=2, priors=Priors(family=PriorFamily.DPM)), "dpm prior"),
 ])
