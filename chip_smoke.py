@@ -17,7 +17,8 @@ that panel and in every mode on the A = 8 panel (the fused sweep); the
 unfused sweep in mode 2 and modes 1, 3, 4, 5 on the wide panel, mode 0,
 ``use_pallas=False``, K = 12, and the fused sweep under the normal prior and
 the adaptive-independence proposal; the tetraploid engine, auto and allo, and
-its plain S path, adaptive proposal and unfused sweep -- and checks that each
+its four-subsweep S update, adaptive proposal, unfused sweep and a panel of
+wide class tables (A = 8, K * G = 1320) -- and checks that each
 went through its kernels, that its output is sane and that two runs from one
 seed are bitwise equal.
 Every phase prints one JSON line; any failure raises, so the exit code is
@@ -1469,12 +1470,13 @@ def views_agree(tag, x):
     k = spec.n_pops
     view = te.view_dataset(spec, d, x["geno"])
     f2l = te.freq_2l(spec, x["freq"], x["freq2"])
-    got = fs.zq_sample_pass(keys, 5, x["q"], f2l, view)
-    want = fs.zq_sample_pass_reference(keys, 5, x["q"], f2l, view)
-    for nm, a_, b_ in zip(("z", "qqnum"), got[:2], want[:2]):
-        if not torch.equal(a_, b_):
-            raise AssertionError(f"{tag}: zq_sample_pass on the view: {nm} "
-                                 "differs from the plain version")
+    if te.tetra_use_fused(spec, d):
+        got = fs.zq_sample_pass(keys, 5, x["q"], f2l, view)
+        want = fs.zq_sample_pass_reference(keys, 5, x["q"], f2l, view)
+        for nm, a_, b_ in zip(("z", "qqnum"), got[:2], want[:2]):
+            if not torch.equal(a_, b_):
+                raise AssertionError(f"{tag}: zq_sample_pass on the view: "
+                                     f"{nm} differs from the plain version")
     kw = dict(n_pops=k, max_alleles=d.max_alleles)
     zv, gv = te.diploid_view(spec, x["z"]), te.diploid_view(spec, x["geno"])
     v2 = d.site_valid.repeat(1, 2)
@@ -1610,9 +1612,11 @@ def check_tetra_kernels(panels) -> list:
 def tetra_edge_shapes() -> None:
     """K5-K7 and the view launches at small ragged shapes: N = 1, L not a
     multiple of the block, missing sites, K = 1..5, A = 2, 3, auto and
-    allo."""
+    allo; wide class tables (A = 8: K * G = 1320 auto, 5184 allo) and
+    K = 10 (two pop groups of K6), which only the unfused sweep runs."""
     cases = [(1, 1, 37, 2, 2), (2, 33, 258, 3, 3), (1, 7, 1, 1, 2),
-             (2, 50, 301, 5, 3), (3, 19, 130, 4, 2)]
+             (2, 50, 301, 5, 3), (3, 19, 130, 4, 2), (2, 9, 40, 4, 8),
+             (2, 11, 70, 10, 3)]
     for c, n, l, k, a in cases:
         for auto in (True, False):
             panel = tetra_panel(auto, n=n, l=l, k=k, a=a, missing=0.15,
@@ -1630,30 +1634,25 @@ def tetra_edge_shapes() -> None:
 
 def tetra_expected_launches(spec, data, steps, evals, margs, attempts):
     """Launches per kernel that ``run_mcmc``'s schedule predicts for the
-    tetraploid engine."""
+    tetraploid engine (with ``track_freq``: one plug-in log-lik).  Both
+    sweeps run K5, K6 (once per S subsweep) and K7."""
     auto = bool(spec.autopoly)
     mode = "auto" if auto else "allo"
-    fused = te.tetra_use_fused(spec, data)
-    kernels = fused and spec.n_pops * te.build_tables(
-        spec, data, with_candidates=False).g_max <= te.MAX_TABLE_CELLS
-    n_sweeps = max(1, spec.s_subsweeps)
-    # S tail + alpha per sweep; the plain move's Gumbel planes; the initial
-    # state's geno, z, alpha and S words
+    # S tail + alpha per sweep; the initial state's geno, z, alpha and S
+    # words
     want = {"allele_counts" if spec.n_pops * data.max_alleles <= 64
             else "allele_counts_wide": steps,
             "dirichlet_kla": steps * (1 if auto else 2),
             "dirichlet_nk": steps + attempts,
-            "philox_words": steps * (2 + int(not kernels)) + 4 * attempts}
-    if fused:
+            "philox_words": steps * 2 + 4 * attempts,
+            f"geno_choice_pass_{mode}": steps,
+            f"site_ll_pass_{mode}": evals + margs + 1,
+            "s_delta_pass": steps * max(1, spec.s_subsweeps)}
+    if te.tetra_use_fused(spec, data):
         want["site_pass_sample" + ("" if data.max_alleles == 2
                                    else "_generic")] = steps
     else:
         want["zq_sample_counts"] = steps
-    if kernels:
-        want[f"geno_choice_pass_{mode}"] = steps
-        want[f"site_ll_pass_{mode}"] = evals + margs
-        if n_sweeps == 1:
-            want["s_delta_pass"] = steps
     return want
 
 
@@ -1753,7 +1752,8 @@ def drive_tetra(tag, panel, spec, n_iter, smi, profile_sweeps=100,
     torch.cuda.synchronize()
     _build.reset_launches()
     t0 = time.time()
-    res = run_mcmc(panel.data, spec, sched, RUN_SEED, device="cuda")
+    res = run_mcmc(panel.data, spec, sched, RUN_SEED, track_freq=True,
+                   device="cuda")
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {name: int(cnt) for name, cnt in _build.launches.items()}
@@ -1793,11 +1793,13 @@ def drive_tetra(tag, panel, spec, n_iter, smi, profile_sweeps=100,
         "retries not exhausted": res.n_retries < 10,
         "waic finite": res.waic() is not None and bool(
             np.isfinite(res.waic()).all()),
+        "plug-in log-lik finite": bool(np.isfinite(res.plugin_ll).all()),
     }
     bad = [name for name, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"{tag}: failed checks {bad}")
-    res2 = run_mcmc(panel.data, spec, sched, RUN_SEED, device="cuda")
+    res2 = run_mcmc(panel.data, spec, sched, RUN_SEED, track_freq=True,
+                    device="cuda")
     f2 = res2.final_state
     same = (torch.equal(st.z, f2.z) and torch.equal(st.geno, f2.geno)
             and torch.equal(st.freq, f2.freq)
@@ -1830,10 +1832,11 @@ def drive_tetra(tag, panel, spec, n_iter, smi, profile_sweeps=100,
 def phase_tetra(panels, smi: str) -> dict:
     """The tetraploid engine through ``run_mcmc`` at full width, auto and
     allo (the main path of this engine: the fused sweep with K5, K6, K7);
-    shorter: the plain S path (``s_subsweeps=4``), the adaptive-independence
-    proposal (``back_refl=0``) and the unfused sweep (``use_pallas=False``,
-    through K8).  Returns launches by kernel entry, each from the path that
-    runs it."""
+    shorter: four S subsweeps (``s_subsweeps=4``, K6 in each), the
+    adaptive-independence proposal (``back_refl=0``), the unfused sweep
+    (``use_pallas=False``, through K8) and an A = 8 panel whose class table
+    rows are K * G = 1320 floats.  Returns launches by kernel entry, each
+    from the path that runs it."""
     agreement = {}
     for auto in (True, False):
         mode = "auto" if auto else "allo"
@@ -1856,7 +1859,7 @@ def phase_tetra(panels, smi: str) -> dict:
         if not auto:
             launches["s_delta_pass"] = got["s_delta_pass"]
     short = dict(n_iter=UNFUSED_ITER, smi=smi, profile_sweeps=30, n_prof=10)
-    drive_tetra("tetra: auto, s_subsweeps=4 (plain S path)", panels[True],
+    drive_tetra("tetra: auto, s_subsweeps=4", panels[True],
                 ModelSpec(mode=2, ploid=4, n_pops=N_POPS, s_subsweeps=4),
                 **short)
     drive_tetra("tetra: allo, back_refl=0", panels[False],
@@ -1867,6 +1870,9 @@ def phase_tetra(panels, smi: str) -> dict:
         drive_tetra(f"tetra: {mode}, use_pallas=False (unfused, K8)", panel,
                     ModelSpec(mode=2, ploid=4, n_pops=N_POPS, autopoly=auto,
                               use_pallas=False), **short)
+    drive_tetra("tetra: auto, A = 8, K = 4 (K * G = 1320)",
+                tetra_panel(True, l=TETRA_LOCI // 5, k=4, a=8),
+                ModelSpec(mode=2, ploid=4, n_pops=4), **short)
     return launches
 
 

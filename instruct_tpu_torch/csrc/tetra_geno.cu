@@ -42,7 +42,9 @@
 //     each thread adds its loci in order, a warp butterfly, the block's 8
 //     warp partials in order; s_delta's per-row partials are then added over
 //     the rows in order by a second small kernel.  Two runs are bitwise
-//     equal.
+//     equal.  An s_delta block keeps the sums of a group of up to 8 pops
+//     (grid z: the groups), so any K runs; geno_choice keeps the row's K
+//     admixture proportions in dynamic shared memory.
 // The source is compiled without FMA contraction, so the mixtures and the
 // weights round as in the plain PyTorch versions (kernels/tetra_geno.py).
 #include "philox.cuh"
@@ -51,7 +53,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxPops = 8;
+constexpr int kMaxPops = 127;  // z is int8
+constexpr int kPopGroup = 8;  // pops per s_delta block
 constexpr int kMaxCand = 12;
 constexpr float kEps = 1e-30f;
 constexpr float kNeg = -1e30f;
@@ -106,9 +109,9 @@ __global__ void __launch_bounds__(kThreads) geno_choice_kernel(
     const GenoArgs a) {
   const int n = blockIdx.x, c = blockIdx.y;
   const int N = a.N, L = a.L, K = a.K, A = a.A, G = a.G;
-  __shared__ float qs[kMaxPops];
-  if (threadIdx.x < K)
-    qs[threadIdx.x] = a.q[((long long)c * N + n) * K + threadIdx.x];
+  extern __shared__ float qs[];  // [K]
+  for (int k = threadIdx.x; k < K; k += kThreads)
+    qs[k] = a.q[((long long)c * N + n) * K + k];
   __syncthreads();
   const uint32_t chain = (uint32_t)a.chain_key[c];
   const long long NL = (long long)N * L;
@@ -194,19 +197,20 @@ struct SDeltaArgs {
 
 __global__ void __launch_bounds__(kThreads) s_delta_kernel(
     const SDeltaArgs a) {
-  const int n = blockIdx.x, c = blockIdx.y;
+  const int n = blockIdx.x, c = blockIdx.y, k0 = blockIdx.z * kPopGroup;
   const int N = a.N, L = a.L, K = a.K, G = a.G, nm = a.n_max;
-  __shared__ float wpart[kMaxPops][kWarps];
+  __shared__ float wpart[kPopGroup][kWarps];
   const long long row = ((long long)c * N + n) * 4 * L;
   const int8_t* zrow = a.z + row;
   const int8_t* grow = a.geno + row;
   const int8_t* vrow = a.valid + (long long)n * L;
-  float acc[kMaxPops];
+  float acc[kPopGroup];
 #pragma unroll
-  for (int k = 0; k < kMaxPops; ++k) acc[k] = 0.0f;
+  for (int k = 0; k < kPopGroup; ++k) acc[k] = 0.0f;
   for (int l = threadIdx.x; l < L; l += kThreads) {
     if (!vrow[l]) continue;
-    const int z0 = zrow[l];
+    const int z0 = zrow[l], rel = z0 - k0;  // rel: the pop within the group
+    if ((unsigned)rel >= (unsigned)kPopGroup) continue;
     if (zrow[L + l] != z0 || zrow[2 * L + l] != z0 || zrow[3 * L + l] != z0)
       continue;
     const int packed =
@@ -216,22 +220,23 @@ __global__ void __launch_bounds__(kThreads) s_delta_kernel(
     const long long off = (((long long)c * K + z0) * L + l) * G + cls;
     const float d = __ldg(a.tab_prop + off) - __ldg(a.tab_cur + off);
 #pragma unroll
-    for (int k = 0; k < kMaxPops; ++k) acc[k] = acc[k] + (z0 == k ? d : 0.0f);
+    for (int k = 0; k < kPopGroup; ++k) acc[k] = acc[k] + (rel == k ? d : 0.0f);
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int kn = min(kPopGroup, K - k0);
 #pragma unroll
-  for (int k = 0; k < kMaxPops; ++k) {
-    if (k >= K) break;
+  for (int k = 0; k < kPopGroup; ++k) {
+    if (k >= kn) break;
     const float s = warp_sum(acc[k]);
     if (lane == 0) wpart[k][warp] = s;
   }
   __syncthreads();
-  if (threadIdx.x < K) {
+  if (threadIdx.x < kn) {
     const int k = threadIdx.x;
     float s = wpart[k][0];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) s = s + wpart[k][w];
-    a.part[((long long)c * N + n) * K + k] = s;
+    a.part[((long long)c * N + n) * K + k0 + k] = s;
   }
 }
 
@@ -343,7 +348,8 @@ extern "C" int geno_choice_launch(
   a.step = step;
   a.chain_key = (const int*)chain_key;
   const dim3 grid(N, C);
-  geno_choice_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(a);
+  geno_choice_kernel<<<grid, kThreads, K * sizeof(float),
+                       (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -370,7 +376,8 @@ extern "C" int s_delta_launch(const void* tab_cur, const void* tab_prop,
     a.G = G;
     a.V = V;
     a.n_max = n_max;
-    s_delta_kernel<<<dim3(N, C), kThreads, 0, s>>>(a);
+    s_delta_kernel<<<dim3(N, C, (K + kPopGroup - 1) / kPopGroup), kThreads, 0,
+                     s>>>(a);
   }
   const int threads = 64;
   s_delta_reduce_kernel<<<(C * K + threads - 1) / threads, threads, 0, s>>>(

@@ -17,10 +17,13 @@ Counterpart of ``instruct_tpu/kernels/tetra_geno_pallas.py``:
 
 Chains are a written-out leading axis.  On CUDA tensors the wrappers launch
 ``csrc/tetra_geno.cu``; on CPU tensors they run the plain versions
-(``*_reference``, same signature) below, which are also the building blocks
-of the engine's plain code paths (``tetra/engine.py``).  Every lookup here is
-a gather on a flat index (``table_at``, ``site_class``): the JAX package's
-select chains exist for the TPU only and give the same values.
+(``*_reference``, same signature) below.  The engine (``tetra/engine.py``)
+calls the wrappers on both of its sweeps; it uses the lookups here only to
+build its data-only tables.  Every lookup is a gather on a flat index
+(``table_at``, ``site_class``): the JAX package's select chains exist for the
+TPU only and give the same values.  The kernels take any K up to 127 (z is
+int8) and any number of classes G: the JAX package runs its kernels only
+while a site's table row fits the TPU's vector memory (K * G <= 1024).
 
 Gumbel noise of the move: site ``(n, l)`` owns ``bps = ceil(n_cand / 4)``
 Philox blocks of the (chain, step, ``STREAM_GENO``) counter space, block
@@ -38,7 +41,7 @@ import torch
 from instruct_tpu_torch.kernels import _build
 from instruct_tpu_torch.kernels import philox as px
 
-MAX_POPS = 8       # the kernels keep up to 8 per-pop values per thread
+MAX_POPS = 127     # z is int8
 MAX_CAND = 12      # candidate orderings per site (allotetraploid)
 _EPS = 1e-30
 _NEG = -1e30

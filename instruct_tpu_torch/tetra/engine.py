@@ -16,15 +16,18 @@ One sweep, for all chains:
     class tables             log HWE table, selfing equilibrium: one batched
                              float64 solve per allele-count class
     S                        per-pop MH, the K decisions in parallel: the
-                             log-ratio from s_delta_pass (K6; fused sweep,
-                             one subsweep) or from carried per-site values
+                             log-ratio of each subsweep from s_delta_pass (K6)
     Z, Q                     the per-copy z draw on the diploid view (K1
                              zq_sample_pass, fused; K8 zq_sample_counts,
                              unfused), Q | Z (K3)
-    geno                     the latent-ordering move: geno_choice_pass (K5,
-                             fused) or its streaming plain version
+    geno                     the latent-ordering move: geno_choice_pass (K5)
     alpha                    MH                          mcmc/updates.py
-    (stored steps) log-lik   site_ll_pass (K7, fused) or plain torch
+    (stored steps) log-lik   site_ll_pass (K7)
+
+Both sweeps run K5, K6 and K7; they differ in the Z draw only.  The JAX
+package runs its geno and log-lik kernels only while a site's table row
+(K * G floats) fits the TPU's vector memory; the CUDA kernels read the table
+from device memory and take any K and G.
 
 **Diploid views.**  The copy-major [N, 4L] layout makes slots 0-1 and 2-3
 each a diploid [N, 2L] panel.  Auto runs ONE diploid pass over [N, 2(2L)]
@@ -76,9 +79,6 @@ from instruct_tpu_torch.tetra.combinatorics import (ALLO_PATTERNS,
 
 _EPS = 1e-30
 _NEG = -1e30
-# the geno move and the log-lik run their kernels while a site's table row
-# (K * G floats) stays this small (JAX: the Pallas VMEM tile, engine.py:742)
-MAX_TABLE_CELLS = 1024
 
 
 def _slog(x):
@@ -191,10 +191,6 @@ def tetra_use_fused(spec: ModelSpec, data: Dataset) -> bool:
             and spec.n_pops * data.max_alleles <= 64)
 
 
-def _kernel_tables(spec: ModelSpec, tables: TetraTables) -> bool:
-    return spec.n_pops * tables.g_max <= MAX_TABLE_CELLS
-
-
 # ---------------------------------------------------------------------------
 # genotype-class frequency tables
 # ---------------------------------------------------------------------------
@@ -249,15 +245,12 @@ def class_table(tables, spec, freq, freq2, rates):
 
 
 def site_indv_loglik(tables: TetraTables, spec: ModelSpec, data: Dataset,
-                     freq, freq2, z, geno, table,
-                     use_kernel: bool) -> torch.Tensor:
+                     freq, freq2, z, geno, table) -> torch.Tensor:
     """Per-individual conditional log-lik f32[C, N] (cal_lkd summed over
-    loci): the ``site_ll_pass`` kernel (K7) or the plain per-site form."""
-    args = (table, tables.lookup_l, tables.log_mult_l, freq, freq2, z, geno,
-            data.site_valid)
-    if use_kernel:
-        return tg.site_ll_pass(*args, autopoly=bool(spec.autopoly))
-    return tg.site_loglik(*args, autopoly=bool(spec.autopoly)).sum(dim=2)
+    loci): the ``site_ll_pass`` kernel (K7)."""
+    return tg.site_ll_pass(table, tables.lookup_l, tables.log_mult_l, freq,
+                           freq2, z, geno, data.site_valid,
+                           autopoly=bool(spec.autopoly))
 
 
 # ---------------------------------------------------------------------------
@@ -377,17 +370,15 @@ def reconstruct_geno(tables: TetraTables, choice) -> torch.Tensor:
 
 
 def sample_geno(keys, step: int, tables: TetraTables, spec: ModelSpec, freq,
-                freq2, q, table, z, use_kernel: bool, gumbel=None):
+                freq2, q, table, z, gumbel=None):
     """Gibbs update of the latent ordered genotype of every site
     (update_geno, poly_geno.c:520-580 + choose_*, 854-1215): the weights of
     the candidate orderings and a Gumbel-argmax, by the ``geno_choice_pass``
-    kernel (K5) or its streaming plain version; then the reconstruction."""
-    args = (keys, step, table, z, tables.dist8, tables.cand_nc, q, freq,
-            freq if spec.autopoly else freq2, tables.cand_sel,
-            tables.cand_cls, tables.cand_mult)
-    fn = (tg.geno_choice_pass if use_kernel
-          else tg.geno_choice_pass_reference)
-    choice = fn(*args, autopoly=bool(spec.autopoly), gumbel=gumbel)
+    kernel (K5); then the reconstruction."""
+    choice = tg.geno_choice_pass(
+        keys, step, table, z, tables.dist8, tables.cand_nc, q, freq,
+        freq if spec.autopoly else freq2, tables.cand_sel, tables.cand_cls,
+        tables.cand_mult, autopoly=bool(spec.autopoly), gumbel=gumbel)
     return reconstruct_geno(tables, choice)
 
 
@@ -478,30 +469,24 @@ def build_tetra_step(spec: ModelSpec, data: Dataset,
     if tables is None or tables.cand_sel is None:
         tables = build_tables(spec, data)
     fused = tetra_use_fused(spec, data)
-    kernel_tables = fused and _kernel_tables(spec, tables)
     n_sweeps = max(1, spec.s_subsweeps)
-    use_sdelta = kernel_tables and n_sweeps == 1
-    k = spec.n_pops
 
     def add_loglik(state: McmcState) -> McmcState:
         table = class_table(tables, spec, state.freq, state.freq2,
                             state.rates)
         indv = site_indv_loglik(tables, spec, data, state.freq, state.freq2,
-                                state.z, state.geno, table, kernel_tables)
+                                state.z, state.geno, table)
         return state._replace(loglik_indv=indv, loglik_total=indv.sum(dim=1))
 
     def s_update(state, keys, step_idx, draws, log_hwe):
         """Per-pop MH on S with the full-table rebuild; the accepted table
-        is a per-pop select of the two solved ones (no third solve)."""
+        is a per-pop select of the two solved ones (no third solve), and
+        each subsweep's log-ratio is one ``s_delta_pass`` (K6) of the
+        current and the proposed table."""
         u_prop, u_acc, fresh = s_uniforms(keys, step_idx, spec, n_sweeps,
                                           draws)
         rates, ais = state.rates, state.ais_state
         tab_cur = selfing_equilibrium(tables, log_hwe, rates)
-        if not use_sdelta:
-            cls_idx = tg.site_class(tables.lookup_l, state.geno)
-            zc = tg.split4(state.z)
-            s_mask = tg.same_z(zc) & data.site_valid[None]
-            ll_cur = tg.table_at(tab_cur, zc[0], cls_idx)
         for j in range(n_sweeps):
             if spec.back_refl == 1:
                 prop = up.propose_back_reflection(u_prop[:, j], rates,
@@ -512,24 +497,12 @@ def build_tetra_step(spec: ModelSpec, data: Dataset,
                     up.propose_adaptive_independence(u_prop[:, j],
                                                      fresh[:, j], rates, ais)
             tab_prop = selfing_equilibrium(tables, log_hwe, prop)
-            if use_sdelta:
-                delta = tg.s_delta_pass(tab_cur, tab_prop, tables.lookup_l,
-                                        state.z, state.geno, data.site_valid)
-            else:
-                ll_prop = tg.table_at(tab_prop, zc[0], cls_idx)
-                diff = torch.where(s_mask, ll_prop - ll_cur,
-                                   torch.zeros_like(ll_prop))
-                delta = torch.stack(
-                    [torch.where(zc[0] == kk, diff, torch.zeros_like(diff))
-                     .sum(dim=(1, 2)) for kk in range(k)], dim=1)
+            delta = tg.s_delta_pass(tab_cur, tab_prop, tables.lookup_l,
+                                    state.z, state.geno, data.site_valid)
             accept = torch.log(u_acc[:, j]) < delta + log_hast
             rates = torch.where(accept, prop, rates)
             ais = torch.where(accept, prop_states, ais)
             tab_cur = torch.where(accept[:, :, None, None], tab_prop, tab_cur)
-            if not use_sdelta:
-                acc_site = torch.gather(accept, 1, zc[0].reshape(
-                    accept.shape[0], -1)).reshape(zc[0].shape)
-                ll_cur = torch.where(acc_site, ll_prop, ll_cur)
         return rates, ais, tab_cur
 
     def step(state: McmcState, keys: px.RngKeys, step_idx: int,
@@ -545,8 +518,7 @@ def build_tetra_step(spec: ModelSpec, data: Dataset,
                          state.alpha, state.geno, fused,
                          u=_draw(draws, "z"), q_draws=_draw(draws, "q"))
         geno = sample_geno(keys, step_idx, tables, spec, freq, freq2, q,
-                           table, z, kernel_tables,
-                           gumbel=_draw(draws, "geno"))
+                           table, z, gumbel=_draw(draws, "geno"))
         alpha = up.update_alpha(keys, step_idx, spec, q, state.alpha,
                                 test_draws=_draw(draws, "alpha"))
         return state._replace(freq=freq, freq2=freq2, rates=rates,
@@ -564,14 +536,13 @@ def build_marg_loglik(spec: ModelSpec, data: Dataset,
     conditional pointwise likelihood (JAX step.py:504-520)."""
     if tables is None:
         tables = build_tables(spec, data, with_candidates=False)
-    use_kernel = tetra_use_fused(spec, data) and _kernel_tables(spec, tables)
 
     def add_marg(state: McmcState) -> McmcState:
         table = class_table(tables, spec, state.freq, state.freq2,
                             state.rates)
         return state._replace(loglik_marg=site_indv_loglik(
             tables, spec, data, state.freq, state.freq2, state.z,
-            state.geno, table, use_kernel))
+            state.geno, table))
 
     return add_marg
 
@@ -579,7 +550,7 @@ def build_marg_loglik(spec: ModelSpec, data: Dataset,
 def plugin_loglik(spec: ModelSpec, data: Dataset, mean, final_state,
                   tables: Optional[TetraTables] = None) -> torch.Tensor:
     """Per-chain plug-in log-lik f32[C] under the (z, geno)-conditional
-    focus: the plain site log-lik at the posterior means of (P, P2, S),
+    focus: the site log-lik (K7) at the posterior means of (P, P2, S),
     conditional on the final draw's latent (z, geno), which have no
     posterior mean (JAX ``_plugin_tetra_loglik``)."""
     if tables is None:
@@ -587,7 +558,5 @@ def plugin_loglik(spec: ModelSpec, data: Dataset, mean, final_state,
     freq = mean.freq
     freq2 = mean.freq2 if mean.freq2.numel() else freq
     table = class_table(tables, spec, freq, freq2, mean.rates)
-    return tg.site_loglik(table, tables.lookup_l, tables.log_mult_l, freq,
-                          freq2, final_state.z, final_state.geno,
-                          data.site_valid,
-                          autopoly=bool(spec.autopoly)).sum(dim=(1, 2))
+    return site_indv_loglik(tables, spec, data, freq, freq2, final_state.z,
+                            final_state.geno, table).sum(dim=1)

@@ -37,6 +37,7 @@ from instruct_tpu_torch import ModelSpec, Schedule, convert, run_mcmc
 from instruct_tpu_torch.data.synthetic import synthetic_tetra_panel
 from instruct_tpu_torch.kernels import dirichlet as dk
 from instruct_tpu_torch.kernels import philox as px
+from instruct_tpu_torch.kernels import tetra_geno as tg
 from instruct_tpu_torch.mcmc.state import init_state
 from instruct_tpu_torch.mcmc.step import (StepDraws, build_marg_loglik,
                                           build_step, build_step_parts,
@@ -73,7 +74,11 @@ _CACHE = {}
 
 def _setup(autopoly, n_alleles, k=3, n=12, l=17, c=2, **spec_kw):
     """JAX and port panels, specs, tables and a JAX initial state of ``c``
-    chains carried across; the JAX tables are built once per panel."""
+    chains carried across; the JAX tables are built once per panel.  Their
+    candidate planes are the port's, which
+    ``test_torch_tetra_kernels.py::test_tables_and_candidate_planes_match_jax``
+    holds equal to the JAX package's (whose allo build compiles for ~10 s
+    on every call)."""
     key = (autopoly, n_alleles, k, n, l, c)
     if key not in _CACHE:
         jp = jax_tetra(n_indv=n, n_loci=l, n_pops=k, n_alleles=n_alleles,
@@ -81,7 +86,11 @@ def _setup(autopoly, n_alleles, k=3, n=12, l=17, c=2, **spec_kw):
         jdata = jp.data
         data = convert.dataset_from_numpy(_fields(jdata))
         jspec = JSpec(mode=2, ploid=4, n_pops=k, autopoly=autopoly)
-        jt = jeng.build_tables(jspec, jdata)
+        t = te.build_tables(ModelSpec(mode=2, ploid=4, n_pops=k,
+                                      autopoly=autopoly), data)
+        jt = jeng.build_tables(jspec, jdata, with_candidates=False)._replace(
+            **{name: jnp.asarray(getattr(t, name).numpy()) for name in
+               ("cand_sel", "cand_cls", "cand_mult", "cand_nc")})
         jstates = [jeng.init_tetra_state(jax.random.key(50 + ci), jspec,
                                          jdata, tables=jt)
                    for ci in range(c)]
@@ -330,9 +339,10 @@ def _jax_sweep(jspec, jdata, jt, st, key, p_draws, p2_draws, q_draws):
 ])
 def test_one_sweep_matches_jax(autopoly, kwargs):
     """One whole sweep of the port (``build_step``) against the JAX
-    composition, fed the same uniforms.  The fused sweep runs the kernels'
-    plain versions here (K6 for the one-subsweep S update, K5, K7), the
-    unfused one the carried plain S path, K8 and the plain move."""
+    composition, fed the same uniforms.  Both sweeps run the plain versions
+    of K5, K6 (in every S subsweep, where the JAX composition carries the
+    per-site values) and K7 here; the fused one the site pass for z, the
+    unfused one K8."""
     jdata, data, jspec, spec, jt, jstates, state = _setup(autopoly, 4,
                                                           **kwargs)
     c, n, l, k = state.q.shape[0], data.n_indv, data.n_loci, spec.n_pops
@@ -407,6 +417,46 @@ def test_one_sweep_matches_jax(autopoly, kwargs):
     for x, y in zip(a1, a2):
         assert (x is None and y is None) or torch.equal(x, y)
     assert torch.isfinite(add_ll(a1).loglik_total).all()
+
+
+@pytest.mark.parametrize("kwargs,n_alleles,k", [
+    (dict(), 4, 3), (dict(use_pallas=False), 4, 3),
+    (dict(s_subsweeps=3), 4, 3), (dict(), 8, 4), (dict(), 3, 10),
+])
+def test_every_sweep_calls_the_kernel_wrappers(monkeypatch, kwargs,
+                                               n_alleles, k):
+    """The fused and the unfused sweep, several S subsweeps, wide class
+    tables (A = 8, K = 4: K * G = 1320 floats a site) and K = 10 all run the
+    move, the S log-ratio and the log-lik through the wrappers of K5, K6
+    (once per subsweep) and K7, which launch the kernels on a CUDA tensor:
+    no sweep falls back to plain code on the card."""
+    calls = {}
+
+    def counted(name):
+        fn = getattr(tg, name)
+
+        def wrapper(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return wrapper
+
+    for name in ("geno_choice_pass", "s_delta_pass", "site_ll_pass"):
+        monkeypatch.setattr(tg, name, counted(name))
+    panel = synthetic_tetra_panel(6, 9, n_pops=k, n_alleles=n_alleles,
+                                  autopoly=True, missing_rate=0.1, seed=2)
+    spec = ModelSpec(mode=2, ploid=4, n_pops=k, **kwargs)
+    tables = te.build_tables(spec, panel.data)
+    assert (k * tables.g_max > 1024) == (n_alleles == 8)
+    state = init_state(1, spec, panel.data, 2, device="cpu")
+    core, add_ll = build_step_parts(spec, panel.data)
+    add_marg = build_marg_loglik(spec, panel.data)
+    state = add_marg(add_ll(core(state, px.make_keys(1, 2, "cpu"), 0)))
+    assert calls == {"geno_choice_pass": 1,
+                     "s_delta_pass": max(1, spec.s_subsweeps),
+                     "site_ll_pass": 2}
+    assert torch.isfinite(state.loglik_indv).all()
+    torch.testing.assert_close(state.loglik_marg, state.loglik_indv,
+                               rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------

@@ -289,8 +289,7 @@ def test_geno_move_plain_version_matches_jax(autopoly, n_alleles):
             jnp.asarray(table[ci].numpy()), jnp.asarray(z[ci]))))
     got = te.sample_geno(None, 0, t, spec, torch.from_numpy(freq),
                          torch.from_numpy(freq2), torch.from_numpy(q), table,
-                         torch.from_numpy(z), use_kernel=True,
-                         gumbel=torch.from_numpy(gumbel))
+                         torch.from_numpy(z), gumbel=torch.from_numpy(gumbel))
     np.testing.assert_array_equal(got.numpy(), np.stack(want))
     # without injected noise the move draws from Philox: a function of
     # (seed, step), and the candidate drawn is always a valid one
@@ -366,8 +365,8 @@ def test_site_ll_plain_version_matches_jax(autopoly):
         np.testing.assert_allclose(got[ci].numpy(), np.asarray(want),
                                    rtol=1e-5, atol=1e-4)
     assert torch.isfinite(got).all() and (got < 0).all()
-    # the engine's entry is the same function with or without the kernel
-    args = (t, spec, data, ft, f2t, torch.from_numpy(z),
-            torch.from_numpy(geno), table)
-    assert torch.allclose(te.site_indv_loglik(*args, True),
-                          te.site_indv_loglik(*args, False))
+    # the engine's entry is the kernel's wrapper
+    assert torch.equal(te.site_indv_loglik(t, spec, data, ft, f2t,
+                                           torch.from_numpy(z),
+                                           torch.from_numpy(geno), table),
+                       got)
