@@ -112,6 +112,29 @@ def time_ms(fn, reps: int = 20, warm: int = 3, inner: int = 10) -> float:
     return statistics.median(times)
 
 
+def profiled_ms(fn, name: str, n: int = 30) -> float:
+    """Device time of one ``fn()`` in ms from ``torch.profiler``: the total
+    of the kernels whose name holds ``name`` over their count.  For kernels
+    shorter than the host's enqueue of one launch, where ``time_ms`` reads
+    the host."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = count = 0
+    for ev in prof.key_averages():
+        if name in ev.key:
+            total += getattr(ev, "self_device_time_total", 0.0)
+            count += ev.count
+    if count == 0:
+        raise AssertionError(f"the profiler saw no kernel named {name}")
+    return total / count / 1e3
+
+
 def bound(n_bytes: float, n_ops: float):
     t_bytes, t_ops = n_bytes / HBM_RATE, n_ops / FP32_RATE
     return (1e3 * max(t_bytes, t_ops),
@@ -265,6 +288,7 @@ def check_allele_counts(x):
             raise AssertionError(f"{name}: total != 2 * valid sites")
     planes = n * l if fs.is_packed(d) and not wide else n * 3 * l
     n_bytes = c * n * 2 * l + planes + c * k * l * a * 4
+    library_ms = None if wide else allele_counts_library_ms(x, want)
     n_ops = c * n * 2 * l * 4
     b_ms, b_by = bound(n_bytes, n_ops)
     return dict(name=name, route="cuda",
@@ -273,9 +297,33 @@ def check_allele_counts(x):
                 max_abs_err=max_err(got, want), ms=time_ms(run),
                 plain_ms=time_ms(plain, reps=5, warm=1, inner=1),
                 bound_ms=b_ms,
-                bound_by=b_by, library_ms=None, bytes=n_bytes, ops=n_ops,
-                shape=dict(C=c, N=n, L=l, K=k, A=a),
+                bound_by=b_by, library_ms=library_ms, bytes=n_bytes,
+                ops=n_ops, shape=dict(C=c, N=n, L=l, K=k, A=a),
                 compared="counts exactly equal")
+
+
+def allele_counts_library_ms(x, want) -> float:
+    """The time of one PyTorch call that computes ``allele_counts``: an
+    accumulating ``index_put_`` of the valid copies into zeroed
+    [C, K, L, A] cells, on flat cell indices built beforehand (not timed).
+    Raises unless it gives the kernel's counts."""
+    d, z = x["data"], x["z"]
+    c, n, k = x["q"].shape
+    l, a = d.n_loci, d.max_alleles
+    geno = d.geno.to(torch.int64).reshape(1, n, 2, l)
+    cell = (((torch.arange(c, device="cuda").reshape(c, 1, 1, 1) * k
+              + z.to(torch.int64).reshape(c, n, 2, l)) * l
+             + torch.arange(l, device="cuda")) * a + geno)
+    ones = d.site_valid.reshape(1, n, 1, l).expand(c, n, 2, l).float()
+    cell, ones = cell.reshape(-1), ones.reshape(-1).contiguous()
+    run = lambda: torch.zeros(c * k * l * a, device="cuda").index_put_(
+        (cell,), ones, accumulate=True)
+    if not torch.equal(run().reshape(want.shape), want):
+        raise AssertionError("index_put_ counts differ from allele_counts")
+    ms = time_ms(run, reps=5, warm=1, inner=1)
+    del cell, ones
+    torch.cuda.empty_cache()
+    return ms
 
 
 def zq_agrees(tag, keys, q, freq, geno, site_valid, u=None):
@@ -640,6 +688,16 @@ def check_s_pop_tail(x):
         sp.s_pop_tail_reference(*args, **kw, test_draws=inj,
                                 margins=margins), margins)
     rates, prates = got[0], want[0]
+    # the latency floor: J*K + 1 dependent reductions of N floats with the
+    # same block shape and sum order, nothing else; it and the tail itself
+    # last less than the host's enqueue of a launch, so device times too
+    xf = torch.rand((c, n), generator=g, device="cuda")
+    iters = j * k + 1
+    check_close("s_pop_floor", sp.reduction_floor(xf, iters),
+                sp.reduction_floor_reference(xf, iters), 1e-6, 0)
+    floor_ms = profiled_ms(lambda: sp.reduction_floor(xf, iters),
+                           "s_pop_floor")
+    device_ms = profiled_ms(run, "s_pop_tail")
     n_bytes = c * n * (k * 4 + 4) + c * k * 8 + c * n * (4 + 8 + 4)
     n_ops = c * (j * k + 1) * n * (2 * OPS_TRANSC + 8) + c * n * (
         3 * OPS_TRANSC + 2 * OPS_PHILOX)
@@ -651,9 +709,44 @@ def check_s_pop_tail(x):
                 plain_ms=time_ms(plain, reps=5, warm=1, inner=1),
                 bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, bytes=n_bytes, ops=n_ops,
-                notes=notes,
+                device_ms=device_ms, latency_floor_ms=floor_ms,
+                floor_reductions=iters,
+                notes=notes + s_pop_grid(),
                 compared="rates', gen_prop exactly equal (or shown to sit "
                          "on a knife-edge); wg_pair, logu rtol 1e-6")
+
+
+def s_pop_grid() -> list:
+    """The S tail against its plain version over N (one thread's worth,
+    ragged, the headline, one past it, the largest register depth and the
+    streamed state beyond), K and the number of subsweeps, each also
+    launched twice from one seed.  Returns notes on knife-edges."""
+    g = torch.Generator("cuda").manual_seed(21)
+    notes = []
+    # (N, K, subsweeps); the last case draws its MH uniforms in two chunks
+    cases = [(n, k, sub) for n in (1, 70, 1000, 1025, 4096, 6000)
+             for k in (1, 3, 8) for sub in (0, 1, 12)] + [(70, 8, 300)]
+    for n, k, sub in cases:
+        keys = px.make_keys(91, 2, "cuda", chain_key=[4, 9])
+        x = -torch.log(torch.rand((2, n, k), generator=g,
+                                  device="cuda").clamp_min(1e-6))
+        q = (x / x.sum(-1, keepdim=True)).contiguous()
+        gen = torch.randint(1, 9, (2, n), generator=g, device="cuda",
+                            dtype=torch.int32)
+        rates = (torch.rand((2, k), generator=g, device="cuda") * 0.9
+                 + 0.05).contiguous()
+        kw = dict(subsweeps=sub, delta0=0.05, gen_cap=50)
+        tag = f"s_pop_tail N={n} K={k} subsweeps={sub}"
+        got = sp.s_pop_tail(keys, 3, q, gen, rates, **kw)
+        mg = []
+        notes += [f"{tag}: {m}" for m in s_pop_agrees(
+            tag, got, sp.s_pop_tail_reference(keys, 3, q, gen, rates, **kw,
+                                              margins=mg), mg)]
+        again = sp.s_pop_tail(keys, 3, q, gen, rates, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{tag}: two launches from one seed are "
+                                 "not bitwise equal")
+    return notes
 
 
 def dirichlet_agrees(name, got, want, margin, group_dim) -> int:
@@ -779,7 +872,7 @@ def phase_edge_shapes() -> None:
 
     cases = [(1, 5, 7, 1, 3), (2, 33, 1025, 2, 5), (3, 70, 130, 3, 8),
              (2, 45, 1030, 4, 3), (1, 1100, 36, 5, 5), (2, 40, 37, 6, 8),
-             (1, 64, 250, 7, 5), (2, 1500, 9, 8, 8)]
+             (1, 64, 250, 7, 5), (2, 1500, 9, 8, 8), (4, 77, 1030, 3, 4)]
     for c, n, l, k, a in cases:
         tag = f"edge shape C={c} N={n} L={l} K={k}"
         keys = px.make_keys(77, c, "cuda", chain_key=range(3, 3 + c))
@@ -911,6 +1004,12 @@ def phase_kernels(panel, panel_a, panel_w, philox_entry, tetra_panels):
                                        *ploidy4_inputs()))
     torch.cuda.empty_cache()
     xa = kernel_inputs(panel_a)
+    # K4 at A = 8 (the per-sweep recount of the generic path), beside its
+    # library call
+    a8 = check_allele_counts(xa)
+    main[1].update(ms_a8=a8["ms"], plain_ms_a8=a8["plain_ms"],
+                   bound_ms_a8=a8["bound_ms"],
+                   library_ms_a8=a8["library_ms"])
     main += check_site_entries(xa)
     variants += check_site_entries(xa, structure=False, only=EXP_WAY)
     phase_edge_shapes()
@@ -1034,6 +1133,11 @@ def sweep_profile(data, spec, n_steps: int = 100, n_prof: int = 30) -> dict:
         if dev_us > 0:
             rows.append((ev.key, dev_us / n_prof / 1e3, ev.count / n_prof))
     if rows:
+        # the site pass is one launch a call (check_one_site_launch)
+        out.update(site_pass_device_launches_per_sweep=round(sum(
+                       r[2] for r in rows if "site_kernel" in r[0]), 2),
+                   memset_launches_per_sweep=round(sum(
+                       r[2] for r in rows if "memset" in r[0].lower()), 2))
         rows.sort(key=lambda r: -r[1])
         busy = sum(r[1] for r in rows)
         out.update(device_ms_per_sweep=busy,
@@ -1045,6 +1149,20 @@ def sweep_profile(data, spec, n_steps: int = 100, n_prof: int = 30) -> dict:
                    device_kernel_launches_per_sweep=round(
                        sum(r[2] for r in rows), 1))
     return out
+
+
+def check_one_site_launch(tag, prof, fused, packed) -> None:
+    """A fused sweep calls the site pass once, and that call is one kernel
+    launch on the device.  On a packed diploid panel nothing else in the
+    sweep memsets (K4 and K8, which do, run only at the start), so no memset
+    shows there either."""
+    n = prof.get("site_pass_device_launches_per_sweep")
+    if not fused or n is None:
+        return
+    memsets = prof["memset_launches_per_sweep"]
+    if n != 1.0 or (packed and memsets):
+        raise AssertionError(f"{tag}: the site pass made {n} kernel launches "
+                             f"and the sweep {memsets} memsets per sweep")
 
 
 def expected_launches(spec, data, steps, evals, attempts) -> dict:
@@ -1175,8 +1293,9 @@ def drive_path(tag, panel, spec, n_iter, smi, profile_sweeps=100,
         raise AssertionError(f"{tag}: two runs from one seed are not "
                              "bitwise equal")
     if profile_sweeps:
-        emit("sweep_profile", path=tag, card=smi,
-             **sweep_profile(data, spec, profile_sweeps, n_prof))
+        prof = sweep_profile(data, spec, profile_sweeps, n_prof)
+        emit("sweep_profile", path=tag, card=smi, **prof)
+        check_one_site_launch(tag, prof, fused, fs.is_packed(data))
     mean_rates = acc.mean.rates.cpu()
     emit(tag.split(":")[0], path=tag, card=smi, mode=mode,
          panel=dict(N=n, L=l, A=a, K=k, packed=fs.is_packed(data)),
@@ -1813,8 +1932,10 @@ def drive_tetra(tag, panel, spec, n_iter, smi, profile_sweeps=100,
         raise AssertionError(f"{tag}: two runs from one seed are not "
                              "bitwise equal")
     if profile_sweeps:
-        emit("sweep_profile", path=tag, card=smi,
-             **sweep_profile(data, spec, profile_sweeps, n_prof))
+        prof = sweep_profile(data, spec, profile_sweeps, n_prof)
+        emit("sweep_profile", path=tag, card=smi, **prof)
+        check_one_site_launch(tag, prof, te.tetra_use_fused(spec, data),
+                              False)
     emit("tetra", path=tag, card=smi,
          panel=dict(N=n, L=l, A=a, K=k, autopoly=bool(spec.autopoly)),
          sweep="fused" if te.tetra_use_fused(spec, data) else "unfused",

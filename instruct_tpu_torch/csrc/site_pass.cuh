@@ -26,24 +26,39 @@
 // sampling pass reads the site planes (N*L bytes packed, 3-4 N*L generic) and
 // writes z (2 N*L); a stored-step pass reads both.  Per allele copy it does a
 // few dozen float operations, a quarter of a Philox block when sampling, and
-// up to one log or division per site.
+// up to one log or division per site.  The first version of this kernel ran
+// at 7x that bound with every part of its work ablated but the loads and the
+// CDF arithmetic: it was exposed load latency (each block walked its rows
+// one dependent load after another) and three launches per call.
 // Design: the TPU grid runs in order and accumulates into resident outputs;
-// here a block owns a tile of 1024 loci x a strip of 32 individuals of one
-// chain and nothing is carried between blocks.
+// here a block owns a tile of 512 loci x a strip of ~16 rows of one chain
+// (site_pass_strips: at most 64 strips), so the headline call is some 5000
+// short blocks, many waves with a small tail (one wave of ~110-row strips
+// ran slower on an H100: tools/site_pass_variants.py).  One launch per call:
 //   * Each thread owns 4 consecutive loci (one Philox block per copy and
-//     row).  Packed path: their P rows stay in registers for the whole strip,
-//     and the thread counts the fresh z of its loci in registers over the
-//     strip's rows, so the allele-pop counts cost one atomicAdd per (pop,
-//     allele, locus, strip); they are integer-valued floats far below 2^24,
-//     so the atomic sum is exact whatever its order.  Generic path: P[k, l, a]
-//     is read through the read-only cache at the allele code of the copy (a
-//     code outside [0, A) gives w = 0), and K*A counters per locus do not fit
-//     registers, so the pass returns no allele-pop counts: the step recounts
-//     with the allele_counts kernel.
-//   * The real-valued sums never go through a float atomic: a warp
-//     butterfly, then the block's 8 warp partials in order, give one partial
-//     per (individual, locus tile, column); a second small kernel adds the
-//     tiles in order.  Two runs from one seed are therefore bitwise equal.
+//     row).  The rows are staged into shared memory 8 (generic: 4) at a
+//     time with cp.async, two stages deep: each thread copies its own site
+//     words of the next stage (bits2, or geno / valid / hom; the carried z
+//     of a stored-step pass) and a few threads the rows' q and per-
+//     individual columns, while the block computes the current stage.
+//   * Packed path: the P rows of the thread's loci stay in registers for the
+//     whole strip, and the thread counts the fresh z of its loci in
+//     registers over the strip's rows (copies with z = k and, in the high
+//     half-word, those with allele bit 1).  The strip's counts go to a
+//     partial row; the last block of a (chain, tile) to finish -- a ticket
+//     counter it resets for the next call -- adds the S strips in order and
+//     stores zcounts.  No memset, no atomics on the counts.  Generic path:
+//     P[k, l, a] is read through the read-only cache at the allele code of
+//     the copy (a code outside [0, A) gives w = 0), and K*A counters per
+//     locus do not fit registers, so the pass returns no allele-pop counts:
+//     the step recounts with the allele_counts kernel.
+//   * Per row, the integer sums (copies per pop, four bits a pop in one
+//     word, and the het-site count of gendiff) take one redux.sync each;
+//     the float sums a warp butterfly; the block's 4 warp partials are added
+//     in order once a stage, giving one partial per (individual, locus tile,
+//     column); the last block of a (chain, strip) adds the T tiles in order
+//     and stores ll and qqnum.  No float atomic: two runs from one seed are
+//     bitwise equal, whatever S is.
 //   * The planes are indexed directly and ragged edges masked: no (8, 128)
 //     padding, no copy-major double pass, no [K*A, L] transposes.
 // The sources are compiled without FMA contraction, so the CDF prefixes
@@ -58,22 +73,33 @@ namespace {
 // Launch shape; instruct_tpu_torch/tools/site_pass_variants.py times other
 // values.
 #ifndef SITE_THREADS
-#define SITE_THREADS 256
+#define SITE_THREADS 128
 #endif
-#ifndef SITE_ROWS
-#define SITE_ROWS 32
-#endif
-#ifndef SITE_MIN_BLOCKS
-#define SITE_MIN_BLOCKS 1
+#ifndef SITE_STAGE_ROWS
+#define SITE_STAGE_ROWS (SITE_PACKED ? 8 : 4)
 #endif
 constexpr int kThreads = SITE_THREADS;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = kThreads * kQuad;   // loci per block
-constexpr int kRows = SITE_ROWS;          // individuals per block
+constexpr int kStage = SITE_STAGE_ROWS;   // rows staged at a time
+constexpr int kStripRows = 16;            // rows a strip is given ...
+constexpr int kMaxStrips = 64;            // ... up to this many strips
+constexpr int kMaxStripRows = 32767;      // half-word counts per strip
 constexpr float kEps = 1e-30f;
 constexpr float kLog2 = 0.6931471805599453f;
 constexpr bool kPacked = SITE_PACKED != 0;
 constexpr bool kSample = SITE_SAMPLE != 0;
+
+// Blocks per SM the launch bounds ask for (registers: 65536 / (128 x this)
+// a thread): K pops of P rows and counts for 4 loci live in registers, and
+// fewer registers spill (tools/site_pass_variants.py times other values).
+__host__ __device__ constexpr int min_blocks(int K) {
+#ifdef SITE_MIN_BLOCKS
+  return SITE_MIN_BLOCKS + 0 * K;
+#else
+  return K <= 2 ? 6 : 3;
+#endif
+}
 
 // Log-lik families; keep in step with kernels/fused_step.py.
 enum : int {
@@ -107,10 +133,15 @@ struct SiteArgs {
   const float* fvals;      // [C, K, kIn] per-pop F
   const float* u;          // [C, N, 2L] injected uniforms, or null
   int8_t* z;               // [C, N, 2L] out
+  float* qqnum;            // [C, N, K] out (sampling pass)
   float* zcounts;          // [C, K, L, 2] out (packed sampling pass)
-  float* ll_part;          // [C, N, T, kOut]
-  float* qq_part;          // [C, N, T, K]
-  int N, L, A, T, structure;
+  float* ll;               // [C, N, kOut] out
+  float* part;             // [C, N, T, kQq + kAcc] scratch: tile partials
+  uint32_t* cnt_part;      // [C, S, K, L] scratch: strip counts (packed
+  //                          sampling pass), z = k low, bit 1 high half-word
+  int* tickets;            // [C*S + C*T] zero between calls: blocks done per
+  //                          (chain, strip), then per (chain, tile)
+  int N, L, A, T, S, strip_rows, structure;
   long long plane_cs;      // chain stride of bits2 / geno: 0 when the chains
   //                          share the panel, N*L / N*2L when each chain has
   //                          its own (the tetraploid engine's latent genotype)
@@ -134,6 +165,18 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o >= 1; o >>= 1) v = v + __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // P rows of the thread's 4 loci: f0 = P[k, l, 0], d = P[k, l, 1] - f0.
@@ -172,34 +215,6 @@ __device__ __forceinline__ void copy_probs(const float* freq, int c, int L,
     w[k] = ok ? __ldg(freq + (((long long)c * K + k) * L + l) * A + g) : 0.0f;
 }
 
-// CDF prefixes cum[0..K-1] of one copy's z draw.  Packed path: affine in the
-// allele bit, cum_j = PA[j] + PB[j] * g.  Generic path: cum += q_k * w_k.
-template <int K>
-__device__ __forceinline__ void cdf_prefixes(const float (&qk)[K],
-                                             const float (&f0)[K],
-                                             const float (&d)[K],
-                                             const float (&w)[K], float gf,
-                                             float (&cum)[K]) {
-  if constexpr (kPacked) {
-    float ca = qk[0] * f0[0], cb = qk[0] * d[0];
-    cum[0] = ca + cb * gf;
-#pragma unroll
-    for (int k = 1; k < K; ++k) {
-      ca = ca + qk[k] * f0[k];
-      cb = cb + qk[k] * d[k];
-      cum[k] = ca + cb * gf;
-    }
-  } else {
-    float cc = qk[0] * w[0];
-    cum[0] = cc;
-#pragma unroll
-    for (int k = 1; k < K; ++k) {
-      cc = cc + qk[k] * w[k];
-      cum[k] = cc;
-    }
-  }
-}
-
 template <int K>
 __device__ __forceinline__ int inverse_cdf(float u01, const float (&cum)[K]) {
   const float ut = u01 * cum[K - 1];
@@ -209,17 +224,37 @@ __device__ __forceinline__ int inverse_cdf(float u01, const float (&cum)[K]) {
   return z;
 }
 
+__device__ __forceinline__ int byte_of(uint32_t w, int j) {
+  return (int)((w >> (8 * j)) & 0xffu);
+}
+
+// Site words staged per thread and row: packed bits2 (or geno copy 0, geno
+// copy 1, valid, hom), then the carried z copies of a stored-step pass.
+template <int FAM>
+struct Words {
+  static constexpr bool kNeedHom = FAM >= kFamGen;
+  static constexpr int kPanel = kPacked ? 1 : (kNeedHom ? 4 : 3);
+  static constexpr int kCount = kPanel + (kSample ? 0 : 2);
+};
+
 template <int K, int FAM>
-__global__ void __launch_bounds__(kThreads, SITE_MIN_BLOCKS)
+__global__ void __launch_bounds__(kThreads, min_blocks(K))
 site_kernel(const SiteArgs a) {
   using CL = Cols<FAM, K>;
+  using WD = Words<FAM>;
   constexpr int kNV = CL::kQq + CL::kAcc;
+  constexpr int kNW = WD::kCount;
   constexpr bool kGenFam = FAM == kFamGen || FAM == kFamGendiff;
-  constexpr bool kNeedHom = FAM >= kFamGen;
   constexpr bool kNeedCol = kGenFam || FAM == kFamFind;
-  __shared__ float part[kRows][kWarps][kNV > 0 ? kNV : 1];
+  constexpr bool kHetInt = FAM == kFamGendiff;    // acc[1] is a count
+  constexpr int kRowCols = K + 2;                 // q[K], colv[kIn]
+  constexpr int kQqWords = (CL::kQq + 1) / 2;     // two pops a redux
+  __shared__ uint32_t stage[2][kNW][kStage][kThreads];
+  __shared__ float rowc[2][kStage][kRowCols];
+  __shared__ float part[2][kStage][kWarps][kNV > 0 ? kNV : 1];
+  __shared__ int last;
   const int N = a.N, L = a.L, T = a.T;
-  const int tile = blockIdx.x, c = blockIdx.z;
+  const int tile = blockIdx.x, strip = blockIdx.y, c = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int l0 = tile * kTile + tid * kQuad;
   const bool vec = (L % 4) == 0;
@@ -228,17 +263,21 @@ site_kernel(const SiteArgs a) {
   // the expectation way reads the Q mixture in place of P at z
   const bool mix = kGenFam && !structure;
   const bool need_q = kSample || mix;
+  const int n_begin = strip * a.strip_rows;
+  const int n_end = min(N, n_begin + a.strip_rows);
+  const int n_rows = max(0, n_end - n_begin);
+  const int n_stages = (n_rows + kStage - 1) / kStage;
 
   // packed path: the P rows of the thread's loci, and its counts of copies
-  // with z = k (cs) and with z = k and allele bit 1 (ct)
+  // with z = k (low half-word) and with z = k and allele bit 1 (high)
   float f0[kQuad][K], d[kQuad][K];
-  int cs[kQuad][K], ct[kQuad][K];
+  uint32_t cnt[kQuad][K];
 #pragma unroll
   for (int j = 0; j < kQuad; ++j)
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       f0[j][k] = d[j][k] = 0.0f;
-      cs[j][k] = ct[j][k] = 0;
+      cnt[j][k] = 0u;
     }
   if constexpr (kPacked) load_freq<K>(a.freq, c, L, l0, f0, d);
   float fv0[K], fv1[K];                        // per-pop F (current, proposed)
@@ -253,257 +292,396 @@ site_kernel(const SiteArgs a) {
   uint32_t chain = 0;
   if constexpr (kSample) chain = (uint32_t)a.chain_key[c];
 
-  const int n_begin = blockIdx.y * kRows;
-  const int n_rows = min(kRows, N - n_begin);
-  for (int r = 0; r < n_rows; ++r) {
-    const int n = n_begin + r;
-    const long long cn = (long long)c * N + n;
-    float qk[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) qk[k] = need_q ? a.q[cn * K + k] : 0.0f;
-    float cv0 = 0.0f, cv1 = 0.0f;
-    if constexpr (kNeedCol) {
-      cv0 = a.colv[cn * CL::kIn];
-      if constexpr (CL::kIn == 2) cv1 = a.colv[cn * 2 + 1];
-    }
-    float acc[CL::kAcc > 0 ? CL::kAcc : 1], qq[K];
-#pragma unroll
-    for (int i = 0; i < (CL::kAcc > 0 ? CL::kAcc : 1); ++i) acc[i] = 0.0f;
-#pragma unroll
-    for (int k = 0; k < K; ++k) qq[k] = 0.0f;
-
-    if (n_live > 0) {
-      int g0v[kQuad], g1v[kQuad], okv[kQuad], homv[kQuad];
+  // Issue the copies of stage `s` into buffer `buf` (one commit group).
+  auto stage_rows = [&](int buf, int s) {
+    for (int rr = 0; rr < kStage; ++rr) {
+      const int n = n_begin + s * kStage + rr;
+      if (n >= n_end) break;
+      if (n_live <= 0) break;
+      const int8_t* src[kNW];
+      const long long cn = (long long)c * N + n;
       if constexpr (kPacked) {
-        int bits[kQuad];
-        load_bytes(a.bits2 + c * a.plane_cs + (long long)n * L, l0, L, vec,
-                   bits);
-#pragma unroll
-        for (int j = 0; j < kQuad; ++j) {
-          g0v[j] = bits[j] & 1;
-          g1v[j] = (bits[j] >> 1) & 1;
-          okv[j] = bits[j] & 4;
-          homv[j] = g0v[j] == g1v[j] ? 1 : 0;
-        }
+        src[0] = a.bits2 + c * a.plane_cs + (long long)n * L;
       } else {
         const int8_t* grow = a.geno + c * a.plane_cs + (long long)n * 2 * L;
-        load_bytes(grow, l0, L, vec, g0v);
-        load_bytes(grow + L, l0, L, vec, g1v);
-        load_bytes(a.valid + (long long)n * L, l0, L, vec, okv);
-        if constexpr (kNeedHom) {
-          load_bytes(a.hom + (long long)n * L, l0, L, vec, homv);
+        src[0] = grow;
+        src[1] = grow + L;
+        src[2] = a.valid + (long long)n * L;
+        if constexpr (WD::kNeedHom) src[3] = a.hom + (long long)n * L;
+      }
+      if constexpr (!kSample) {
+        src[WD::kPanel] = a.z_in + cn * 2 * L;
+        src[WD::kPanel + 1] = a.z_in + cn * 2 * L + L;
+      }
+#pragma unroll
+      for (int w = 0; w < kNW; ++w) {
+        if (vec) {
+          cp_async4(&stage[buf][w][rr][tid], src[w] + l0);
         } else {
-#pragma unroll
-          for (int j = 0; j < kQuad; ++j) homv[j] = 0;
+          int b[kQuad];
+          load_bytes(src[w], l0, L, false, b);
+          stage[buf][w][rr][tid] = (uint32_t)b[0] | ((uint32_t)b[1] << 8) |
+                                   ((uint32_t)b[2] << 16) |
+                                   ((uint32_t)b[3] << 24);
         }
       }
-      int z0v[kQuad], z1v[kQuad];
-      float u0[kQuad], u1[kQuad];
-      if constexpr (kSample) {
-        const long long row = (long long)n * 2 * L;
-        const float* inj =
-            a.u == nullptr ? nullptr : a.u + (long long)c * N * 2 * L;
-        quad_uniforms(inj, row + l0, n_live, a.step, chain, a.k0, a.k1, u0);
-        quad_uniforms(inj, row + L + l0, n_live, a.step, chain, a.k0, a.k1,
-                      u1);
-      } else {
-        load_bytes(a.z_in + cn * 2 * L, l0, L, vec, z0v);
-        load_bytes(a.z_in + cn * 2 * L + L, l0, L, vec, z1v);
+    }
+    for (int i = tid; i < kStage * kRowCols; i += kThreads) {
+      const int rr = i / kRowCols, col = i - rr * kRowCols;
+      const int n = n_begin + s * kStage + rr;
+      if (n >= n_end) continue;
+      const long long cn = (long long)c * N + n;
+      if (col < K) {
+        if (need_q) cp_async4(&rowc[buf][rr][col], a.q + cn * K + col);
+      } else if (kNeedCol && col - K < CL::kIn) {
+        cp_async4(&rowc[buf][rr][col], a.colv + cn * CL::kIn + (col - K));
       }
+    }
+    cp_async_commit();
+  };
+
+  // One partial per (row, column) of stage `s`: the warps in order.
+  auto write_partials = [&](int buf, int s) {
+    if constexpr (kNV > 0) {
+      for (int i = tid; i < kStage * kNV; i += kThreads) {
+        const int rr = i / kNV, v = i - rr * kNV;
+        const int n = n_begin + s * kStage + rr;
+        if (n >= n_end) continue;
+        float t = part[buf][rr][0][v];
 #pragma unroll
-      for (int j = 0; j < kQuad; ++j) {
-        if (j >= n_live) {
-          z0v[j] = z1v[j] = 0;
-          continue;
-        }
-        const int g0 = g0v[j], g1 = g1v[j];
-        const bool valid = okv[j] != 0, hom = homv[j] != 0;
-        const float g0f = (float)g0, g1f = (float)g1;
-        // per-pop probability of each copy's allele
-        float w0[K], w1[K];
+        for (int w = 1; w < kWarps; ++w) t = t + part[buf][rr][w][v];
+        a.part[(((long long)c * N + n) * T + tile) * kNV + v] = t;
+      }
+    }
+  };
+
+  if (n_stages > 0) stage_rows(0, 0);
+  for (int s = 0; s < n_stages; ++s) {
+    const int buf = s & 1;
+    cp_async_wait_all();
+    __syncthreads();
+    if (s + 1 < n_stages) stage_rows(buf ^ 1, s + 1);
+    if (s > 0) write_partials(buf ^ 1, s - 1);
+    const int rows = min(kStage, n_rows - s * kStage);
+    for (int rr = 0; rr < rows; ++rr) {
+      const int n = n_begin + s * kStage + rr;
+      const long long cn = (long long)c * N + n;
+      float qk[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) qk[k] = need_q ? rowc[buf][rr][k] : 0.0f;
+      float cv0 = 0.0f, cv1 = 0.0f;
+      if constexpr (kNeedCol) {
+        cv0 = rowc[buf][rr][K];
+        if constexpr (CL::kIn == 2) cv1 = rowc[buf][rr][K + 1];
+      }
+      float acc[CL::kAcc > 0 ? CL::kAcc : 1];
+#pragma unroll
+      for (int i = 0; i < (CL::kAcc > 0 ? CL::kAcc : 1); ++i) acc[i] = 0.0f;
+      uint32_t qqw = 0;     // copies per pop of the row's sites, 4 bits a pop
+      uint32_t het = 0;     // gendiff: het sites counted once each
+
+      if (n_live > 0) {
+        int g0v[kQuad], g1v[kQuad], okv[kQuad], homv[kQuad];
         if constexpr (kPacked) {
+          const uint32_t w = stage[buf][0][rr][tid];
 #pragma unroll
-          for (int k = 0; k < K; ++k) {
-            w0[k] = f0[j][k] + d[j][k] * g0f;
-            w1[k] = f0[j][k] + d[j][k] * g1f;
+          for (int j = 0; j < kQuad; ++j) {
+            const int bits = byte_of(w, j);
+            g0v[j] = bits & 1;
+            g1v[j] = (bits >> 1) & 1;
+            okv[j] = bits & 4;
+            homv[j] = g0v[j] == g1v[j] ? 1 : 0;
           }
         } else {
-          copy_probs<K>(a.freq, c, L, a.A, l0 + j, g0, w0);
-          copy_probs<K>(a.freq, c, L, a.A, l0 + j, g1, w1);
-        }
-        float tot0 = 0.0f, tot1 = 0.0f;          // Q-mixture probabilities
-        if (need_q) {
-          float cum0[K], cum1[K];
-          cdf_prefixes<K>(qk, f0[j], d[j], w0, g0f, cum0);
-          cdf_prefixes<K>(qk, f0[j], d[j], w1, g1f, cum1);
-          tot0 = cum0[K - 1];
-          tot1 = cum1[K - 1];
-          if constexpr (kSample) {
-            z0v[j] = inverse_cdf<K>(u0[j], cum0);
-            z1v[j] = inverse_cdf<K>(u1[j], cum1);
+          const uint32_t w0 = stage[buf][0][rr][tid];
+          const uint32_t w1 = stage[buf][1][rr][tid];
+          const uint32_t wv = stage[buf][2][rr][tid];
+          uint32_t wh = 0;
+          if constexpr (WD::kNeedHom) wh = stage[buf][3][rr][tid];
+#pragma unroll
+          for (int j = 0; j < kQuad; ++j) {
+            g0v[j] = byte_of(w0, j);
+            g1v[j] = byte_of(w1, j);
+            okv[j] = byte_of(wv, j);
+            homv[j] = byte_of(wh, j);
           }
         }
-        if (!valid) continue;
-        const int z0 = z0v[j], z1 = z1v[j];      // the conditioning z
+        int z0v[kQuad], z1v[kQuad];
+        float u0[kQuad], u1[kQuad];
         if constexpr (kSample) {
+          const long long row = (long long)n * 2 * L;
+          const float* inj =
+              a.u == nullptr ? nullptr : a.u + (long long)c * N * 2 * L;
+          quad_uniforms(inj, row + l0, n_live, a.step, chain, a.k0, a.k1,
+                        u0);
+          quad_uniforms(inj, row + L + l0, n_live, a.step, chain, a.k0,
+                        a.k1, u1);
+        } else {
+          const uint32_t wz0 = stage[buf][WD::kPanel][rr][tid];
+          const uint32_t wz1 = stage[buf][WD::kPanel + 1][rr][tid];
 #pragma unroll
-          for (int k = 0; k < K; ++k) {
-            const int m0 = z0 == k ? 1 : 0, m1 = z1 == k ? 1 : 0;
-            qq[k] += (float)(m0 + m1);
-            if constexpr (kPacked) {
-              cs[j][k] += m0 + m1;
-              ct[j][k] += (m0 & g0) + (m1 & g1);
-            }
+          for (int j = 0; j < kQuad; ++j) {
+            z0v[j] = byte_of(wz0, j);
+            z1v[j] = byte_of(wz1, j);
           }
         }
-        if constexpr (FAM != kFamNone) {
-          const float p0 = mix ? tot0 : sel<K>(w0, z0);
-          const float p1 = mix ? tot1 : sel<K>(w1, z1);
-          const bool same = z0 == z1;
-          if constexpr (FAM == kFamMode1) {
-            // cal_lkh of the no-selfing model (log_ld_noselfing_indv)
-            acc[0] = acc[0] +
-                     (slog(p0) + slog(p1) + (g0 != g1 ? kLog2 : 0.0f));
-          } else if constexpr (FAM == kFamGen) {
-            // selfing-generation columns (log_ld_indv); colv = 2^(1-g)
-            const float indep = slog(p0) + slog(p1) + (hom ? 0.0f : kLog2);
 #pragma unroll
-            for (int col = 0; col < CL::kIn; ++col) {
-              const float wg = col == 0 ? cv0 : cv1;
-              const float gf = hom ? p0 * p0 + p0 * (1.0f - p0) * (1.0f - wg)
-                                   : 2.0f * p0 * p1 * wg;
-              float site = slog(gf);
-              if (structure && !same) site = indep;
-              acc[col] = acc[col] + site;
-            }
-          } else if constexpr (FAM == kFamGendiff) {
-            // G-update MH log-ratio (update_G): only hom sites take a log,
-            // het sites add the row constant log(w_p / w_c) once per site
-            if (mix || same) {
-              if (hom) {
-                const float q1 = 1.0f - p0;
-                const float ratio = fmaxf(1.0f - q1 * cv1, kEps) /
-                                    fmaxf(1.0f - q1 * cv0, kEps);
-                acc[0] = acc[0] + logf(ratio);
-              } else {
-                acc[1] += 1.0f;
+        for (int j = 0; j < kQuad; ++j) {
+          if (j >= n_live) {
+            z0v[j] = z1v[j] = 0;
+            continue;
+          }
+          const int g0 = g0v[j], g1 = g1v[j];
+          const bool valid = okv[j] != 0, hom = homv[j] != 0;
+          // generic path: per-pop probability of each copy's allele
+          float w0[K], w1[K];
+          if constexpr (!kPacked) {
+            copy_probs<K>(a.freq, c, L, a.A, l0 + j, g0, w0);
+            copy_probs<K>(a.freq, c, L, a.A, l0 + j, g1, w1);
+          }
+          float tot0 = 0.0f, tot1 = 0.0f;        // Q-mixture probabilities
+          if (need_q) {
+            // CDF prefixes.  Packed: cum_k = A_k + B_k * g with A_k, B_k the
+            // prefix sums of q*f0, q*d; the allele bit g is 0 or 1, so
+            // A_k + B_k * g is A_k (A_k >= 0) or A_k + B_k exactly, and both
+            // copies share the two prefix rows.
+            float cum0[K], cum1[K];
+            if constexpr (kPacked) {
+              float ca = qk[0] * f0[j][0], cb = qk[0] * d[j][0];
+              float ce = ca + cb;
+              cum0[0] = g0 ? ce : ca;
+              cum1[0] = g1 ? ce : ca;
+#pragma unroll
+              for (int k = 1; k < K; ++k) {
+                ca = ca + qk[k] * f0[j][k];
+                cb = cb + qk[k] * d[j][k];
+                ce = ca + cb;
+                cum0[k] = g0 ? ce : ca;
+                cum1[k] = g1 ? ce : ca;
+              }
+            } else {
+              float c0 = qk[0] * w0[0], c1 = qk[0] * w1[0];
+              cum0[0] = c0;
+              cum1[0] = c1;
+#pragma unroll
+              for (int k = 1; k < K; ++k) {
+                c0 = c0 + qk[k] * w0[k];
+                c1 = c1 + qk[k] * w1[k];
+                cum0[k] = c0;
+                cum1[k] = c1;
               }
             }
-          } else {
-            // inbreeding families: f per individual (find) or of pop z0 (fpop)
-            const float fa = FAM == kFamFind ? cv0 : sel<K>(fv0, z0);
+            tot0 = cum0[K - 1];
+            tot1 = cum1[K - 1];
             if constexpr (kSample) {
-              // MH terms over the F-dependent same-z sites: one log of a
-              // quotient, the common p0 / 2 p0 p1 factors cancelled
-              if (same) {
-                const float fb = FAM == kFamFind ? cv1 : sel<K>(fv1, z0);
-                const float num = hom ? p0 * (1.0f - fb) + fb : 1.0f - fb;
-                const float den = hom ? p0 * (1.0f - fa) + fa : 1.0f - fa;
-                const float dl = logf(fmaxf(num, kEps) / fmaxf(den, kEps));
-                if constexpr (FAM == kFamFind) {
-                  acc[0] = acc[0] + dl;
-                } else {
+              z0v[j] = inverse_cdf<K>(u0[j], cum0);
+              z1v[j] = inverse_cdf<K>(u1[j], cum1);
+            }
+          }
+          if (!valid) continue;
+          const int z0 = z0v[j], z1 = z1v[j];      // the conditioning z
+          if constexpr (kSample) {
+            qqw += (1u << (4 * z0)) + (1u << (4 * z1));
+            if constexpr (kPacked) {
+              // a copy adds 1 to its pop's count and, with allele bit 1, 1
+              // to the high half-word
+              const uint32_t v0 = 1u + ((uint32_t)g0 << 16);
+              const uint32_t v1 = 1u + ((uint32_t)g1 << 16);
 #pragma unroll
-                  for (int k = 0; k < K; ++k)
-                    if (z0 == k) acc[k] = acc[k] + dl;
+              for (int k = 0; k < K; ++k)
+                cnt[j][k] += (z0 == k ? v0 : 0u) + (z1 == k ? v1 : 0u);
+            }
+          }
+          if constexpr (FAM != kFamNone) {
+            // P of each copy's allele in its pop z: f0 + d * g (packed; g is
+            // 0 or 1, so f0 or f0 + d exactly)
+            float p0, p1;
+            if (mix) {
+              p0 = tot0;
+              p1 = tot1;
+            } else if constexpr (kPacked) {
+              const float a0 = sel<K>(f0[j], z0), a1 = sel<K>(f0[j], z1);
+              p0 = g0 ? a0 + sel<K>(d[j], z0) : a0;
+              p1 = g1 ? a1 + sel<K>(d[j], z1) : a1;
+            } else {
+              p0 = sel<K>(w0, z0);
+              p1 = sel<K>(w1, z1);
+            }
+            const bool same = z0 == z1;
+            if constexpr (FAM == kFamMode1) {
+              // cal_lkh of the no-selfing model (log_ld_noselfing_indv)
+              acc[0] = acc[0] +
+                       (slog(p0) + slog(p1) + (g0 != g1 ? kLog2 : 0.0f));
+            } else if constexpr (FAM == kFamGen) {
+              // selfing-generation columns (log_ld_indv); colv = 2^(1-g)
+              const float indep = slog(p0) + slog(p1) + (hom ? 0.0f : kLog2);
+#pragma unroll
+              for (int col = 0; col < CL::kIn; ++col) {
+                const float wg = col == 0 ? cv0 : cv1;
+                const float gf = hom ? p0 * p0 + p0 * (1.0f - p0) * (1.0f - wg)
+                                     : 2.0f * p0 * p1 * wg;
+                float site = slog(gf);
+                if (structure && !same) site = indep;
+                acc[col] = acc[col] + site;
+              }
+            } else if constexpr (FAM == kFamGendiff) {
+              // G-update MH log-ratio (update_G): only hom sites take a log,
+              // het sites add the row constant log(w_p / w_c) once per site
+              if (mix || same) {
+                if (hom) {
+                  const float q1 = 1.0f - p0;
+                  const float ratio = fmaxf(1.0f - q1 * cv1, kEps) /
+                                      fmaxf(1.0f - q1 * cv0, kEps);
+                  acc[0] = acc[0] + logf(ratio);
+                } else {
+                  het += 1u;
                 }
               }
             } else {
-              // cal_lkh (log_ld_F_indv / log_ld_F_pop)
-              float site;
-              if (same) {
-                site = slog(hom ? p0 * p0 * (1.0f - fa) + p0 * fa
-                                : 2.0f * p0 * p1 * (1.0f - fa));
+              // inbreeding families: f per individual (find) or of pop z0
+              const float fa = FAM == kFamFind ? cv0 : sel<K>(fv0, z0);
+              if constexpr (kSample) {
+                // MH terms over the F-dependent same-z sites: one log of a
+                // quotient, the common p0 / 2 p0 p1 factors cancelled
+                if (same) {
+                  const float fb = FAM == kFamFind ? cv1 : sel<K>(fv1, z0);
+                  const float num = hom ? p0 * (1.0f - fb) + fb : 1.0f - fb;
+                  const float den = hom ? p0 * (1.0f - fa) + fa : 1.0f - fa;
+                  const float dl = logf(fmaxf(num, kEps) / fmaxf(den, kEps));
+                  if constexpr (FAM == kFamFind) {
+                    acc[0] = acc[0] + dl;
+                  } else {
+#pragma unroll
+                    for (int k = 0; k < K; ++k)
+                      if (z0 == k) acc[k] = acc[k] + dl;
+                  }
+                }
               } else {
-                site = slog(p0) + slog(p1) + (hom ? 0.0f : kLog2);
+                // cal_lkh (log_ld_F_indv / log_ld_F_pop)
+                float site;
+                if (same) {
+                  site = slog(hom ? p0 * p0 * (1.0f - fa) + p0 * fa
+                                  : 2.0f * p0 * p1 * (1.0f - fa));
+                } else {
+                  site = slog(p0) + slog(p1) + (hom ? 0.0f : kLog2);
+                }
+                acc[0] = acc[0] + site;
               }
-              acc[0] = acc[0] + site;
             }
           }
         }
+        if constexpr (kSample) {
+          int8_t* zrow = a.z + cn * 2 * L;
+          store_bytes(zrow, l0, L, vec, z0v);
+          store_bytes(zrow + L, l0, L, vec, z1v);
+        }
       }
-      if constexpr (kSample) {
-        int8_t* zrow = a.z + cn * 2 * L;
-        store_bytes(zrow, l0, L, vec, z0v);
-        store_bytes(zrow + L, l0, L, vec, z1v);
-      }
-    }
 
-    if constexpr (kNV > 0) {
+      // the row's warp partials: integer sums by redux, float sums by a
+      // butterfly
+      if constexpr (kNV > 0) {
 #pragma unroll
-      for (int k = 0; k < CL::kQq; ++k) {
-        const float s = warp_sum(qq[k]);
-        if (lane == 0) part[r][warp][k] = s;
-      }
+        for (int w = 0; w < kQqWords; ++w) {
+          const uint32_t pair = ((qqw >> (8 * w)) & 0xfu) |
+                                (((qqw >> (8 * w + 4)) & 0xfu) << 16);
+          const uint32_t s2 = __reduce_add_sync(0xffffffffu, pair);
+          if (lane == 0) {
+            part[buf][rr][warp][2 * w] = (float)(s2 & 0xffffu);
+            if (2 * w + 1 < CL::kQq)
+              part[buf][rr][warp][2 * w + 1] = (float)(s2 >> 16);
+          }
+        }
 #pragma unroll
-      for (int i = 0; i < CL::kAcc; ++i) {
-        const float s = warp_sum(acc[i]);
-        if (lane == 0) part[r][warp][CL::kQq + i] = s;
+        for (int i = 0; i < CL::kAcc; ++i) {
+          float s2;
+          if (kHetInt && i == 1) {
+            s2 = (float)__reduce_add_sync(0xffffffffu, het);
+          } else {
+            s2 = warp_sum(acc[i]);
+          }
+          if (lane == 0) part[buf][rr][warp][CL::kQq + i] = s2;
+        }
       }
     }
   }
   __syncthreads();
+  if (n_stages > 0) write_partials((n_stages - 1) & 1, n_stages - 1);
 
-  // one partial per (individual, locus tile, column): the warps in order
-  constexpr int kCols = CL::kQq + CL::kOut;
-  for (int i = tid; i < n_rows * kCols; i += kThreads) {
-    const int r = i / kCols, v = i - r * kCols;
-    const long long cn = (long long)c * N + n_begin + r;
-    // the accumulators follow the qq columns in `part`
-    float s = part[r][0][v];
-    for (int w = 1; w < kWarps; ++w) s = s + part[r][w][v];
-    if (v < CL::kQq) {
-      a.qq_part[(cn * T + tile) * K + v] = s;
-      continue;
-    }
-    if constexpr (FAM == kFamGendiff) {
-      float t = part[r][0][CL::kQq + 1];
-      for (int w = 1; w < kWarps; ++w) t = t + part[r][w][CL::kQq + 1];
-      const float dh = slog(a.colv[2 * cn + 1]) - slog(a.colv[2 * cn]);
-      s = s + dh * t;
-    }
-    a.ll_part[(cn * T + tile) * CL::kOut + (v - CL::kQq)] = s;
-  }
-
+  // The strip's counts of the tile's loci, then the last block of the
+  // (chain, tile) adds the strips in order.
   if constexpr (kPacked && kSample) {
-#pragma unroll
-    for (int j = 0; j < kQuad; ++j) {
-      if (j >= n_live) continue;
+    if (n_live > 0) {
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        float* cell = a.zcounts + (((long long)c * K + k) * L + l0 + j) * 2;
-        const int ones = ct[j][k], zeros = cs[j][k] - ct[j][k];
-        if (zeros != 0) atomicAdd(cell, (float)zeros);
-        if (ones != 0) atomicAdd(cell + 1, (float)ones);
+        uint32_t* dst = a.cnt_part + (((long long)c * a.S + strip) * K + k) * L;
+#pragma unroll
+        for (int j = 0; j < kQuad; ++j)
+          if (j < n_live) dst[l0 + j] = cnt[j][k];
       }
     }
   }
-}
-
-// Adds the locus tiles' partials of every (chain, individual, column) in
-// order: thread i owns column i % cols of row i / cols, the ll columns first.
-__global__ void site_reduce_kernel(const float* __restrict__ ll_part,
-                                   const float* __restrict__ qq_part,
-                                   float* __restrict__ ll,
-                                   float* __restrict__ qqnum, long long CN,
-                                   int T, int n_out, int n_qq) {
-  const int cols = n_out + n_qq;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= CN * cols) return;
-  const long long cn = i / cols;
-  int v = (int)(i - cn * cols);
-  const float* src = ll_part;
-  float* dst = ll;
-  int width = n_out;
-  if (v >= n_out) {
-    v -= n_out;
-    src = qq_part;
-    dst = qqnum;
-    width = n_qq;
+  __threadfence();
+  __syncthreads();
+  int* tick_rows = a.tickets + c * a.S + strip;
+  int* tick_cnt = a.tickets + a.S * gridDim.z + c * T + tile;
+  if (tid == 0) {
+    int flags = atomicAdd(tick_rows, 1) == T - 1 ? 1 : 0;
+    if (kPacked && kSample)
+      flags |= atomicAdd(tick_cnt, 1) == a.S - 1 ? 2 : 0;
+    last = flags;
   }
-  float s = src[cn * T * width + v];
-  for (int t = 1; t < T; ++t) s = s + src[(cn * T + t) * width + v];
-  dst[cn * width + v] = s;
+  __syncthreads();
+  if (last == 0) return;
+  __threadfence();
+
+  if (last & 1) {
+    // ll and qqnum of the strip's rows: the tiles' partials in order
+    constexpr int kCols = CL::kQq + CL::kOut;
+    for (int i = tid; i < n_rows * kCols; i += kThreads) {
+      const int r = i / kCols, v = i - r * kCols;
+      const long long cn = (long long)c * N + n_begin + r;
+      const float* src = a.part + cn * T * kNV;
+      float s = __ldcg(src + v);
+      for (int t = 1; t < T; ++t) s = s + __ldcg(src + t * kNV + v);
+      if (v < CL::kQq) {
+        a.qqnum[cn * K + v] = s;
+        continue;
+      }
+      if constexpr (FAM == kFamGendiff) {
+        float h = __ldcg(src + CL::kQq + 1);
+        for (int t = 1; t < T; ++t) h = h + __ldcg(src + t * kNV + CL::kQq + 1);
+        const float dh = slog(a.colv[2 * cn + 1]) - slog(a.colv[2 * cn]);
+        s = s + dh * h;
+      }
+      a.ll[cn * CL::kOut + (v - CL::kQq)] = s;
+    }
+    if (tid == 0) *tick_rows = 0;
+  }
+  if constexpr (kPacked && kSample) {
+    if ((last & 2) && n_live > 0) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+#pragma unroll
+        for (int j = 0; j < kQuad; ++j) {
+          if (j >= n_live) continue;
+          uint32_t zk = 0, ones = 0;
+          for (int st = 0; st < a.S; ++st) {
+            const uint32_t p = __ldcg(a.cnt_part +
+                                 (((long long)c * a.S + st) * K + k) * L +
+                                 l0 + j);
+            zk += p & 0xffffu;
+            ones += p >> 16;
+          }
+          float2 out;
+          out.x = (float)(zk - ones);
+          out.y = (float)ones;
+          *reinterpret_cast<float2*>(
+              a.zcounts + (((long long)c * K + k) * L + l0 + j) * 2) = out;
+        }
+      }
+    }
+    if ((last & 2) && tid == 0) *tick_cnt = 0;
+  }
 }
 
 inline int site_tiles(int L) { return (L + kTile - 1) / kTile; }
@@ -531,17 +709,21 @@ int launch_family(int K, const SiteArgs& a, dim3 grid, cudaStream_t s) {
 }  // namespace
 
 // One launch function per source (SITE_LAUNCH).  `fam` is a kFam* value; the
-// operand groups a family does not read may be null.  ll [C, N, n_out] and
-// the scratch ll_part [C, N, T, n_out], qq_part [C, N, T, K] are sized by the
-// wrapper with T = site_pass_tiles(L) and n_out as in Cols.
+// operand groups a family does not read may be null.  ll [C, N, n_out], the
+// scratch part [C, N, T, qq + acc columns], cnt_part [C, S, K, L] and
+// tickets [C*S + C*T] (zero before the first call; every call leaves them
+// zero) are sized by the wrapper with T = site_pass_tiles(L) and
+// S = site_pass_strips(...).
 extern "C" int SITE_LAUNCH(
     const void* q, const void* freq, const void* bits2, const void* geno,
     const void* valid, const void* hom, const void* z_in, const void* colv,
     const void* fvals, const void* u, void* z, void* qqnum, void* zcounts,
-    void* ll, void* ll_part, void* qq_part, int C, int N, int L, int K, int A,
-    int fam, int structure, long long plane_cs, unsigned k0, unsigned k1,
-    const void* chain_key, unsigned step, void* stream) {
+    void* ll, void* part, void* cnt_part, void* tickets, int C, int N, int L,
+    int K, int A, int fam, int structure, int S, long long plane_cs,
+    unsigned k0, unsigned k1, const void* chain_key, unsigned step,
+    void* stream) {
   if (C == 0 || N == 0 || L == 0) return 0;
+  if (S < 1 || (N + S - 1) / S > kMaxStripRows) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   SiteArgs a;
   a.q = (const float*)q;
@@ -555,61 +737,41 @@ extern "C" int SITE_LAUNCH(
   a.fvals = (const float*)fvals;
   a.u = (const float*)u;
   a.z = (int8_t*)z;
+  a.qqnum = (float*)qqnum;
   a.zcounts = (float*)zcounts;
-  a.ll_part = (float*)ll_part;
-  a.qq_part = (float*)qq_part;
+  a.ll = (float*)ll;
+  a.part = (float*)part;
+  a.cnt_part = (uint32_t*)cnt_part;
+  a.tickets = (int*)tickets;
   a.N = N;
   a.L = L;
   a.A = A;
   a.T = site_tiles(L);
+  a.S = S;
+  a.strip_rows = (N + S - 1) / S;
   a.structure = structure;
   a.plane_cs = plane_cs;
   a.k0 = k0;
   a.k1 = k1;
   a.step = step;
   a.chain_key = (const int*)chain_key;
-  if (kPacked && kSample)
-    cudaMemsetAsync(zcounts, 0, sizeof(float) * (size_t)C * K * L * 2, s);
-  const dim3 grid(a.T, (N + kRows - 1) / kRows, C);
-  int rc, n_out;
+  const dim3 grid(a.T, S, C);
   switch (fam) {
     case kFamMode1:
-      rc = launch_family<kFamMode1>(K, a, grid, s);
-      n_out = 1;
-      break;
+      return launch_family<kFamMode1>(K, a, grid, s);
     case kFamGen:
-      rc = launch_family<kFamGen>(K, a, grid, s);
-      n_out = kSample ? 2 : 1;
-      break;
+      return launch_family<kFamGen>(K, a, grid, s);
     case kFamFind:
-      rc = launch_family<kFamFind>(K, a, grid, s);
-      n_out = 1;
-      break;
+      return launch_family<kFamFind>(K, a, grid, s);
     case kFamFpop:
-      rc = launch_family<kFamFpop>(K, a, grid, s);
-      n_out = kSample ? K : 1;
-      break;
+      return launch_family<kFamFpop>(K, a, grid, s);
 #if SITE_SAMPLE
     case kFamNone:
-      rc = launch_family<kFamNone>(K, a, grid, s);
-      n_out = 0;
-      break;
+      return launch_family<kFamNone>(K, a, grid, s);
     case kFamGendiff:
-      rc = launch_family<kFamGendiff>(K, a, grid, s);
-      n_out = 1;
-      break;
+      return launch_family<kFamGendiff>(K, a, grid, s);
 #endif
     default:
       return (int)cudaErrorInvalidValue;
   }
-  if (rc != 0) return rc;
-  const int n_qq = kSample ? K : 0;
-  const long long total = (long long)C * N * (n_out + n_qq);
-  if (total == 0) return 0;
-  const int threads = 128;
-  site_reduce_kernel<<<(unsigned)((total + threads - 1) / threads), threads,
-                       0, s>>>((const float*)ll_part, (const float*)qq_part,
-                               (float*)ll, (float*)qqnum, (long long)C * N,
-                               a.T, n_out, n_qq);
-  return (int)cudaGetLastError();
 }

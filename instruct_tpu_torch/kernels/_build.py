@@ -63,11 +63,13 @@ _SIGNATURES = {
     # gen_cap, k0, k1, chain_key, step, stream
     "s_pop_tail_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _F, _I, _U, _U, _P, _U, _P],
+    # x, out, C, N, iters, stream (the S tail's latency floor)
+    "s_pop_floor_launch": [_P, _P, _I, _I, _I, _P],
     # q, freq, bits2, geno, valid, hom, z_in, colv, fvals, u, z, qqnum,
-    # zcounts, ll, ll_part, qq_part, C, N, L, K, A, family, structure,
-    # plane chain stride, k0, k1, chain_key, step, stream -- one per source of
-    # the site pass
-    **{f"site_{path}_{half}_launch": [_P] * 16 + [_I] * 7 + [_L, _U, _U, _P,
+    # zcounts, ll, part, cnt_part, tickets, C, N, L, K, A, family,
+    # structure, strips, plane chain stride, k0, k1, chain_key, step,
+    # stream -- one per source of the site pass
+    **{f"site_{path}_{half}_launch": [_P] * 17 + [_I] * 8 + [_L, _U, _U, _P,
                                                            _U, _P]
        for path in ("packed", "generic") for half in ("sample", "eval")},
     # z, bits2, geno, valid, counts, C, N, L, K, A, plane chain stride,
@@ -86,8 +88,10 @@ _SIGNATURES = {
     # table, lookup, log_mult, freq, freq2, z, geno, valid, ll, C, N, L, K,
     # A, G, V, n_max, autopoly, stream
     "site_ll_launch": [_P] * 9 + [_I] * 9 + [_P],
-    # L -> locus tiles per row of the site pass (not a launch)
+    # L -> locus tiles per row of the site pass; N -> its row strips (not
+    # launches)
     "site_pass_tiles": [_I],
+    "site_pass_strips": [_I],
 }
 
 

@@ -40,8 +40,10 @@ budget.
 
 Chains are a written-out leading axis ``C`` on every state tensor; the panel
 tensors carry none.  On CUDA tensors the wrappers launch the kernels of
-``csrc/site_pass.cuh`` / ``csrc/allele_counts.cu``; on CPU tensors they run
-the plain versions (``*_reference``, same signature) below.
+``csrc/site_pass.cuh`` (one launch per call; its scratch, kept per device
+and shape, is allocated at the first call) / ``csrc/allele_counts.cu``; on
+CPU tensors they run the plain versions (``*_reference``, same signature)
+below.
 
 z-draw uniforms: site ``(n, s)``, ``s = copy * L + l``, takes Philox word
 ``n * 2L + s`` of the (chain, step, ``STREAM_Z``) counter space through the
@@ -338,6 +340,31 @@ def _site_pass_reference(keys, step, q, freq, data: Dataset, z_in, colv,
 # the site pass: kernel launch
 # ---------------------------------------------------------------------------
 
+# (device, C, N, L, K, partial columns, counts?) -> the site pass's scratch
+_SCRATCH: dict = {}
+
+
+def _site_scratch(dev, c, n, l, k, cols, counts):
+    """(part, cnt_part, tickets, strips) of a site-pass call: the tile
+    partials f32[C, N, T, cols], the strip counts i32[C, S, K, L] (packed
+    sampling pass; else None) and the tickets i32[C*S + C*T].  Allocated
+    once per device and shape and kept: the tickets are zeroed once, and
+    every call leaves them zero.  Calls that share them run in stream
+    order."""
+    key = (dev, c, n, l, k, cols, counts)
+    hit = _SCRATCH.get(key)
+    if hit is None:
+        lib = _build.library()
+        t, s = lib.site_pass_tiles(l), lib.site_pass_strips(n)
+        hit = (torch.empty((c, n, t, max(cols, 1)), dtype=torch.float32,
+                           device=dev),
+               torch.empty((c, s, k, l), dtype=torch.int32, device=dev)
+               if counts else None,
+               torch.zeros(c * s + c * t, dtype=torch.int32, device=dev), s)
+        _SCRATCH[key] = hit
+    return hit
+
+
 def _site_pass(name: str, keys, step, q, freq, data: Dataset, z_in, colv,
                fvals, u, *, sample: bool, ll_kind: str,
                structure: bool = True):
@@ -389,29 +416,30 @@ def _site_pass(name: str, keys, step, q, freq, data: Dataset, z_in, colv,
         chk(u, "u", torch.float32, (c, n, 2 * l))
     dev = freq.device
     f32 = dict(dtype=torch.float32, device=dev)
-    t = _build.library().site_pass_tiles(l)
+    n_acc = 2 if ll_kind == "gendiff" else n_out
+    part, cnt_part, tickets, strips = _site_scratch(
+        dev, c, n, l, k, (k if sample else 0) + n_acc, packed and sample)
     res = {}
-    z = qqnum = zcounts = qq_part = ll = ll_part = chain_key = None
+    z = qqnum = zcounts = ll = chain_key = None
     if sample:
         chain_key = keys.chain_key
         chk(chain_key, "chain_key", torch.int32, (c,))
         z = torch.empty((c, n, 2 * l), dtype=torch.int8, device=dev)
         qqnum = torch.empty((c, n, k), **f32)
-        qq_part = torch.empty((c, n, t, k), **f32)
         if packed:
             zcounts = torch.empty((c, k, l, 2), **f32)
         res.update(z=z, qqnum=qqnum, zcounts=zcounts)
     if n_out:
         ll = torch.empty((c, n, n_out), **f32)
-        ll_part = torch.empty((c, n, t, n_out), **f32)
         res["ll"] = ll
     p = _build.ptr
     fn = (f"site_{'packed' if packed else 'generic'}_"
           f"{'sample' if sample else 'eval'}_launch")
     _build.launch(name if packed else name + "_generic", fn, p(q), p(freq),
                   *[p(x) for x in planes], p(z_in), p(colv), p(fvals), p(u),
-                  p(z), p(qqnum), p(zcounts), p(ll), p(ll_part), p(qq_part),
-                  c, n, l, k, a, _FAMILY[ll_kind], int(structure), plane_cs,
+                  p(z), p(qqnum), p(zcounts), p(ll), p(part), p(cnt_part),
+                  p(tickets), c, n, l, k, a, _FAMILY[ll_kind], int(structure),
+                  strips, plane_cs,
                   keys.k0 if sample else 0, keys.k1 if sample else 0,
                   p(chain_key), step if sample else 0)
     return res

@@ -12,12 +12,14 @@ Counterpart of ``instruct_tpu/kernels/s_pop_pallas.py`` (``s_pop_tail``
   * the generation-weight pair ``2^(1-g)`` for (current, proposed) g; and
   * the log-uniforms of the downstream G accept.
 
-On CUDA tensors the wrapper launches ``csrc/s_pop.cu`` (one block per
-chain, the MH iterations a loop inside the block); on CPU tensors it runs the
-plain version below.  The target's sum over individuals is taken in one
-fixed order in both — each of 1024 lanes adds its strided elements, then a
-halving tree — so the knife-edge accept tests ``log u < f_new - f_cur`` see
-the same floats in the kernel and in the plain version.
+On CUDA tensors the wrapper launches ``csrc/s_pop.cu`` (one block of 512
+threads per chain, the MH iterations a loop inside the block, each thread's
+individuals in registers); on CPU tensors it runs the plain version below.
+The target's sum over individuals is taken in one fixed order in both
+(:func:`block_sum`: each thread adds its strided individuals in turn, a warp
+butterfly, then the 16 warp partials in order), so the knife-edge accept
+tests ``log u < f_new - f_cur`` see the same floats in the kernel and in the
+plain version.
 
 Uniforms, in the JAX kernel's draw order: ``u_prop`` and ``u_acc`` (one per
 MH iteration, iteration ``j*K + k``), then ``ug`` (G proposal) and ``ul``
@@ -34,23 +36,34 @@ from instruct_tpu_torch.kernels import _build
 from instruct_tpu_torch.kernels import philox as px
 
 _EPS = 1e-30
-_LANES = 1024      # threads of the kernel's block == lanes of the fixed sum
+_THREADS = 512     # threads of the kernel's block
+_WARP = 32
+# individuals the kernel keeps in registers (8 a thread); beyond, it streams
+# them through a scratch sbar row
+_REGISTER_INDIVIDUALS = 8 * _THREADS
 MAX_POPS = 8
 
 
 def block_sum(t: torch.Tensor) -> torch.Tensor:
-    """f32[C, N] -> f32[C] in the kernel's order: lane ``i`` adds elements
-    ``i, i + 1024, ...`` in turn, then a halving tree over the lanes."""
+    """f32[C, N] -> f32[C] in the kernel's order: thread ``i`` of 512 adds
+    elements ``i, i + 512, ...`` in turn; a warp butterfly adds the 32
+    threads of each warp (the halving tree over lanes 16, 8, 4, 2, 1); then
+    the 16 warp partials are added in order."""
     c, n = t.shape
-    t = F.pad(t, (0, -n % _LANES)).reshape(c, -1, _LANES)
+    t = F.pad(t, (0, -n % _THREADS)).reshape(c, -1, _THREADS)
     acc = t[:, 0]
     for m in range(1, t.shape[1]):
         acc = acc + t[:, m]
-    s = _LANES // 2
+    acc = acc.reshape(c, _THREADS // _WARP, _WARP)
+    s = _WARP // 2
     while s >= 1:
-        acc = acc[:, :s] + acc[:, s:2 * s]
+        acc = acc[..., :s] + acc[..., s:2 * s]
         s //= 2
-    return acc[:, 0]
+    acc = acc[..., 0]
+    total = acc[:, 0]
+    for w in range(1, acc.shape[1]):
+        total = total + acc[:, w]
+    return total
 
 
 def _draws(keys, step, n_chains, nu, n, test_draws):
@@ -165,7 +178,9 @@ def s_pop_tail(keys, step: int, q: torch.Tensor, gen: torch.Tensor,
         for d, cols in zip(draws, (sweeps * k, sweeps * k, n, n)):
             _build.check(d, "test_draws", torch.float32, (n_chains, cols))
     dev = q.device
-    sbar = torch.empty((n_chains, n), dtype=torch.float32, device=dev)
+    # the scratch row only where the state does not fit the registers
+    sbar = (torch.empty((n_chains, n), dtype=torch.float32, device=dev)
+            if n > _REGISTER_INDIVIDUALS else None)
     out_rates = torch.empty_like(rates)
     gen_prop = torch.empty_like(gen)
     wg_pair = torch.empty((n_chains, n, 2), dtype=torch.float32, device=dev)
@@ -177,3 +192,29 @@ def s_pop_tail(keys, step: int, q: torch.Tensor, gen: torch.Tensor,
                   n_chains, n, k, sweeps, float(delta0), gen_cap, keys.k0,
                   keys.k1, p(keys.chain_key), step)
     return out_rates, gen_prop, wg_pair, logu
+
+
+def reduction_floor_reference(x: torch.Tensor, iters: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`reduction_floor` (same signature)."""
+    total = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    for _ in range(iters):
+        total = block_sum(x + total[:, None] * 1e-30)
+    return total
+
+
+def reduction_floor(x: torch.Tensor, iters: int) -> torch.Tensor:
+    """The S tail's latency floor, a measurement aid: ``iters`` dependent
+    :func:`block_sum` reductions of x f32[C, N] (N <= 4096), each input
+    depending on the previous total, with the tail's block shape and
+    register layout and nothing else.  Returns the last totals f32[C]."""
+    c, n = x.shape
+    if n > _REGISTER_INDIVIDUALS:
+        raise ValueError(f"reduction_floor takes N <= "
+                         f"{_REGISTER_INDIVIDUALS}, got {n}")
+    if not x.is_cuda:
+        return reduction_floor_reference(x, iters)
+    _build.check(x, "x", torch.float32)
+    out = torch.empty(c, dtype=torch.float32, device=x.device)
+    _build.launch("s_pop_floor", "s_pop_floor_launch", _build.ptr(x),
+                  _build.ptr(out), c, n, iters)
+    return out

@@ -6,13 +6,14 @@
 Compiles the packed sampling instantiation of
 ``instruct_tpu_torch/csrc/site_pass.cuh`` (with its ``quad.cuh``) several
 times with ``nvcc`` (K = 3 only) -- once per launch shape (the
-``SITE_THREADS``, ``SITE_ROWS`` and ``SITE_MIN_BLOCKS`` macros of the
+``SITE_THREADS``, ``SITE_STAGE_ROWS`` and ``SITE_MIN_BLOCKS`` macros of the
 source) and once per ablation (a textual
-patch that removes one part of the sampling kernel's work: the count
-atomics, the Philox rounds, the log, the z stores, the warp reductions, the
-memset) -- and times the ``zq_gendiff_pass`` launch of each at the headline
-shapes (4 chains, N = 1000, L = 10 000, K = 3), with CUDA events over runs
-of 10 back-to-back launches.  ``same`` says whether z, qqnum and zcounts
+patch that removes one part of the sampling kernel's work: the strip count
+partials, the Philox rounds, the log, the z stores, the warp reductions, the
+asynchronous staging (plain loads instead), the last blocks' ticket
+reductions) -- and times the ``zq_gendiff_pass`` launch of each at the
+headline shapes (4 chains, N = 1000, L = 10 000, K = 3), with CUDA events
+over runs of 10 back-to-back launches.  ``same`` says whether z, qqnum and zcounts
 equal the unmodified kernel's (an ablation changes the result by design; a
 launch shape must not).  One line per variant; nothing is written to the
 package.  A tuning aid: it shows which part of the kernel a change would
@@ -39,20 +40,17 @@ C, N, L, K = 4, 1000, 10_000, 3
 
 SHAPES = {
     "base": [],
-    "min_blocks=3": ["SITE_MIN_BLOCKS=3"],
-    "min_blocks=4": ["SITE_MIN_BLOCKS=4"],
-    "rows=8": ["SITE_ROWS=8"],
-    "rows=16": ["SITE_ROWS=16"],
-    "rows=64": ["SITE_ROWS=64"],
-    "threads=128": ["SITE_THREADS=128"],
-    "threads=128,min_blocks=6": ["SITE_THREADS=128", "SITE_MIN_BLOCKS=6"],
+    "min_blocks=6": ["SITE_MIN_BLOCKS=6"],
+    "stage_rows=4": ["SITE_STAGE_ROWS=4"],
+    "stage_rows=16": ["SITE_STAGE_ROWS=16"],
+    "threads=256": ["SITE_THREADS=256", "SITE_MIN_BLOCKS=2"],
 }
 
 # (text in the source, replacement): each removes one part of the work
 ABLATIONS = {
-    "no count atomics": [
-        ("if (zeros != 0) atomicAdd(", "if (zeros == 12345) atomicAdd("),
-        ("if (ones != 0) atomicAdd(", "if (ones == 12345) atomicAdd(")],
+    "no count partials": [
+        ("if (j < n_live) dst[l0 + j] = cnt[j][k];",
+         "if (j < n_live && cnt[j][k] == 12345u) dst[l0 + j] = cnt[j][k];")],
     "no Philox rounds": [
         ("const Philox4 a = philox4x32_10(blk, STREAM_Z, step, chain, k0, "
          "k1);",
@@ -67,10 +65,23 @@ ABLATIONS = {
          "if (cv0 == 12345.0f) store_bytes(zrow + L, l0, L, vec, z1v);")],
     "no warp reductions": [
         ("for (int o = 16; o >= 1; o >>= 1) v = v + __shfl_xor_sync(",
-         "for (int o = 16; o >= 16; o >>= 1) v = v + __shfl_xor_sync(")],
-    "no memset": [
-        ("cudaMemsetAsync(zcounts, 0, sizeof(float) * (size_t)C * K * L * 2,"
-         " s);", "(void)0;")],
+         "for (int o = 16; o >= 16; o >>= 1) v = v + __shfl_xor_sync("),
+        ("const uint32_t s2 = __reduce_add_sync(0xffffffffu, pair);",
+         "const uint32_t s2 = pair;"),
+        ("s2 = (float)__reduce_add_sync(0xffffffffu, het);",
+         "s2 = (float)het;")],
+    "no async staging": [
+        ("cp_async4(&stage[buf][w][rr][tid], src[w] + l0);",
+         "stage[buf][w][rr][tid] = "
+         "*reinterpret_cast<const uint32_t*>(src[w] + l0);")],
+    "no ticket reductions": [
+        ("if (last == 0) return;", "if (last >= 0) return;")],
+}
+# launch shape by patch: the strips of one wave (PR 5's first rule, about
+# 110 rows a strip at the headline shape) instead of 16-row strips
+SHAPE_PATCHES = {
+    "strips of 112 rows": [
+        ("constexpr int kStripRows = 16;", "constexpr int kStripRows = 112;")],
 }
 ABLATIONS["all of the above"] = [p for ps in list(ABLATIONS.values())
                                  for p in ps]
@@ -110,8 +121,9 @@ def build(work: pathlib.Path, tag: str, headers: dict, defines):
     lib = ctypes.CDLL(str(so))
     getattr(lib, LAUNCH).argtypes = _build._SIGNATURES[LAUNCH]
     getattr(lib, LAUNCH).restype = ctypes.c_int
-    lib.site_pass_tiles.argtypes = [ctypes.c_int]
-    lib.site_pass_tiles.restype = ctypes.c_int
+    for fn in ("site_pass_tiles", "site_pass_strips"):
+        getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
+        getattr(lib, fn).restype = ctypes.c_int
     return lib, regs
 
 
@@ -139,20 +151,29 @@ def main() -> int:
     wg_pair = torch.exp2(1.0 - gen.float()).contiguous()
     keys = px.make_keys(2024, C, "cuda")
 
+    scratch = {}
+
     def run(lib):
-        t = lib.site_pass_tiles(L)
+        if id(lib) not in scratch:
+            t, s = lib.site_pass_tiles(L), lib.site_pass_strips(N)
+            scratch[id(lib)] = (
+                torch.empty((C, N, t, K + 2), dtype=torch.float32,
+                            device="cuda"),
+                torch.empty((C, s, K, L), dtype=torch.int32, device="cuda"),
+                torch.zeros(C * s + C * t, dtype=torch.int32, device="cuda"),
+                s)
+        part, cnt, tickets, s = scratch[id(lib)]
         f32 = dict(dtype=torch.float32, device="cuda")
         z = torch.empty((C, N, 2 * L), dtype=torch.int8, device="cuda")
         qq, zc = torch.empty((C, N, K), **f32), torch.empty((C, K, L, 2),
                                                             **f32)
-        ll, llp = torch.empty((C, N), **f32), torch.empty((C, N, t), **f32)
-        qqp = torch.empty((C, N, t, K), **f32)
+        ll = torch.empty((C, N), **f32)
         rc = getattr(lib, LAUNCH)(
             q.data_ptr(), freq.data_ptr(), bits2.data_ptr(), None, None,
             None, None, wg_pair.data_ptr(), None, None, z.data_ptr(),
-            qq.data_ptr(), zc.data_ptr(), ll.data_ptr(), llp.data_ptr(),
-            qqp.data_ptr(), C, N, L, K, 2, GENDIFF, 1, keys.k0, keys.k1,
-            keys.chain_key.data_ptr(), 5,
+            qq.data_ptr(), zc.data_ptr(), ll.data_ptr(), part.data_ptr(),
+            cnt.data_ptr(), tickets.data_ptr(), C, N, L, K, 2, GENDIFF, 1, s,
+            0, keys.k0, keys.k1, keys.chain_key.data_ptr(), 5,
             torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"launch refused: cudaGetLastError = {rc}")
@@ -176,6 +197,14 @@ def main() -> int:
 
     source = {name: (_build.CSRC / name).read_text() for name in HEADERS}
     variants = [(tag, source, d) for tag, d in SHAPES.items()]
+    for tag, patches in SHAPE_PATCHES.items():
+        src = dict(source)
+        for old, new in patches:
+            if old not in src["site_pass.cuh"]:
+                raise RuntimeError(f"shape {tag!r}: {old!r} is no longer in "
+                                   "site_pass.cuh")
+            src["site_pass.cuh"] = src["site_pass.cuh"].replace(old, new)
+        variants.append((tag, src, []))
     for tag, patches in ABLATIONS.items():
         src = dict(source)
         for old, new in patches:

@@ -232,19 +232,42 @@ def test_s_pop_tail_boundaries_and_wide_k():
                        gen_cap=50)
 
 
-def test_block_sum_is_the_fixed_tree():
+@pytest.mark.parametrize("n", [1, 31, 33, 1000, 1025, 2500])
+def test_block_sum_is_the_fixed_tree(n):
     rng = np.random.default_rng(2)
-    t = rng.normal(size=(2, 2500)).astype(np.float32)
+    t = rng.normal(size=(2, n)).astype(np.float32)
     got = tsp.block_sum(_t(t)).numpy()
-    pad = np.zeros((2, 3072), np.float32)
-    pad[:, :2500] = t
-    acc = pad[:, :1024] + pad[:, 1024:2048]
-    acc = acc + pad[:, 2048:]
-    s = 512
-    while s >= 1:
-        acc = acc[:, :s] + acc[:, s:2 * s]
-        s //= 2
-    np.testing.assert_array_equal(got, acc[:, 0])
+    # the kernel's order: thread i of 512 adds elements i, i + 512, ... in
+    # turn; a warp butterfly over each 32 threads; the 16 warps in order
+    rows = -(-n // 512)
+    pad = np.zeros((2, rows * 512), np.float32)
+    pad[:, :n] = t
+    acc = pad[:, :512].copy()
+    for m in range(1, rows):
+        acc = acc + pad[:, m * 512:(m + 1) * 512]
+    warps = []
+    for w in range(16):
+        lanes = acc[:, 32 * w:32 * (w + 1)].copy()
+        for o in (16, 8, 4, 2, 1):
+            lanes = lanes + lanes[:, np.arange(32) ^ o]
+        assert (lanes == lanes[:, :1]).all()   # every lane holds the sum
+        warps.append(lanes[:, 0])
+    want = warps[0]
+    for w in range(1, 16):
+        want = want + warps[w]
+    np.testing.assert_array_equal(got, want)
+
+
+def test_reduction_floor_is_dependent_block_sums():
+    # the S tail's latency floor: each total feeds the next reduction's input
+    rng = np.random.default_rng(3)
+    x = _t(rng.uniform(size=(2, 700)).astype(np.float32))
+    total = torch.zeros(2)
+    for _ in range(5):
+        total = tsp.block_sum(x + total[:, None] * 1e-30)
+    assert torch.equal(tsp.reduction_floor(x, 5), total)
+    with pytest.raises(ValueError):
+        tsp.reduction_floor(torch.zeros(1, 4097), 1)
 
 
 @pytest.mark.parametrize("rows_per_group,c", [(2, 300), (3, 77)])
