@@ -77,7 +77,7 @@ ABLATIONS = {
     "no ticket reductions": [
         ("if (last == 0) return;", "if (last >= 0) return;")],
 }
-# launch shape by patch: the strips of one wave (PR 5's first rule, about
+# launch shape by patch: strips long enough for one wave of blocks (about
 # 110 rows a strip at the headline shape) instead of 16-row strips
 SHAPE_PATCHES = {
     "strips of 112 rows": [
