@@ -7,16 +7,20 @@ Builds the hand-written CUDA kernels of ``instruct_tpu_torch`` from
 ``instruct_tpu_torch/csrc`` with ``nvcc``, holds each kernel against its plain
 PyTorch version on the card at the sampler's headline shapes (N = 1000
 individuals x L = 10 000 loci, K = 3, 4 chains, packed biallelic panel;
-N = 1000 x L = 2000 with A = 8 alleles for the generic site path; and
-N = 1000 x L = 2000 with A = 16 alleles and K = 5, a microsatellite panel
-whose K*A = 80 only the unfused sweep runs), and the tetraploid engine's
-kernels on its benchmark panels (N = 500 x L = 5000, K = 3, A = 4, auto and
-allo), then drives the main path -- ``run_mcmc`` on the diploid mode-2
-biallelic panel -- and the other paths -- ``run_mcmc`` in modes 1, 3, 4, 5 on
-that panel and in every mode on the A = 8 panel (the fused sweep); the
-unfused sweep in mode 2 and modes 1, 3, 4, 5 on the wide panel, mode 0,
-``use_pallas=False``, K = 12, and the fused sweep under the normal prior and
-the adaptive-independence proposal; the tetraploid engine, auto and allo, and
+N = 1000 x L = 2000 with A = 8 alleles for the generic site path; the site
+pass's run-time-K body at K = 12 on the headline panel, K = 10 with the K
+grid's 40 chains and K = 16 on an A = 4 panel, with K = 9 and 32 as variants;
+and N = 1000 x L = 2000 with A = 16 alleles and K = 5, a microsatellite
+panel whose K*A = 80 only the unfused sweep runs), and the tetraploid
+engine's kernels on its benchmark panels (N = 500 x L = 5000, K = 3, A = 4,
+auto and allo), then drives the main paths -- ``run_mcmc`` on the diploid
+mode-2 biallelic panel, and ``infer_k`` over K = 1..10 on it (one padded
+grid of 40 replicas) -- and the other paths -- ``run_mcmc`` in modes 1, 3,
+4, 5 on that panel, in every mode on the A = 8 panel and in modes 1, 2, 4, 5
+at K = 12 and at K = 16 on the A = 4 panel (the fused sweep); the unfused
+sweep in mode 2 and modes 1, 3, 4, 5 on the wide panel, mode 0,
+``use_pallas=False``, and the fused sweep under the normal prior and the
+adaptive-independence proposal; the tetraploid engine, auto and allo, and
 its four-subsweep S update, adaptive proposal, unfused sweep and a panel of
 wide class tables (A = 8, K * G = 1320) -- and checks that each
 went through its kernels, that its output is sane and that two runs from one
@@ -30,7 +34,7 @@ prints them; the line before that is the ``{"kernels": [...]}`` summary; the
 last line is ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset of build, kernels, main_path, modes, unfused,
-tetra (development aid); the device and Philox phases always run.
+tetra, kselect (development aid); the device and Philox phases always run.
 """
 
 from __future__ import annotations
@@ -46,7 +50,10 @@ import time
 import numpy as np
 import torch
 
-from instruct_tpu_torch import (ModelSpec, Priors, Schedule, run_mcmc,
+import dataclasses
+
+from instruct_tpu_torch import (ModelSpec, Priors, Schedule, infer_k,
+                                run_mcmc,
                                 synthetic_panel)
 from instruct_tpu_torch.config import PriorFamily
 from instruct_tpu_torch.data.dataset import Dataset, packed_dataset
@@ -72,6 +79,13 @@ GEN_LOCI, GEN_ALLELES = 2000, 8
 WIDE_LOCI, WIDE_ALLELES, WIDE_POPS = 2000, 16, 5
 WIDE_RATES = (0.1, 0.3, 0.5, 0.7, 0.9)
 UNFUSED_ITER = 40      # sweeps of the shorter unfused and new-arm paths
+# K > 8, the site pass's run-time-K body: K = 12 on the headline panel, K = 16
+# on an A = 4 panel (N = 1000 x L = 2000), each K*A <= 64
+WIDE_K, GEN16_K, GEN16_ALLELES = 12, 16, 4
+# K selection (the slice's main path): 4 chains per K, K = 1..10 (the
+# reference's default range up to N^0.3 + 1 at N = 1600) -- one padded grid
+# of 40 replicas at K_max = 10
+KSEL_CHAINS, KSEL_MAX = 4, 10
 # The tetraploid benchmark panels (the JAX package's, bench.py:100-130).
 TETRA_INDV, TETRA_LOCI, TETRA_ALLELES, TETRA_SEED = 500, 5000, 4, 7
 TETRA_ITER = 100       # sweeps of the tetraploid paths (half burn-in)
@@ -226,10 +240,12 @@ def phase_philox() -> dict:
 # phase 4: each kernel against its plain version, at the main-path shapes
 # ---------------------------------------------------------------------------
 
-def kernel_inputs(panel, k: int = N_POPS):
-    """State-like inputs at the panel's shapes, from a seed."""
+def kernel_inputs(panel, k: int = N_POPS, c: int = N_CHAINS,
+                  zero_tail: int = 0):
+    """State-like inputs at the panel's shapes, from a seed.  With
+    ``zero_tail`` the first half of each chain's rows has that many
+    trailing zero-q columns (the padded K grid's inactive slots)."""
     data = panel.data.to("cuda")
-    c = N_CHAINS
     n, l, a = data.n_indv, data.n_loci, data.max_alleles
     g = torch.Generator(device="cuda").manual_seed(99)
     gam = torch._standard_gamma(torch.full((c, k, l, a), 1.0, device="cuda"),
@@ -237,6 +253,8 @@ def kernel_inputs(panel, k: int = N_POPS):
     freq = (gam / gam.sum(-1, keepdim=True)).contiguous()
     gq = torch._standard_gamma(torch.full((c, n, k), 0.3, device="cuda"),
                                generator=g).clamp_min(1e-20)
+    if zero_tail:
+        gq[:, : n // 2, k - zero_tail:] = 0.0
     q = (gq / gq.sum(-1, keepdim=True)).contiguous()
     z = torch.randint(0, k, (c, n, 2 * l), generator=g, device="cuda",
                       dtype=torch.int8)
@@ -255,7 +273,7 @@ def kernel_inputs(panel, k: int = N_POPS):
 
     return dict(data=data, freq=freq, q=q, z=z, gen=gen, rates=rates,
                 wg_pair=wg_pair.contiguous(), keys=keys, f_pop=f_pair(k),
-                f_ind=f_pair(n))
+                f_ind=f_pair(n), zero_tail=zero_tail)
 
 
 def check_allele_counts(x):
@@ -413,7 +431,8 @@ def ploidy4_inputs():
 
 # Entry points of the site pass: (launch-counter name, line of the wrapper's
 # JAX counterpart in instruct_tpu/kernels/fused_step.py, sampling?).  On the
-# generic path the counter is the name + "_generic".
+# generic path the counter is the name + "_generic", and the run-time-K
+# body (K > 8) adds "_wide" (fs.site_counter).
 SITE_ENTRIES = (("site_pass_sample", 763, True),
                 ("site_pass_mode1", 790, True),
                 ("site_pass_gen", 730, True),
@@ -435,10 +454,36 @@ LL_ATOL = {"site_pass_gendiff": 2e-3, "site_pass_find": 2e-3,
            "site_pass_fpop": 2e-3}
 
 
-def site_calls(name: str, x, structure: bool, u=None):
+def chain_rows(x, lo: int, hi: int):
+    """The inputs ``x`` of chains lo..hi-1 (the chains draw from their own
+    keys, so a group of them is a run of its own)."""
+    out = dict(x)
+    for name in ("freq", "q", "z", "gen", "rates", "wg_pair", "f_pop",
+                 "f_ind"):
+        out[name] = x[name][lo:hi]
+    out["keys"] = x["keys"]._replace(chain_key=x["keys"].chain_key[lo:hi])
+    return out
+
+
+def site_calls(name: str, x, structure: bool, u=None, plain_group=None):
     """(kernel call, plain call) of one entry point on the inputs ``x``,
     each returning dict(z, qqnum, zcounts, ll) with ``None`` for what the
-    entry point does not return."""
+    entry point does not return.  ``plain_group`` runs the plain version
+    that many chains at a time (its [C, N, L] temporaries do not fit the
+    card at the K grid's 40 chains) and joins the groups."""
+    if plain_group is not None:
+        c = x["q"].shape[0]
+        groups = [site_calls(name, chain_rows(x, lo, lo + plain_group),
+                             structure,
+                             None if u is None else u[lo:lo + plain_group])
+                  for lo in range(0, c, plain_group)]
+        kernel = site_calls(name, x, structure, u)[0]
+
+        def plain():
+            outs = [grp[1]() for grp in groups]
+            return {nm: None if outs[0][nm] is None else
+                    torch.cat([o[nm] for o in outs]) for nm in outs[0]}
+        return kernel, plain
     d, keys, q, freq, z = x["data"], x["keys"], x["q"], x["freq"], x["z"]
     wg0 = x["wg_pair"][:, :, 0].contiguous()
     f_pop0 = x["f_pop"][:, :, 0].contiguous()
@@ -543,7 +588,7 @@ def site_work(name, x, out, structure):
         n_bytes += c * k * n_in * 4
     n_bytes += c * n * 2 * l                       # z, written or read
     if sample:
-        n_bytes += c * n * k * 4 + (c * k * l * 2 * 4 if packed else 0)
+        n_bytes += c * n * k * 4 + c * k * l * a * 4     # qqnum, zcounts
     if out["ll"] is not None:
         n_bytes += out["ll"].numel() * 4
     per_site = 0.0
@@ -555,13 +600,14 @@ def site_work(name, x, out, structure):
     return n_bytes, n_ops
 
 
-def check_site_entry(name, line, x, structure=True, timed=True):
+def check_site_entry(name, line, x, structure=True, timed=True,
+                     plain_group=None):
     d = x["data"]
-    c, _, k = x["q"].shape
+    c, n, k = x["q"].shape
     packed = fs.is_packed(d)
-    counter = name if packed else name + "_generic"
-    tag = f"{counter}(structure={structure})"
-    run, plain = site_calls(name, x, structure)
+    counter = fs.site_counter(name, d, k)
+    tag = f"{counter}(K={k}, structure={structure})"
+    run, plain = site_calls(name, x, structure, plain_group=plain_group)
     got, want = run(), plain()
     scale = d.n_loci / 10_000
     err = site_agrees(tag, name, got, want, scale)
@@ -571,17 +617,22 @@ def check_site_entry(name, line, x, structure=True, timed=True):
         for ch in range(c):
             if float(got["qqnum"][ch].sum()) != valid2:
                 raise AssertionError(f"{tag}: qqnum.sum() != 2 * valid sites")
-            if packed and float(got["zcounts"][ch].sum()) != valid2:
+            if float(got["zcounts"][ch].sum()) != valid2:
                 raise AssertionError(f"{tag}: zcounts.sum() != 2 * valid "
                                      "sites")
+        if x.get("zero_tail"):
+            # rows whose trailing q is zero never draw those slots
+            cut = k - x["zero_tail"]
+            if int(got["z"][:, : n // 2].max()) >= cut:
+                raise AssertionError(f"{tag}: z selects a zero-q slot")
         if not packed:
-            # the generic pass carries no counts: the step recounts with K4
+            # the generic pass carries the counts the allele_counts kernel
+            # (K4) makes of its z
             kw = dict(n_pops=k, max_alleles=d.max_alleles)
-            cnt = fs.allele_counts(got["z"], d.geno, d.site_valid, **kw)
-            if not torch.equal(cnt, fs.allele_counts_reference(
+            if not torch.equal(got["zcounts"], fs.allele_counts(
                     got["z"], d.geno, d.site_valid, **kw)):
-                raise AssertionError(f"{tag}: the recount of the fresh z "
-                                     "differs from its plain version")
+                raise AssertionError(f"{tag}: the carried counts differ "
+                                     "from allele_counts'")
     again = run()
     for nm in ("z", "qqnum", "zcounts", "ll"):
         if got[nm] is not None and not torch.equal(got[nm], again[nm]):
@@ -591,9 +642,11 @@ def check_site_entry(name, line, x, structure=True, timed=True):
         # injected uniforms are honoured by the kernel too
         u = torch.rand(tuple(got["z"].shape), device="cuda",
                        generator=torch.Generator("cuda").manual_seed(3))
-        run_u, plain_u = site_calls(name, x, structure, u=u)
+        run_u, plain_u = site_calls(name, x, structure, u=u,
+                                    plain_group=plain_group)
         site_agrees(tag + " under injected uniforms", name, run_u(),
                     plain_u(), scale)
+        del u
     notes = []
     if name == "site_pass_fpop":
         # the step sums fdiff over N and accepts where log u < sum: the
@@ -615,6 +668,7 @@ def check_site_entry(name, line, x, structure=True, timed=True):
     entry = dict(name=counter, route="cuda",
                  source="instruct_tpu_torch/csrc/site_pass.cuh",
                  replaces=f"instruct_tpu/kernels/fused_step.py:{line}",
+                 shape=dict(C=c, N=n, L=d.n_loci, K=k, A=d.max_alleles),
                  structure=structure, max_abs_err=err, bound_ms=b_ms,
                  bound_by=b_by, library_ms=None, bytes=n_bytes, ops=n_ops,
                  notes=notes,
@@ -627,8 +681,9 @@ def check_site_entry(name, line, x, structure=True, timed=True):
     return entry
 
 
-def check_site_entries(x, structure=True, timed=True, only=None):
-    return [check_site_entry(name, line, x, structure, timed)
+def check_site_entries(x, structure=True, timed=True, only=None,
+                       plain_group=None):
+    return [check_site_entry(name, line, x, structure, timed, plain_group)
             for name, line, _ in SITE_ENTRIES
             if only is None or name in only]
 
@@ -870,15 +925,24 @@ def phase_edge_shapes() -> None:
             x = x * mask
         return (x / x.sum(-1, keepdim=True)).contiguous()
 
+    # K <= 8 (one body per K), then the run-time-K body at K = 9..32 with
+    # K * A <= 64, whose rows' first half has three trailing zero-q columns
+    # (the padded K grid's inactive slots)
     cases = [(1, 5, 7, 1, 3), (2, 33, 1025, 2, 5), (3, 70, 130, 3, 8),
              (2, 45, 1030, 4, 3), (1, 1100, 36, 5, 5), (2, 40, 37, 6, 8),
-             (1, 64, 250, 7, 5), (2, 1500, 9, 8, 8), (4, 77, 1030, 3, 4)]
+             (1, 64, 250, 7, 5), (2, 1500, 9, 8, 8), (4, 77, 1030, 3, 4),
+             (2, 45, 1030, 9, 3), (1, 70, 131, 12, 5), (2, 33, 250, 16, 4),
+             (3, 40, 37, 32, 2), (1, 1100, 36, 10, 6)]
     for c, n, l, k, a in cases:
         tag = f"edge shape C={c} N={n} L={l} K={k}"
         keys = px.make_keys(77, c, "cuda", chain_key=range(3, 3 + c))
         bits2 = torch.randint(0, 8, (n, l), generator=g, device="cuda",
                               dtype=torch.int8)
         q = simplex(c, n, k)
+        zero_tail = 3 if k > fs.WIDE_POPS else 0
+        if zero_tail:
+            q[:, : n // 2, k - zero_tail:] = 0.0
+            q = (q / q.sum(-1, keepdim=True)).contiguous()
         gen = torch.randint(1, 9, (c, n, 2), generator=g, device="cuda")
         wg_pair = torch.exp2(1.0 - gen.float()).contiguous()
         rates = (rand(c, k) * 0.9 + 0.05).contiguous()
@@ -890,7 +954,8 @@ def phase_edge_shapes() -> None:
             x = dict(data=data, keys=keys, q=q, z=z, wg_pair=wg_pair,
                      freq=simplex(c, k, l, data.max_alleles, mask=av),
                      f_pop=(rand(c, k, 2) * 0.98 + 0.01).contiguous(),
-                     f_ind=(rand(c, n, 2) * 0.98 + 0.01).contiguous())
+                     f_ind=(rand(c, n, 2) * 0.98 + 0.01).contiguous(),
+                     zero_tail=zero_tail)
             for structure in (True, False):
                 check_site_entries(x, structure, timed=False,
                                    only=None if structure else EXP_WAY)
@@ -908,10 +973,11 @@ def phase_edge_shapes() -> None:
         kw = dict(subsweeps=3, delta0=0.05, gen_cap=50)
         gen1 = gen[:, :, 0].to(torch.int32).contiguous()
         mg = []
-        s_pop_agrees(f"{tag} s_pop_tail",
-                     sp.s_pop_tail(keys, 2, q, gen1, rates, **kw),
-                     sp.s_pop_tail_reference(keys, 2, q, gen1, rates, **kw,
-                                             margins=mg), mg)
+        if k <= sp.MAX_POPS:
+            s_pop_agrees(f"{tag} s_pop_tail",
+                         sp.s_pop_tail(keys, 2, q, gen1, rates, **kw),
+                         sp.s_pop_tail_reference(keys, 2, q, gen1, rates,
+                                                 **kw, margins=mg), mg)
         conc = (rand(c, n, k) * 5.0 + 0.05).contiguous()
         mg = []
         want = dk.dirichlet_nk_reference(keys, 2, conc, margins=mg)
@@ -963,7 +1029,7 @@ def phase_edge_shapes() -> None:
                     fs.allele_counts(z, geno, site_valid, **kw),
                     fs.allele_counts_reference(z, geno, site_valid, **kw)):
                 raise AssertionError(f"{tag}: allele_counts (wide) differs")
-        if ploid == 2 and k <= fs.MAX_POPS:
+        if ploid == 2 and fs.site_pass_fits(k, a):
             data = Dataset(geno=geno, site_valid=site_valid,
                            allele_valid=allele_valid,
                            hom=geno[:, :l] == geno[:, l:])
@@ -977,7 +1043,48 @@ def phase_edge_shapes() -> None:
                    for c, n, l, k, a, p in zq_cases], all_match=True)
 
 
-def phase_kernels(panel, panel_a, panel_w, philox_entry, tetra_panels):
+def check_wide_site_entries(panel, panel_a4, variants) -> list:
+    """The site pass's run-time-K body (8 < K <= 32, K*A <= 64) against its
+    plain version, half of each chain's rows with three trailing zero-q
+    columns: every entry point at K = 12 on the headline panel and at
+    K = 16 on the A = 4 panel (the shapes phase modes drives), but mode 2's
+    two passes at the K grid's shape (40 chains, K = 10; the plain version
+    four chains at a time), which the kselect phase drives.  Variants:
+    K = 12's mode-2 passes and expectation way, every entry point at K = 9
+    and 32 on the headline panel, and mode 2's passes on the generic path
+    at A = 2 (the headline panel without its packed plane) at K = 9, 12,
+    32."""
+    grid_passes = ("site_pass_gendiff", "site_pass_loglik")
+    main = []
+    x = kernel_inputs(panel, WIDE_K, zero_tail=3)
+    for e in check_site_entries(x):
+        (variants if e["name"].replace("_wide", "") in grid_passes
+         else main).append(e)
+    variants += check_site_entries(x, structure=False, only=EXP_WAY)
+    del x
+    torch.cuda.empty_cache()
+    x = kernel_inputs(panel, KSEL_MAX, c=KSEL_CHAINS * KSEL_MAX,
+                      zero_tail=3)
+    main += check_site_entries(x, only=grid_passes, plain_group=N_CHAINS)
+    del x
+    torch.cuda.empty_cache()
+    main += check_site_entries(kernel_inputs(panel_a4, GEN16_K,
+                                             zero_tail=3))
+    torch.cuda.empty_cache()
+    for k in (9, 32):
+        variants += check_site_entries(kernel_inputs(panel, k, zero_tail=3))
+        torch.cuda.empty_cache()
+    for k in (9, WIDE_K, 32):
+        x = kernel_inputs(panel, k, zero_tail=3)
+        x["data"] = x["data"]._replace(bits2=None)
+        variants += check_site_entries(x, only=grid_passes)
+        del x
+        torch.cuda.empty_cache()
+    return main
+
+
+def phase_kernels(panel, panel_a, panel_a4, panel_w, philox_entry,
+                  tetra_panels):
     """Entries by kernel name at the main paths' variant (structure way);
     the expectation-way runs of the site pass (and K6 on the auto panel)
     are reported as variants."""
@@ -995,9 +1102,10 @@ def phase_kernels(panel, panel_a, panel_w, philox_entry, tetra_panels):
     torch.cuda.empty_cache()
     xw = kernel_inputs(panel_w, WIDE_POPS)
     dw = xw["data"]
+    # K * A = 80: beyond the site pass, so no generic-pass cross-check
     main.append(check_zq_sample_counts(
         "zq_sample_counts", xw["keys"], xw["q"], xw["freq"], dw.geno,
-        dw.site_valid, k1_data=dw))
+        dw.site_valid))
     main.append(check_allele_counts(xw))
     del xw, dw
     main.append(check_zq_sample_counts("zq_sample_counts_ploidy4",
@@ -1012,6 +1120,9 @@ def phase_kernels(panel, panel_a, panel_w, philox_entry, tetra_panels):
                    library_ms_a8=a8["library_ms"])
     main += check_site_entries(xa)
     variants += check_site_entries(xa, structure=False, only=EXP_WAY)
+    del xa
+    torch.cuda.empty_cache()
+    main += check_wide_site_entries(panel, panel_a4, variants)
     phase_edge_shapes()
     torch.cuda.empty_cache()
     main += check_tetra_kernels(tetra_panels)
@@ -1022,6 +1133,12 @@ def phase_kernels(panel, panel_a, panel_w, philox_entry, tetra_panels):
                              A=GEN_ALLELES),
          wide_shapes=dict(C=N_CHAINS, N=N_INDV, L=WIDE_LOCI, K=WIDE_POPS,
                           A=WIDE_ALLELES),
+         site_wide_shapes=dict(
+             packed=dict(C=N_CHAINS, N=N_INDV, L=N_LOCI, K=WIDE_K, A=2),
+             grid=dict(C=KSEL_CHAINS * KSEL_MAX, N=N_INDV, L=N_LOCI,
+                       K=KSEL_MAX, A=2),
+             generic=dict(C=N_CHAINS, N=N_INDV, L=GEN_LOCI, K=GEN16_K,
+                          A=GEN16_ALLELES)),
          tetra_shapes=dict(C=N_CHAINS, N=TETRA_INDV, L=TETRA_LOCI, K=N_POPS,
                            A=TETRA_ALLELES),
          kernels=main, variants=variants)
@@ -1040,20 +1157,25 @@ MODE_PASSES = {1: ("site_pass_sample", "site_pass_loglik_mode1"),
                5: ("site_pass_find", "site_pass_loglik_find")}
 
 
-def small_agreement(mode: int, n_alleles: int, **spec_kw) -> dict:
+def small_agreement(mode: int, n_alleles: int, active=None,
+                    **spec_kw) -> dict:
     """The port on the card against the port on the CPU (plain versions),
     same seed, a small panel, a few sweeps: the discrete state must agree
-    exactly and the floats to f32 rounding."""
+    exactly and the floats to f32 rounding.  ``active`` [C, K] runs the
+    padded K grid's replicas (K = its width)."""
     panel = synthetic_panel(40, 120, n_pops=3, n_alleles=n_alleles,
                             selfing_rates=np.array([0.1, 0.4, 0.8]),
                             admixture_alpha=0.1, missing_rate=0.1, seed=3)
-    spec = ModelSpec(mode=mode, n_pops=3, s_subsweeps=4, **spec_kw)
+    c = 2 if active is None else active.shape[0]
+    spec_kw.setdefault("n_pops", 3 if active is None else active.shape[1])
+    spec = ModelSpec(mode=mode, s_subsweeps=4, **spec_kw)
     out = {}
     for dev in ("cpu", "cuda"):
         data = panel.data.to(dev)
-        keys = px.make_keys(11, 2, dev)
+        keys = px.make_keys(11, c, dev)
         # one initial state for both devices: drawn on the CPU
-        state = init_state(11, spec, panel.data, n_chains=2, device="cpu")
+        state = init_state(11, spec, panel.data, n_chains=c, device="cpu",
+                           active=active)
         state = state.to(dev)
         step, add_loglik = build_step_parts(spec, data)
         for i in range(3):
@@ -1089,15 +1211,18 @@ def rates_trajectory(data, spec, n_steps: int) -> torch.Tensor:
     return torch.stack(trace)
 
 
-def sweep_profile(data, spec, n_steps: int = 100, n_prof: int = 30) -> dict:
+def sweep_profile(data, spec, n_steps: int = 100, n_prof: int = 30,
+                  active=None) -> dict:
     """Where a sweep's time goes: host wall time per sweep of the bare step
     loop, and the device time of the kernels in it from ``torch.profiler``
     (summed by kernel name).  Device numbers are ``None`` where the
-    profiler shows no device time."""
+    profiler shows no device time.  ``active`` [C, K] profiles the padded
+    K grid's C replicas."""
     from torch.profiler import ProfilerActivity, profile
-    keys = px.make_keys(RUN_SEED, N_CHAINS, "cuda")
-    state = init_state(RUN_SEED, spec, data, n_chains=N_CHAINS,
-                       device="cuda")
+    c = N_CHAINS if active is None else active.shape[0]
+    keys = px.make_keys(RUN_SEED, c, "cuda")
+    state = init_state(RUN_SEED, spec, data, n_chains=c, device="cuda",
+                       active=active)
     step, _ = build_step_parts(spec, data)
     for i in range(20):
         state = step(state, keys, i)
@@ -1151,16 +1276,22 @@ def sweep_profile(data, spec, n_steps: int = 100, n_prof: int = 30) -> dict:
     return out
 
 
-def check_one_site_launch(tag, prof, fused, packed) -> None:
+def check_one_site_launch(tag, prof, fused, counts_each_sweep=False) -> None:
     """A fused sweep calls the site pass once, and that call is one kernel
-    launch on the device.  On a packed diploid panel nothing else in the
-    sweep memsets (K4 and K8, which do, run only at the start), so no memset
-    shows there either."""
+    launch on the device.  Every diploid sampling pass carries its counts,
+    so nothing else in the sweep memsets (K4 and K8, which do, run only at
+    the start): no memset shows either, unless the sweep counts with K4
+    each time (``counts_each_sweep``: the tetraploid P update).  The
+    profiler drops events of a busy window (one in 30 of every kernel once;
+    a fifth of them in a K-grid window of 25 000 launches), so the trace
+    can show fewer site-pass launches than sweeps -- the launch counters
+    prove each call launched -- but never more: a second kernel per call
+    fails."""
     n = prof.get("site_pass_device_launches_per_sweep")
     if not fused or n is None:
         return
     memsets = prof["memset_launches_per_sweep"]
-    if n != 1.0 or (packed and memsets):
+    if not 0.0 < n <= 1.0 or (memsets and not counts_each_sweep):
         raise AssertionError(f"{tag}: the site pass made {n} kernel launches "
                              f"and the sweep {memsets} memsets per sweep")
 
@@ -1175,8 +1306,11 @@ def expected_launches(spec, data, steps, evals, attempts) -> dict:
               else "allele_counts_wide")
     # one fill for the alpha step's words; one for the uniforms of the
     # S/F/G updates that are plain tensor code (or mode 0's z draw)
+    # mode 2's S tail is the K2 kernel under back-reflection at K <= 8
+    # (the JAX gate), else plain tensor code
+    s_kernel = mode == 2 and not adaptive and spec.n_pops <= sp.MAX_POPS
     if fused:
-        tail = mode in (3, 4, 5) or (mode == 2 and adaptive)
+        tail = mode in (3, 4, 5) or (mode == 2 and not s_kernel)
     else:
         tail = mode != 1
     want = {"dirichlet_kla": steps,
@@ -1184,13 +1318,13 @@ def expected_launches(spec, data, steps, evals, attempts) -> dict:
     if mode != 0:
         want["dirichlet_nk"] = steps
     if fused:
-        suffix = "" if fs.is_packed(data) else "_generic"
         sampling, stored = MODE_PASSES[mode]
-        want.update({sampling + suffix: steps, stored + suffix: evals,
-                     # seeds zcounts; the generic pass carries no counts,
-                     # so the sweep recounts
-                     counts: attempts + (steps if suffix else 0)})
-        if mode == 2 and not adaptive:
+        k = spec.n_pops
+        want.update({fs.site_counter(sampling, data, k): steps,
+                     fs.site_counter(stored, data, k): evals,
+                     # seeds zcounts; every sampling pass carries them on
+                     counts: attempts})
+        if s_kernel:
             want["s_pop_tail"] = steps
     elif mode != 0:
         # the P update counts from z each sweep; the stored-step log-lik
@@ -1295,7 +1429,7 @@ def drive_path(tag, panel, spec, n_iter, smi, profile_sweeps=100,
     if profile_sweeps:
         prof = sweep_profile(data, spec, profile_sweeps, n_prof)
         emit("sweep_profile", path=tag, card=smi, **prof)
-        check_one_site_launch(tag, prof, fused, fs.is_packed(data))
+        check_one_site_launch(tag, prof, fused)
     mean_rates = acc.mean.rates.cpu()
     emit(tag.split(":")[0], path=tag, card=smi, mode=mode,
          panel=dict(N=n, L=l, A=a, K=k, packed=fs.is_packed(data)),
@@ -1344,11 +1478,13 @@ def direct_calls(x, tag) -> None:
                 rtol=1e-5, atol=1e-2 * scale)
 
 
-def phase_modes(panel, panel_a, smi: str) -> dict:
+def phase_modes(panel, panel_a, panel_a4, smi: str) -> dict:
     """The other paths: modes 1, 3, 4, 5 on the headline panel, every mode
     on the A = 8 panel (mode 2 at the main path's depth, the others
-    shorter), and the direct calls.  Returns launches by kernel, each from
-    the path that runs it."""
+    shorter), the site pass's run-time-K body (modes 2, 1, 4, 5 at K = 12
+    on the headline panel and at K = 16 on the A = 4 panel, shorter), and
+    the direct calls.  Returns launches by kernel, each from the path that
+    runs it."""
     launches = {}
     agreement = {}
     for a in (2, 4):
@@ -1372,17 +1508,34 @@ def phase_modes(panel, panel_a, smi: str) -> dict:
         for name, n in got.items():
             if name.endswith("_generic"):
                 launches.setdefault(name, n)
+    # K > 8: mode 2 at K = 12 ran unfused before the run-time-K body; mode 3
+    # shares mode 2's passes
+    for pnl, k, what in ((panel, WIDE_K, "packed panel"),
+                         (panel_a4, GEN16_K, f"A = {GEN16_ALLELES} panel")):
+        for mode in (2, 1, 4, 5):
+            got = drive_path(f"modes: mode {mode}, K = {k}, {what}", pnl,
+                             ModelSpec(mode=mode, n_pops=k,
+                                       s_subsweeps=SUBSWEEPS),
+                             UNFUSED_ITER, smi,
+                             profile_sweeps=30 if mode == 2 else 0, n_prof=10)
+            for name, n in got.items():
+                if name.endswith("_wide"):
+                    launches.setdefault(name, n)
     _build.reset_launches()
-    for pnl, tag in ((panel, "direct calls, packed panel"),
-                     (panel_a, f"direct calls, A = {GEN_ALLELES} panel")):
-        direct_calls(kernel_inputs(pnl), tag)
+    for pnl, k, tag in ((panel, N_POPS, "direct calls, packed panel"),
+                        (panel_a, N_POPS,
+                         f"direct calls, A = {GEN_ALLELES} panel"),
+                        (panel, WIDE_K, f"direct calls, K = {WIDE_K}"),
+                        (panel_a4, GEN16_K,
+                         f"direct calls, K = {GEN16_K}, A = {GEN16_ALLELES}")):
+        direct_calls(kernel_inputs(pnl, k), tag)
         torch.cuda.empty_cache()
     emit("direct_calls", launches=dict(_build.launches),
          identities=["gendiff == gen[1] - gen[0]",
                      "mode1 ll == loglik_mode1 at the fresh z"])
     launches.update({name: int(n) for name, n in _build.launches.items()
-                     if name.replace("_generic", "") in (
-                         "site_pass_gen", "site_pass_mode1")})
+                     if name.replace("_generic", "").replace("_wide", "")
+                     in ("site_pass_gen", "site_pass_mode1")})
     return launches
 
 
@@ -1390,7 +1543,7 @@ def phase_unfused(panel, panel_w, smi: str) -> dict:
     """The unfused sweep (P, then S or F, then G, then Z and Q through K8)
     at full width -- mode 2 on the wide panel, whose K*A = 80 the fused sweep
     cannot run -- and, shorter: modes 1, 3, 4, 5 on that panel, mode 0 and
-    ``use_pallas=False`` and K = 12 on the headline panel; then the arms of
+    ``use_pallas=False`` on the headline panel; then the arms of
     the fused sweep that run plain updates in place of a kernel or beside it
     (the normal prior, the adaptive-independence proposal).  Returns
     launches by kernel entry, each from the path that runs it."""
@@ -1430,8 +1583,6 @@ def phase_unfused(panel, panel_w, smi: str) -> dict:
                                       s_subsweeps=SUBSWEEPS,
                                       use_pallas=False), **short)
     launches["zq_sample_counts_headline"] = got["zq_sample_counts"]
-    drive_path("unfused: mode 2, headline panel, K = 12", panel,
-               ModelSpec(mode=2, n_pops=12, s_subsweeps=SUBSWEEPS), **short)
     for mode, kw, what in arms:
         drive_path(f"unfused: the fused sweep with {what}, mode {mode}",
                    panel, ModelSpec(mode=mode, n_pops=N_POPS,
@@ -1453,6 +1604,119 @@ def phase_unfused(panel, panel_w, smi: str) -> dict:
     launches["zq_sample_counts_ploidy4"] = int(
         _build.launches["zq_sample_counts"])
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: K selection (the padded chain x K grid; this slice's main path)
+# ---------------------------------------------------------------------------
+
+def grid_active(n_chains: int, k_max: int, k_small: int = 1) -> np.ndarray:
+    """The active-pop mask of a K grid: replicas i*C..(i+1)*C run
+    K = k_small + i on the leading slots."""
+    ks = range(k_small, k_max + 1)
+    act = np.zeros((len(ks) * n_chains, k_max), np.float32)
+    for i, kv in enumerate(ks):
+        act[i * n_chains:(i + 1) * n_chains, :kv] = 1.0
+    return act
+
+
+def phase_kselect(panel, smi: str) -> dict:
+    """``infer_k`` on the headline panel in mode 2: 4 chains per K, K =
+    1..10, one padded grid of 40 replicas at K_max = 10 (the fused sweep
+    through the run-time-K body of the site pass, the plain S tail, as in
+    JAX at K > 8), at the main path's depth (200 sweeps, half burn-in,
+    thinning 10).  Checks: the panel's K = 3 is picked; launches as the
+    schedule predicts; every K's slice puts no q mass or z on its padding;
+    a rerun is bitwise equal; the card agrees with the CPU after 3 sweeps
+    of a small grid in modes 0, 2 and 4.  Reports per-K WAIC, wall and
+    device ms per sweep, launches and peak device memory.  Returns the
+    launches of the grid's site passes."""
+    small = grid_active(2, 4)
+    agreement = {f"mode {m}": small_agreement(m, 2, active=small)
+                 for m in (2, 0, 4)}
+    emit("small_agreement", grid=dict(C=small.shape[0], K_max=4),
+         sweeps=3, max_abs_err=agreement)
+    stored = N_ITER // 2 // 10
+    sched = Schedule(n_iter=N_ITER, burnin=N_ITER // 2, thinning=10,
+                     n_chains=KSEL_CHAINS, ckrep=stored,
+                     nstep_check_empty_cluster=stored)
+    spec = ModelSpec(mode=2, n_pops=N_POPS, s_subsweeps=SUBSWEEPS)
+    data = panel.data.to("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.time()
+    res = infer_k(panel.data, spec, sched, RUN_SEED, n_small=1,
+                  n_large=KSEL_MAX, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {name: int(n) for name, n in _build.launches.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    spec_pad = dataclasses.replace(spec, n_pops=KSEL_MAX)
+    attempts = 1 + res.results[1].n_retries
+    steps = N_ITER * attempts
+    last_extra = 0 if (N_ITER - sched.burnin) % sched.thinning == 0 else 1
+    want = expected_launches(spec_pad, data, steps,
+                             (sched.n_stored + last_extra) * attempts,
+                             attempts)
+    if launches != want:
+        raise AssertionError(f"kselect: launches {launches}, the schedule "
+                             f"predicts {want}")
+    waic = {k: float(w.mean()) for k, w in res.waic.items()}
+    bad = []
+    for k, r in res.results.items():
+        st = r.final_state
+        if float(st.q[:, :, k:].abs().sum()) != 0.0 or int(st.z.max()) >= k:
+            bad.append(f"K = {k}: mass or labels on its padding")
+        if tuple(r.posterior_mean.q.shape) != (KSEL_CHAINS, N_INDV, k):
+            bad.append(f"K = {k}: posterior q not native-K")
+        if not np.isfinite(res.waic[k]).all():
+            bad.append(f"K = {k}: WAIC not finite")
+    res2 = infer_k(panel.data, spec, sched, RUN_SEED, n_small=1,
+                   n_large=KSEL_MAX, device="cuda")
+    same = all(
+        torch.equal(a.final_state.z, b.final_state.z)
+        and torch.equal(a.final_state.rates, b.final_state.rates)
+        and torch.equal(a.accum.mean.total_ll, b.accum.mean.total_ll)
+        and torch.equal(a.accum.lme_indv, b.accum.lme_indv)
+        for a, b in zip(res.results.values(), res2.results.values()))
+    if not same:
+        bad.append("two runs from one seed are not bitwise equal")
+    del res2
+    act = torch.as_tensor(grid_active(KSEL_CHAINS, KSEL_MAX),
+                          device="cuda")
+    # the bare sweeps' own peak (init, step loop, K1's scratch), apart from
+    # run_mcmc's stored-step and WAIC passes
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # few profiled sweeps: at ~2500 launches each the profiler drops events
+    prof = sweep_profile(data, spec_pad, n_steps=30, n_prof=4, active=act)
+    peak_sweeps = torch.cuda.max_memory_allocated()
+    emit("sweep_profile", path="kselect: mode 2, headline panel, K = 1..10 "
+         "grid", card=smi, **prof)
+    check_one_site_launch("kselect", prof, True)
+    emit("kselect", path="kselect: infer_k, mode 2, headline panel, "
+         f"K = 1..{KSEL_MAX}", card=smi,
+         replicas=KSEL_CHAINS * KSEL_MAX, chains_per_k=KSEL_CHAINS,
+         sweeps=steps, best_k=res.best_k,
+         waic=waic, waic_se=res.waic_se,
+         dic={k: float(v.mean()) for k, v in res.dic.items()},
+         wall_seconds=round(wall, 3),
+         wall_ms_per_sweep=round(1e3 * wall / steps, 4),
+         device_ms_per_sweep=prof.get("device_ms_per_sweep"),
+         peak_device_memory_bytes=int(peak),
+         peak_device_memory_bytes_bare_sweeps=int(peak_sweeps),
+         launches=launches,
+         n_retries=res.results[1].n_retries, bitwise_reproducible=same)
+    if bad:
+        raise AssertionError(f"kselect: failed checks {bad}")
+    if res.best_k != N_POPS:
+        raise AssertionError(f"kselect: picked K = {res.best_k}, the panel "
+                             f"has K = {N_POPS}")
+    return {name: n for name, n in launches.items()
+            if name.startswith("site_pass")}
 
 
 # ---------------------------------------------------------------------------
@@ -1935,7 +2199,7 @@ def drive_tetra(tag, panel, spec, n_iter, smi, profile_sweeps=100,
         prof = sweep_profile(data, spec, profile_sweeps, n_prof)
         emit("sweep_profile", path=tag, card=smi, **prof)
         check_one_site_launch(tag, prof, te.tetra_use_fused(spec, data),
-                              False)
+                              counts_each_sweep=True)
     emit("tetra", path=tag, card=smi,
          panel=dict(N=n, L=l, A=a, K=k, autopoly=bool(spec.autopoly)),
          sweep="fused" if te.tetra_use_fused(spec, data) else "unfused",
@@ -2000,7 +2264,8 @@ def phase_tetra(panels, smi: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,main_path,modes,unfused,tetra")
+                    default="build,kernels,main_path,modes,unfused,tetra,"
+                            "kselect")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -2018,25 +2283,33 @@ def main(argv=None) -> int:
     panel_a = synthetic_panel(N_INDV, GEN_LOCI, n_pops=N_POPS,
                               n_alleles=GEN_ALLELES, selfing_rates=rates,
                               admixture_alpha=0.1, seed=PANEL_SEED)
+    panel_a4 = synthetic_panel(N_INDV, GEN_LOCI, n_pops=N_POPS,
+                               n_alleles=GEN16_ALLELES, selfing_rates=rates,
+                               admixture_alpha=0.1, seed=PANEL_SEED)
     panel_w = synthetic_panel(N_INDV, WIDE_LOCI, n_pops=WIDE_POPS,
                               n_alleles=WIDE_ALLELES,
                               selfing_rates=np.array(WIDE_RATES),
                               admixture_alpha=0.1, seed=PANEL_SEED)
     tetra_panels = ({auto: tetra_panel(auto) for auto in (True, False)}
                     if phases & {"kernels", "tetra"} else {})
-    entries = (phase_kernels(panel, panel_a, panel_w, philox_entry,
-                             tetra_panels)
+    entries = (phase_kernels(panel, panel_a, panel_a4, panel_w,
+                             philox_entry, tetra_panels)
                if "kernels" in phases else {})
     launches = (phase_main_path(panel, smi)
                 if "main_path" in phases else {})
     if "modes" in phases:
         # a kernel of the main path keeps the main path's count
-        launches = {**phase_modes(panel, panel_a, smi), **launches}
+        launches = {**phase_modes(panel, panel_a, panel_a4, smi),
+                    **launches}
     if "unfused" in phases:
         launches = {**phase_unfused(panel, panel_w, smi), **launches}
     if "tetra" in phases:
         launches = {**phase_tetra(tetra_panels, smi), **launches}
-    full = {"kernels", "main_path", "modes", "unfused", "tetra"} <= phases
+    if "kselect" in phases:
+        # the K grid's site passes: this slice's main path counts them
+        launches.update(phase_kselect(panel, smi))
+    full = {"kernels", "main_path", "modes", "unfused", "tetra",
+            "kselect"} <= phases
     if full:
         keys = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

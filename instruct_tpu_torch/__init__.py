@@ -12,8 +12,9 @@ and individual-level selfing, population- and individual-level inbreeding;
 uniform and normal prior, back-reflection and adaptive-independence
 proposal, any number of pops and alleles) on packed biallelic and on
 multi-allelic panels, end to end through :func:`run_mcmc`, as a fused and an
-unfused sweep (``mcmc/step.py``); and the tetraploid engine, auto- and
-allotetraploid (``tetra/engine.py``).
+unfused sweep (``mcmc/step.py``); the tetraploid engine, auto- and
+allotetraploid (``tetra/engine.py``); and the selection of K,
+:func:`infer_k`, as one padded (chain x K) grid (``kselect.py``).
 Sub-packages and functions keep the names of their counterparts in
 ``instruct_tpu``.  Entry points run on ``device="cuda"`` unless the caller
 asks for the CPU, where the kernels' plain PyTorch versions run instead.
@@ -23,6 +24,7 @@ from instruct_tpu_torch.config import ModelSpec, Schedule, Priors
 from instruct_tpu_torch.data.dataset import Dataset, Panel
 from instruct_tpu_torch.data.synthetic import synthetic_panel
 from instruct_tpu_torch.mcmc.driver import run_mcmc, RunResult
+from instruct_tpu_torch.kselect import infer_k, KSelectResult
 
 __version__ = "0.1.0"
 
@@ -35,5 +37,7 @@ __all__ = [
     "synthetic_panel",
     "run_mcmc",
     "RunResult",
+    "infer_k",
+    "KSelectResult",
     "__version__",
 ]

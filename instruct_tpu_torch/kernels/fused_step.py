@@ -11,7 +11,8 @@ Counterpart of ``instruct_tpu/kernels/fused_step.py``:
     (``zcounts``), and evaluates one log-lik family at that fresh z (the
     sweep order is "Z, then G | z" / "Z, then F | z", so a sampling pass
     never reads the old z and takes no ``z_old`` argument); a *stored-step*
-    pass evaluates cal_lkh per individual at the carried z:
+    pass evaluates cal_lkh per individual at the carried z.  The pass runs
+    any K with K * A <= 64 (:func:`site_pass_fits`, the JAX step's gate):
 
       ==================  ==========================  =======================
       family              sampling pass               stored-step pass
@@ -33,15 +34,16 @@ by the allele code (:288-299, :374-390).  The two round differently, so
 each path is its own plain version; ``data._replace(bits2=None)`` sends a
 biallelic panel down the generic path.  The panel planes (``bits2`` or
 ``geno``) are shared by the chains, or one per chain ([C, N, ...]: the
-tetraploid engine's latent genotype, ``tetra/engine.py``).  The generic
-sampling passes carry no allele-pop counts (``zcounts`` is ``None``): the
-step recounts with :func:`allele_counts`, as the JAX step does over its VMEM
-budget.
+tetraploid engine's latent genotype, ``tetra/engine.py``).  Every sampling
+pass, on both paths, carries the allele-pop counts of its fresh z
+(``zcounts`` f32[C, K, L, A], equal to :func:`allele_counts`'s): the card has
+no VMEM budget to drop them under, so the step never recounts.
 
 Chains are a written-out leading axis ``C`` on every state tensor; the panel
 tensors carry none.  On CUDA tensors the wrappers launch the kernels of
 ``csrc/site_pass.cuh`` (one launch per call; its scratch, kept per device
-and shape, is allocated at the first call) / ``csrc/allele_counts.cu``; on
+and shape, is allocated at the first call; K <= 8 and 8 < K <= 32 are two
+bodies, counted apart with the suffix ``_wide``) / ``csrc/allele_counts.cu``; on
 CPU tensors they run the plain versions (``*_reference``, same signature)
 below.
 
@@ -62,7 +64,8 @@ from instruct_tpu_torch.kernels import philox as px
 
 _LOG2 = 0.6931471805599453
 _EPS = 1e-30
-MAX_POPS = 8       # the site kernels are instantiated for K = 1..8
+MAX_CELLS = 64     # the site pass runs K * A <= 64 (K <= 32 at A = 2)
+WIDE_POPS = 8      # K above this runs the kernel's run-time-K body
 
 # log-lik families; the values are those of csrc/site_pass.cuh
 _FAMILY = dict(none=0, mode1=1, gen=2, gendiff=3, find=4, fpop=5)
@@ -86,6 +89,14 @@ def is_packed(data: Dataset) -> bool:
     """Whether the site pass reads ``data.bits2`` (the affine biallelic
     path) rather than the allele codes (the generic path)."""
     return data.bits2 is not None and data.max_alleles == 2
+
+
+def site_pass_fits(n_pops: int, n_alleles: int) -> bool:
+    """Whether the site pass runs a model of ``n_pops`` pops and
+    ``n_alleles`` alleles: K * A <= 64, the gate of the JAX fused step
+    (``instruct_tpu/mcmc/step.py:111-117``).  The plain versions run any
+    K."""
+    return n_pops * n_alleles <= MAX_CELLS
 
 
 # ---------------------------------------------------------------------------
@@ -254,13 +265,13 @@ def _site_pass_reference(keys, step, q, freq, data: Dataset, z_in, colv,
         res["qqnum"] = torch.stack(
             [(((z0 == kk).to(torch.float32) + (z1 == kk).to(torch.float32))
               * vf).sum(dim=2) for kk in range(k)], dim=2)
-        res["zcounts"] = None
-        if packed:
-            res["zcounts"] = torch.stack([torch.stack(
-                [(((z0 == kk) & (g0 == ai)).to(torch.float32)
-                  + ((z1 == kk) & (g1 == ai)).to(torch.float32))
-                 .mul(vf).sum(dim=1) for ai in range(2)], dim=2)
-                for kk in range(k)], dim=1)
+        # the allele-pop counts of the fresh z (a code outside [0, A)
+        # counts nowhere, as in allele_counts)
+        res["zcounts"] = torch.stack([torch.stack(
+            [(((z0 == kk) & (g0 == ai)).to(torch.float32)
+              + ((z1 == kk) & (g1 == ai)).to(torch.float32))
+             .mul(vf).sum(dim=1) for ai in range(a)], dim=2)
+            for kk in range(k)], dim=1)
     else:
         z0 = z_in[:, :, :l].to(torch.int64)
         z1 = z_in[:, :, l:].to(torch.int64)
@@ -340,44 +351,57 @@ def _site_pass_reference(keys, step, q, freq, data: Dataset, z_in, colv,
 # the site pass: kernel launch
 # ---------------------------------------------------------------------------
 
-# (device, C, N, L, K, partial columns, counts?) -> the site pass's scratch
+# (device, C, N, L, K, partial columns, counts) -> the site pass's scratch
 _SCRATCH: dict = {}
 
 
 def _site_scratch(dev, c, n, l, k, cols, counts):
     """(part, cnt_part, tickets, strips) of a site-pass call: the tile
-    partials f32[C, N, T, cols], the strip counts i32[C, S, K, L] (packed
-    sampling pass; else None) and the tickets i32[C*S + C*T].  Allocated
-    once per device and shape and kept: the tickets are zeroed once, and
-    every call leaves them zero.  Calls that share them run in stream
-    order."""
+    partials f32[C, N, T, cols], the counts' scratch (sampling pass; else
+    None) and the tickets i32[C*S + C*T].  ``counts`` is None (no counts),
+    ``"strips"`` (packed, K <= 8: the strips' i32[C, S, K, L], two
+    half-word counts a cell) or the table's cells a locus, K * A (their
+    total i32[C, K*A, L]).  Allocated once per device and shape and kept:
+    the tickets and the total are zeroed once, and every call leaves them
+    zero.  Calls that share them run in stream order."""
     key = (dev, c, n, l, k, cols, counts)
     hit = _SCRATCH.get(key)
     if hit is None:
         lib = _build.library()
         t, s = lib.site_pass_tiles(l), lib.site_pass_strips(n)
+        cnt = None
+        if counts == "strips":
+            cnt = torch.empty((c, s, k, l), dtype=torch.int32, device=dev)
+        elif counts:
+            cnt = torch.zeros((c, counts, l), dtype=torch.int32, device=dev)
         hit = (torch.empty((c, n, t, max(cols, 1)), dtype=torch.float32,
-                           device=dev),
-               torch.empty((c, s, k, l), dtype=torch.int32, device=dev)
-               if counts else None,
+                           device=dev), cnt,
                torch.zeros(c * s + c * t, dtype=torch.int32, device=dev), s)
         _SCRATCH[key] = hit
     return hit
+
+
+def site_counter(name: str, data: Dataset, n_pops: int) -> str:
+    """The launch-counter name of an entry point's kernel: ``name`` on the
+    packed plane, ``name + "_generic"`` on the allele codes, with
+    ``"_wide"`` added for the run-time-K body (K > 8)."""
+    return (name + ("" if is_packed(data) else "_generic")
+            + ("_wide" if n_pops > WIDE_POPS else ""))
 
 
 def _site_pass(name: str, keys, step, q, freq, data: Dataset, z_in, colv,
                fvals, u, *, sample: bool, ll_kind: str,
                structure: bool = True):
     """Run one per-site pass: the plain version on CPU tensors, the kernel
-    (counted under ``name``, or ``name + "_generic"`` on the generic path)
-    on CUDA tensors.  Same result dict as :func:`_site_pass_reference`."""
+    (counted under :func:`site_counter`) on CUDA tensors.  Same result dict
+    as :func:`_site_pass_reference`."""
     if freq.dim() != 4:
         raise ValueError("freq must be [C, K, L, A]")
     c, k, l, a = freq.shape
     n = data.n_indv
-    if k > MAX_POPS:
-        raise ValueError(f"the site pass supports n_pops <= {MAX_POPS}, "
-                         f"got {k}")
+    if not site_pass_fits(k, a):
+        raise ValueError(f"the site pass runs n_pops * n_alleles <= "
+                         f"{MAX_CELLS}, got {k} x {a}")
     if (data.n_loci, data.max_alleles, data.ploid) != (l, a, 2):
         raise ValueError(f"freq {tuple(freq.shape)} does not fit a diploid "
                          f"panel of {data.n_loci} loci x "
@@ -417,8 +441,11 @@ def _site_pass(name: str, keys, step, q, freq, data: Dataset, z_in, colv,
     dev = freq.device
     f32 = dict(dtype=torch.float32, device=dev)
     n_acc = 2 if ll_kind == "gendiff" else n_out
+    counts = None
+    if sample:
+        counts = "strips" if packed and k <= WIDE_POPS else k * a
     part, cnt_part, tickets, strips = _site_scratch(
-        dev, c, n, l, k, (k if sample else 0) + n_acc, packed and sample)
+        dev, c, n, l, k, (k if sample else 0) + n_acc, counts)
     res = {}
     z = qqnum = zcounts = ll = chain_key = None
     if sample:
@@ -426,8 +453,7 @@ def _site_pass(name: str, keys, step, q, freq, data: Dataset, z_in, colv,
         chk(chain_key, "chain_key", torch.int32, (c,))
         z = torch.empty((c, n, 2 * l), dtype=torch.int8, device=dev)
         qqnum = torch.empty((c, n, k), **f32)
-        if packed:
-            zcounts = torch.empty((c, k, l, 2), **f32)
+        zcounts = torch.empty((c, k, l, a), **f32)
         res.update(z=z, qqnum=qqnum, zcounts=zcounts)
     if n_out:
         ll = torch.empty((c, n, n_out), **f32)
@@ -435,7 +461,7 @@ def _site_pass(name: str, keys, step, q, freq, data: Dataset, z_in, colv,
     p = _build.ptr
     fn = (f"site_{'packed' if packed else 'generic'}_"
           f"{'sample' if sample else 'eval'}_launch")
-    _build.launch(name if packed else name + "_generic", fn, p(q), p(freq),
+    _build.launch(site_counter(name, data, k), fn, p(q), p(freq),
                   *[p(x) for x in planes], p(z_in), p(colv), p(fvals), p(u),
                   p(z), p(qqnum), p(zcounts), p(ll), p(part), p(cnt_part),
                   p(tickets), c, n, l, k, a, _FAMILY[ll_kind], int(structure),
@@ -461,7 +487,7 @@ def _need_q(q):
 #   z        int8[C, N, 2L]    carried per-copy assignments, copy-major
 #   u        f32[C, N, 2L]     optional injected z-draw uniforms
 # A sampling pass returns z int8[C, N, 2L], qqnum f32[C, N, K] and zcounts
-# f32[C, K, L, 2] (None on the generic path).
+# f32[C, K, L, A].
 
 def zq_sample_pass_reference(keys, step: int, q, freq, data, *, u=None):
     """Plain PyTorch version of :func:`zq_sample_pass` (same signature)."""

@@ -22,7 +22,6 @@ reporting.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional
 
 import numpy as np
@@ -37,7 +36,8 @@ from instruct_tpu_torch.mcmc.accumulators import (ChainAccum, accum_update,
                                                   variance)
 from instruct_tpu_torch.mcmc.state import McmcState, init_state
 from instruct_tpu_torch.mcmc.step import (build_marg_loglik,
-                                          build_step_parts, check_supported)
+                                          build_step_parts, check_supported,
+                                          nopop_marginal)
 from instruct_tpu_torch.model import likelihood as lk
 from instruct_tpu_torch.tetra import engine as te
 
@@ -144,12 +144,13 @@ def unhealthy_flags(state: McmcState, accum: ChainAccum) -> np.ndarray:
 
 def _run_chains(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
                 chain_key, init_rates, track_freq: bool, device,
-                tetra_tables=None):
+                tetra_tables=None, active=None):
     """One attempt: initialise all chains and run the whole schedule."""
     n_chains = sched.n_chains
     keys = px.make_keys(seed, n_chains, device, chain_key=chain_key)
     state = init_state(seed, spec, data, n_chains, init_rates, device,
-                       chain_key=chain_key, tetra_tables=tetra_tables)
+                       chain_key=chain_key, tetra_tables=tetra_tables,
+                       active=active)
     accum = init_accum(spec, sched, data, track_freq, n_chains, device)
     step_core, add_loglik = build_step_parts(spec, data, tetra_tables)
     add_marg = build_marg_loglik(spec, data, tetra_tables)
@@ -172,13 +173,38 @@ def _run_chains(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
                 state = add_marg(state)
             stats = extract_stats(spec, state, track_freq)
             accum = accum_update(accum, stats, 1,
-                                 up.empty_cluster_flag(stats.q), check_at)
+                                 up.empty_cluster_flag(stats.q, state.active),
+                                 check_at)
     return state, accum
+
+
+def active_mask(active_pops, spec: ModelSpec, n_chains: int,
+                device) -> torch.Tensor:
+    """The K grid's active-pop mask f32[C, K] from ``active_pops``, checked:
+    diploid only (the tetraploid engine runs its K values one by one, as the
+    JAX package does), 0/1 values, each chain's active slots leading and at
+    least one of them."""
+    if spec.ploid != 2:
+        raise ValueError("active_pops (the padded K-selection grid) supports "
+                         "the diploid modes 0-5 only; the tetraploid sweep "
+                         "runs per K")
+    act = np.asarray(active_pops, np.float32)
+    if act.shape != (n_chains, spec.n_pops):
+        raise ValueError(f"active_pops: expected shape "
+                         f"{(n_chains, spec.n_pops)}, got {act.shape}")
+    n_act = act.sum(axis=1)
+    leading = np.arange(spec.n_pops)[None] < n_act[:, None]
+    if not np.isin(act, (0.0, 1.0)).all() or not (
+            (act > 0) == leading).all() or (n_act < 1).any():
+        raise ValueError("active_pops: each chain's row must be 1.0 on its "
+                         "leading active slots (at least one) and 0.0 after")
+    return torch.as_tensor(act, device=device)
 
 
 def run_mcmc(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
              init_rates=None, track_freq: bool = False,
-             max_retries: int = 10, device="cuda") -> RunResult:
+             max_retries: int = 10, device="cuda",
+             active_pops=None) -> RunResult:
     """Run ``sched.n_chains`` chains on ``device`` and return streaming
     posterior moments.
 
@@ -189,10 +215,19 @@ def run_mcmc(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
     ``-i`` initial file, initial.c:38-126); otherwise each chain draws
     U(0, 1) starts.  ``spec.ploid == 4`` runs the tetraploid engine
     (``tetra/engine.py``) on a panel with ``distinct`` / ``n_distinct``.
+
+    ``active_pops`` optionally gives a per-chain active-pop mask
+    [n_chains, K] (1.0 = slot in use, the active slots leading): the padded
+    (chain x K) K-selection grid (``kselect.py``) runs every K value's
+    chains as replicas of ONE run at K_max shapes, each Gibbs-sampling only
+    its active slots (q and z put exactly zero mass on the others).
+    Diploid modes 0-5.
     """
     check_supported(spec, data)
     dev = torch.device(device)
     n_chains = sched.n_chains
+    active = (None if active_pops is None
+              else active_mask(active_pops, spec, n_chains, dev))
     data = data.to(dev)
     if init_rates is not None:
         init_rates = np.asarray(init_rates, np.float32).reshape(n_chains, -1)
@@ -201,7 +236,7 @@ def run_mcmc(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
     tables = te.build_tables(spec, data) if spec.ploid == 4 else None
     chain_key = list(range(n_chains))
     state, accum = _run_chains(data, spec, sched, seed, chain_key,
-                               init_rates, track_freq, dev, tables)
+                               init_rates, track_freq, dev, tables, active)
     retries = 0
     flags = unhealthy_flags(state, accum)
     while flags.any() and retries < max_retries:
@@ -210,7 +245,8 @@ def run_mcmc(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
         chain_key = [10_000 * retries + c if flags[c] else chain_key[c]
                      for c in range(n_chains)]
         state, accum = _run_chains(data, spec, sched, seed, chain_key,
-                                   init_rates, track_freq, dev, tables)
+                                   init_rates, track_freq, dev, tables,
+                                   active)
         flags = unhealthy_flags(state, accum)
     if flags.any():
         print(f"[instruct_tpu_torch] WARNING: {int(flags.sum())} chain(s) "
@@ -223,22 +259,22 @@ def run_mcmc(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
         plugin_ll = _np(te.plugin_loglik(spec, data, accum.mean, state,
                                          tables))
     elif track_freq:
-        plugin_ll = _plugin_loglik(spec, data, accum)
+        plugin_ll = _plugin_loglik(spec, data, accum, active)
     return RunResult(accum=accum, final_state=state, n_retries=retries,
                      plugin_ll=plugin_ll)
 
 
-def _plugin_loglik(spec: ModelSpec, data: Dataset, accum: ChainAccum
-                   ) -> np.ndarray:
+def _plugin_loglik(spec: ModelSpec, data: Dataset, accum: ChainAccum,
+                   active=None) -> np.ndarray:
     """Per-chain Z-marginalized log-lik at the posterior means: the
     D(theta_bar) pass of the corrected DIC (means of Dirichlet draws are
     simplex-valid by linearity, and genofreq's closed form accepts the
-    real-valued posterior-mean generations)."""
+    real-valued posterior-mean generations).  Under the K grid's mask
+    ``active`` mode 0 mixes over the active slots; in modes 1-5 inactive
+    slots carry no q mass, so the marginal needs no mask."""
     m = accum.mean
     if spec.mode == 0:
-        # the uniform mixture over the K single-pop log-liks
-        ll = lk.loglik_matrix_nopop_admix(data, m.freq)
-        return _np((torch.logsumexp(ll, dim=2)
-                    - math.log(spec.n_pops)).sum(dim=-1))
+        # the uniform mixture over the (active) single-pop log-liks
+        return _np(nopop_marginal(spec, data, m.freq, active).sum(dim=-1))
     return _np(lk.marginal_indv_loglik(spec, data, m.freq, m.q, m.gen,
                                        m.rates).sum(dim=-1))

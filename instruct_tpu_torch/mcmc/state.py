@@ -51,7 +51,12 @@ class McmcState(NamedTuple):
     loglik_marg: Optional[torch.Tensor] = None  # f32[C, N] Z-marginalized
     #   per-individual log-lik, refreshed every Schedule.dic_every-th stored
     #   step; feeds the corrected DIC and WAIC
-    active: Optional[torch.Tensor] = None  # K-selection grid; not ported
+    active: Optional[torch.Tensor] = None  # f32[C, K] active-pop mask of
+    #   the padded (chain x K) K-selection grid (kselect.py): 1.0 for the
+    #   leading slots a chain uses, 0.0 for padding.  q (and so z and the
+    #   counts) put exactly zero mass on inactive slots: the Q draw masks
+    #   them (updates.mask_active) and the z inverse CDF never selects a
+    #   zero-mass trailing slot.  None: every slot active.
 
     def to(self, device) -> "McmcState":
         """The same state with every tensor on ``device``."""
@@ -91,7 +96,7 @@ def chain_generator(seed: int, chain_key: int, device) -> torch.Generator:
 def init_state(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
                init_rates=None, device="cuda",
                chain_key: Optional[Sequence[int]] = None,
-               tetra_tables=None) -> McmcState:
+               tetra_tables=None, active=None) -> McmcState:
     """Draw the initial state of ``n_chains`` chains on ``device``.
 
     Mirrors the per-mode initialisation of the JAX package
@@ -105,6 +110,9 @@ def init_state(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
     z and q, alpha 0 and no ``zcounts``; elsewhere ``state.zcounts`` is
     seeded with the :func:`allele_counts` kernel.
     ``chain_key`` gives one integer key per chain (default ``range(C)``).
+    ``active`` f32[C, K] (the K grid's mask, active slots leading) draws
+    each chain's initial z over its active slots as ``floor(u * n_active)``
+    and its Q over them (JAX ``state.py:108-120``), and is carried.
     Ploidy 4 runs the tetraploid engine's initialisation
     (``tetra/engine.py:init_tetra_state``, with the run's ``tetra_tables``
     when given).
@@ -149,18 +157,30 @@ def init_state(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
     lo, span = 1e-6, 1.0 - 2e-6
     given = (None if init_rates is None
              else torch.as_tensor(init_rates, **f32).reshape(c, r))
+    if active is not None:
+        active = torch.as_tensor(active, **f32).reshape(c, k)
+
+    def uniform_pops(ci, g, shape, dtype):
+        """Initial labels uniform over chain ci's active slots."""
+        if active is None:
+            return torch.randint(0, k, shape, generator=g, device=dev,
+                                 dtype=dtype)
+        n_act = torch.clamp_min(active[ci].sum(), 1.0)
+        u = torch.rand(shape, generator=g, device=dev)
+        return torch.floor(u * n_act).clamp_max(n_act - 1).to(dtype)
+
     for ci, ck in enumerate(chain_key):
         g = chain_generator(seed, ck, dev)
         if admix:
-            z[ci] = torch.randint(0, k, (n, l * p), generator=g, device=dev,
-                                  dtype=torch.int8)
+            z[ci] = uniform_pops(ci, g, (n, l * p), torch.int8)
             alpha[ci] = (torch.rand((), generator=g, device=dev)
                          * spec.alpha_prior_max)
             counts = masked_z_counts(z[ci][None], data, k)[0]
-            q[ci] = up.dirichlet_from_counts(g, counts + alpha[ci])
+            q[ci] = up.dirichlet_from_counts(
+                g, counts + alpha[ci],
+                None if active is None else (active[ci] > 0)[None])
         else:
-            zz[ci] = torch.randint(0, k, (n,), generator=g, device=dev,
-                                   dtype=torch.int32)
+            zz[ci] = uniform_pops(ci, g, (n,), torch.int32)
         rates[ci] = torch.rand((r,), generator=g, device=dev)
         if given is not None:
             rates[ci] = given[ci]
@@ -191,4 +211,4 @@ def init_state(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
         dpm_assign=zero(c, 0, dtype=torch.int32),
         prior_mu=torch.full((c,), spec.priors.normal_mu0, **f32),
         prior_sigma2=torch.full((c,), spec.priors.normal_sigmasqr0, **f32),
-        zcounts=zcounts, loglik_marg=zero(c, n))
+        zcounts=zcounts, loglik_marg=zero(c, n), active=active)

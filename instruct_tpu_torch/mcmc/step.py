@@ -9,21 +9,22 @@ chains (leading axis ``C``).  There are two sweeps, and the spec's
 ``use_pallas`` chooses between them (never whether a hand kernel runs: on
 the card both launch kernels, on the CPU both run the plain versions).
 
-The **fused** sweep (``use_pallas`` None or True, modes 1-5, K <= 8,
-K*A <= 64) draws Z and evaluates the G or F MH log-ratio at the fresh z in
-one pass over the sites ("Z, then G | z" / "Z, then F | z"):
+The **fused** sweep (``use_pallas`` None or True, modes 1-5, K*A <= 64, the
+JAX step's gate) draws Z and evaluates the G or F MH log-ratio at the fresh
+z in one pass over the sites ("Z, then G | z" / "Z, then F | z"):
 
     P | Z        Dirichlet(zcounts + 1)              kernels/dirichlet.py
     S or F tail  mode 2: J*K MH subsweeps + G proposal, one kernel
-                                                     kernels/s_pop.py
-                 (plain updates under the adaptive-independence proposal)
+                 (K <= 8)                            kernels/s_pop.py
+                 (plain updates under the adaptive-independence proposal
+                 or at K > 8, as in JAX)
                  mode 3: J elementwise MH subsweeps + G proposal
                  modes 4/5: the F proposal           mcmc/updates.py
     Z, G|z, F|z  site pass: z draw, counts, MH ratio kernels/fused_step.py
     Q | Z        Dirichlet(qqnum + alpha)            kernels/dirichlet.py
     alpha        MH                                  mcmc/updates.py
 
-The **unfused** sweep (everything else: mode 0, K > 8, K*A > 64, or
+The **unfused** sweep (everything else: mode 0, K*A > 64, or
 ``use_pallas=False``) keeps the reference's order, G or F first and then Z
 (mcmc.c:111-115, 150-155, 208-215, 334-348, 263-269, 420-434):
 
@@ -40,6 +41,11 @@ The **unfused** sweep (everything else: mode 0, K > 8, K*A > 64, or
     S, F, G      MH at the carried z                 mcmc/updates.py
     Z, counts    z ~ Cat(q_k P[k, l, a]), any K*A    kernels/zq.py
     Q | Z, alpha as above
+
+With the padded K grid's mask ``state.active`` (``kselect.py``) every Q draw
+zeroes the inactive columns and renormalizes, mode 0's z weighs them 0, and
+alpha's density, the empty-cluster check and mode 0's marginal log-lik run
+over the active slots (JAX ``step.py:163-178``, ``:526-531``).
 
 The two orders have the same invariant distribution but draw different
 trajectories, so a fused and an unfused run agree only statistically.
@@ -62,7 +68,7 @@ from instruct_tpu_torch.data.dataset import Dataset
 from instruct_tpu_torch.kernels import dirichlet as dk
 from instruct_tpu_torch.kernels import fused_step as fs
 from instruct_tpu_torch.kernels import philox as px
-from instruct_tpu_torch.kernels.s_pop import s_pop_tail
+from instruct_tpu_torch.kernels import s_pop as sp
 from instruct_tpu_torch.mcmc import updates as up
 from instruct_tpu_torch.mcmc.state import McmcState
 from instruct_tpu_torch.model import likelihood as lk
@@ -139,15 +145,15 @@ def check_supported(spec: ModelSpec, data: Dataset) -> None:
 
 def use_fused(spec: ModelSpec, data: Dataset) -> bool:
     """Whether the spec runs the fused sweep: diploid modes 1-5 within the
-    site pass's bounds (K <= 8, K*A <= 64) unless ``use_pallas`` is False.
+    site pass's bound K*A <= 64 (exactly the JAX gate,
+    ``instruct_tpu/mcmc/step.py:111-117``) unless ``use_pallas`` is False.
     Everything else runs the unfused sweep.  The tetraploid engine has its
     own gate (``tetra/engine.py:tetra_use_fused``: K <= 8, K*A <= 64)."""
     if spec.ploid == 4:
         return te.tetra_use_fused(spec, data)
     return (spec.use_pallas is not False and spec.ploid == 2
             and spec.mode in (1, 2, 3, 4, 5)
-            and spec.n_pops <= fs.MAX_POPS
-            and spec.n_pops * data.max_alleles <= 64)
+            and fs.site_pass_fits(spec.n_pops, data.max_alleles))
 
 
 def _is_normal(spec: ModelSpec) -> bool:
@@ -213,25 +219,23 @@ def _hyper_update(spec: ModelSpec, state: McmcState, tail: _Tail, rates):
 
 def _build_fused_parts(spec: ModelSpec, data: Dataset):
     """``(step_core, add_loglik)`` of the fused sweep."""
-    k = spec.n_pops
-    a = data.max_alleles
     n = data.n_indv
     structure = spec.type_freq == 1
+    # mode 2's S tail as one kernel: back-reflection and K <= 8, the JAX
+    # gate (instruct_tpu/mcmc/step.py:146-150); else the plain updates
+    s_tail_kernel = (spec.mode == 2 and spec.back_refl == 1
+                     and spec.n_pops <= sp.MAX_POPS)
 
     def finish(state, keys, step_idx, d, z, qqnum, zcounts, **changed):
         """Q | Z ~ Dirichlet(counts + alpha), one draw per (chain,
-        individual); then the alpha MH step.  The sampling pass returns
-        the allele-pop counts of the fresh z; where it did not (generic
-        path) they are recounted with the ``allele_counts`` kernel."""
-        q_new = dk.dirichlet_nk(keys, step_idx,
-                                qqnum + state.alpha[:, None, None],
-                                test_draws=d.q)
+        individual), masked to the active slots; then the alpha MH step.
+        The sampling pass returns the allele-pop counts of the fresh z,
+        which the next sweep's P update reads."""
+        q_new = up.mask_active(
+            dk.dirichlet_nk(keys, step_idx, qqnum + state.alpha[:, None, None],
+                            test_draws=d.q), state.active)
         alpha = up.update_alpha(keys, step_idx, spec, q_new, state.alpha,
-                                test_draws=d.alpha)
-        if zcounts is None:
-            zcounts = fs.allele_counts(z, data.geno, data.site_valid,
-                                       n_pops=k, max_alleles=a,
-                                       bits2=data.bits2)
+                                state.active, test_draws=d.alpha)
         return state._replace(z=z, q=q_new, alpha=alpha, zcounts=zcounts,
                               **changed)
 
@@ -310,8 +314,8 @@ def _build_fused_parts(spec: ModelSpec, data: Dataset):
                           freq=freq)
         # modes 2/3: S subsweeps + G proposal + generation weights + accept
         # uniforms, then the fused Z-Gibbs + G-MH pass and the G accept
-        if spec.mode == 2 and spec.back_refl == 1:
-            rates, gen_prop, wg_pair, logu = s_pop_tail(
+        if s_tail_kernel:
+            rates, gen_prop, wg_pair, logu = sp.s_pop_tail(
                 keys, step_idx, state.q, state.gen, state.rates,
                 subsweeps=spec.s_subsweeps, delta0=spec.mh_step_s,
                 gen_cap=spec.gen_cap, test_draws=d.s)
@@ -360,7 +364,8 @@ def _build_unfused_parts(spec: ModelSpec, data: Dataset):
                 u = px.u01_open(px.random_words(keys, step_idx, px.STREAM_ZZ,
                                                 n))
             return state._replace(freq=freq,
-                                  zz=up.update_z_noadmix(u, data, freq))
+                                  zz=up.update_z_noadmix(u, data, freq,
+                                                         state.active))
         changed = dict(freq=freq)
         if spec.mode != 1:
             tail = _tail_draws(spec, keys, step_idx, d, n)
@@ -388,9 +393,10 @@ def _build_unfused_parts(spec: ModelSpec, data: Dataset):
                                            state.z, state.q, rates,
                                            state.gen)
         z, q, _ = up.update_zq(keys, step_idx, spec, data, freq, state.q,
-                               state.alpha, u=d.z, q_draws=d.q)
+                               state.alpha, u=d.z, q_draws=d.q,
+                               active=state.active)
         alpha = up.update_alpha(keys, step_idx, spec, q, state.alpha,
-                                test_draws=d.alpha)
+                                state.active, test_draws=d.alpha)
         return state._replace(z=z, q=q, alpha=alpha, **changed)
 
     def add_loglik(state: McmcState) -> McmcState:
@@ -428,12 +434,28 @@ def build_step_parts(spec: ModelSpec, data: Dataset, tetra_tables=None):
     return _build_unfused_parts(spec, data)
 
 
+def nopop_marginal(spec: ModelSpec, data: Dataset, freq, active=None):
+    """Mode 0's per-individual marginal log-lik f32[C, N]: the uniform
+    mixture over the K single-pop log-liks, or, under the K grid's mask
+    ``active`` f32[C, K], over each chain's active slots only (inactive
+    slots' P is Dirichlet(1) noise; JAX ``step.py:526-531``)."""
+    ll = lk.loglik_matrix_nopop_admix(data, freq)            # [C, N, K]
+    if active is None:
+        return torch.logsumexp(ll, dim=2) - math.log(spec.n_pops)
+    ll = torch.where(active[:, None, :] > 0, ll,
+                     torch.full_like(ll, float("-inf")))
+    n_act = torch.clamp_min(active.sum(-1), 1.0)
+    return torch.logsumexp(ll, dim=2) - torch.log(n_act)[:, None]
+
+
 def build_marg_loglik(spec: ModelSpec, data: Dataset, tetra_tables=None):
     """``add_marg(state) -> state`` filling ``state.loglik_marg`` with the
     Z-marginalized per-individual log-likelihood that feeds WAIC and the
     corrected DIC: ``model/likelihood.py:marginal_site_loglik`` in modes
-    1-5, the uniform mixture over the K single-pop log-liks in mode 0, the
-    (z, geno)-conditional log-lik of the tetraploid engine
+    1-5 (inactive K-grid slots carry no q mass and need no mask), the
+    uniform mixture over the K single-pop log-liks in mode 0 (over the
+    active slots under the K grid's mask), the (z, geno)-conditional log-lik
+    of the tetraploid engine
     (``tetra/engine.py:build_marg_loglik``).  ``run_mcmc`` calls it only
     every ``Schedule.dic_every``-th stored step."""
     check_supported(spec, data)
@@ -442,8 +464,7 @@ def build_marg_loglik(spec: ModelSpec, data: Dataset, tetra_tables=None):
 
     def add_marg(state: McmcState) -> McmcState:
         if spec.mode == 0:
-            ll = lk.loglik_matrix_nopop_admix(data, state.freq)
-            indv = torch.logsumexp(ll, dim=2) - math.log(spec.n_pops)
+            indv = nopop_marginal(spec, data, state.freq, state.active)
         else:
             indv = lk.marginal_indv_loglik(spec, data, state.freq, state.q,
                                            state.gen, state.rates)

@@ -14,7 +14,10 @@ Counterpart of ``instruct_tpu/mcmc/updates.py``, function by function:
 initialisation only).  Chains are a written-out leading axis, and every
 function takes its uniforms as arguments (the step draws them from Philox,
 :func:`tail_uniforms`), so a test can feed it the numbers that the JAX
-function draws from its key.  ``update_freq`` and ``update_zq`` draw inside
+function draws from its key.  ``active`` f32[C, K] is the padded K grid's
+active-pop mask (``kselect.py``; 1.0 for a slot in use, the active slots
+leading): q puts exactly zero mass on the other slots, and z never selects
+one.  ``update_freq`` and ``update_zq`` draw inside
 their kernels (``kernels/dirichlet.py``, ``kernels/fused_step.py``,
 ``kernels/zq.py``) and take injected uniforms as optional arguments.
 """
@@ -102,28 +105,44 @@ def update_freq(keys: px.RngKeys, step: int, spec: ModelSpec, data: Dataset,
                             test_draws=test_draws)
 
 
+def mask_active(q, active=None):
+    """Q rows restricted to the active slots: the Dirichlet draw's inactive
+    columns zeroed and each row renormalized -- exactly a Dirichlet over the
+    active slots, whose normalization the padded components leave (JAX
+    ``step.py:draw_q``, :163-178).  ``active`` None: all slots, q as is."""
+    if active is None:
+        return q
+    q = q * active[:, None, :]
+    return q / torch.clamp_min(q.sum(-1, keepdim=True), _EPS)
+
+
 def update_zq(keys: px.RngKeys, step: int, spec: ModelSpec, data: Dataset,
-              freq, q, alpha, u=None, q_draws=None):
+              freq, q, alpha, u=None, q_draws=None, active=None):
     """Gibbs z per allele copy, then Q | Z ~ Dirichlet(counts + alpha)
     (update_ZQ, mcmc.c:1122-1199): z[n, s] ~ Cat_k(q[n, k] * freq[k, l,
     a_ns]), mcmc.c:1146.  The z draw and the counts are one launch of
     ``zq_sample_counts``, the Q draw one of ``dirichlet_nk``.  ``u``
     f32[C, N, S] and ``q_draws`` (as ``dirichlet_nk``'s ``test_draws``)
-    inject the uniforms.  Returns (z int8[C, N, S], q f32[C, N, K], qqnum
+    inject the uniforms; with ``active`` the Q draw is masked
+    (:func:`mask_active`).  Returns (z int8[C, N, S], q f32[C, N, K], qqnum
     f32[C, N, K])."""
     z, qqnum = zq_sample_counts(keys, step, q, freq, data.geno,
                                 data.site_valid, n_pops=spec.n_pops, u=u)
     q_new = dk.dirichlet_nk(keys, step, qqnum + alpha[:, None, None],
                             test_draws=q_draws)
-    return z, q_new, qqnum
+    return z, mask_active(q_new, active), qqnum
 
 
-def update_z_noadmix(u, data: Dataset, freq):
+def update_z_noadmix(u, data: Dataset, freq, active=None):
     """Mode 0: one z per individual, Gibbs over K with full-genome log-liks
     (update_Z, mcmc.c:1094-1119 via log_ld_indv_K), by inverse CDF on the
-    normalised weights exp(ll - max ll) from the uniforms ``u`` f32[C, N].
-    Returns zz i32[C, N]."""
+    normalised weights exp(ll - max ll) from the uniforms ``u`` f32[C, N];
+    with ``active`` the inactive slots weigh 0 (log-lik -inf), so the
+    draw never selects one.  Returns zz i32[C, N]."""
     ll = lk.loglik_matrix_nopop_admix(data, freq)            # [C, N, K]
+    if active is not None:
+        ll = torch.where(active[:, None, :] > 0, ll,
+                         torch.full_like(ll, float("-inf")))
     w = torch.exp(ll - ll.max(dim=-1, keepdim=True).values)
     cum = torch.cumsum(w, dim=-1)
     ut = u * cum[:, :, -1]
@@ -148,16 +167,20 @@ def update_alpha(keys: px.RngKeys, step: int, spec: ModelSpec, q, alpha,
         N [lnG(K a') - K lnG(a')] - N [lnG(K a) - K lnG(a)]
         + (a' - a) sum_{i,m} log q_im.
     Proposals <= 0 are rejected outright, as in the reference.
-    ``test_draws`` = (normal f32[C], uniform f32[C]) injects the draws.
+    With ``active`` the density is over each chain's active slots: K is its
+    active count and the log-q sum is masked (inactive columns hold exact
+    zeros).  ``test_draws`` = (normal f32[C], uniform f32[C]) injects the
+    draws.
     """
-    if active is not None:
-        raise NotImplementedError(
-            "update_alpha: the padded K-selection grid (active) is still "
-            "to be ported (ROADMAP: kselect)")
     normal, u = alpha_draws(keys, step) if test_draws is None else test_draws
     prop = alpha + spec.alpha_sd * normal
-    n, k = q.shape[1], spec.n_pops
-    sum_log_q = _slog(q).sum(dim=(1, 2))
+    n = q.shape[1]
+    if active is None:
+        k = spec.n_pops
+        sum_log_q = _slog(q).sum(dim=(1, 2))
+    else:
+        k = torch.clamp_min(active.sum(-1), 1.0)
+        sum_log_q = (_slog(q) * active[:, None, :]).sum(dim=(1, 2))
 
     def norm_term(a):
         return n * (torch.lgamma(k * a) - k * torch.lgamma(a))
@@ -456,11 +479,12 @@ def update_gen(ug, u_acc, spec: ModelSpec, data: Dataset, freq, z, q, rates,
 
 def empty_cluster_flag(q, active=None) -> torch.Tensor:
     """bool[C]: any cluster's total occupancy sum_i q_ik < 0.01
-    (check_empty_cluster, mcmc.c:1944-1974)."""
-    if active is not None:
-        raise NotImplementedError(
-            "empty_cluster_flag: the padded K-selection grid (active) is "
-            "still to be ported (ROADMAP: kselect)")
+    (check_empty_cluster, mcmc.c:1944-1974).  Inactive padded slots (the K
+    grid's ``active`` f32[C, K]) always have zero occupancy and are
+    exempt."""
     if q.numel() == 0:
         return torch.zeros(q.shape[0], dtype=torch.bool, device=q.device)
-    return (q.sum(dim=1) < 0.01).any(dim=-1)
+    low = q.sum(dim=1) < 0.01
+    if active is not None:
+        low = low & (active > 0)
+    return low.any(dim=-1)

@@ -183,12 +183,19 @@ def _candidate_planes(tables: TetraTables, data: Dataset):
     return torch.stack(sel_pl), torch.stack(cls_pl), torch.stack(mult_pl)
 
 
+# The tetraploid fused sweep's pop limit: the JAX engine's gate
+# (``instruct_tpu/tetra/engine.py:352``), kept although the diploid site pass
+# now runs any K with K*A <= 64.
+TETRA_FUSED_MAX_POPS = 8
+
+
 def tetra_use_fused(spec: ModelSpec, data: Dataset) -> bool:
     """Whether the tetraploid sweep is the fused one (the site kernels K1,
     K4 on the diploid views; ``_tetra_use_pallas``, JAX engine.py:344):
     K <= 8 and K*A <= 64 unless ``use_pallas`` is False."""
-    return (spec.use_pallas is not False and spec.n_pops <= fs.MAX_POPS
-            and spec.n_pops * data.max_alleles <= 64)
+    return (spec.use_pallas is not False
+            and spec.n_pops <= TETRA_FUSED_MAX_POPS
+            and fs.site_pass_fits(spec.n_pops, data.max_alleles))
 
 
 # ---------------------------------------------------------------------------

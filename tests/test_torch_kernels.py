@@ -110,9 +110,9 @@ def test_panel_loglik_pass_matches_jax(setup, structure):
 
 def test_site_pass_refuses_unpacked_panel():
     """An unpacked panel is no longer refused: it runs the generic path,
-    which carries no allele-pop counts.  What the site pass does refuse is
-    a panel that does not fit ``freq``, and more pops than the kernels are
-    built for."""
+    which carries the allele-pop counts as the packed one does.  What the
+    site pass does refuse is a panel that does not fit ``freq``, and a
+    model beyond K * A <= 64 (the JAX step's gate)."""
     rng = np.random.default_rng(2)
     data = packed_dataset(_t(rng.integers(0, 8, (4, 5)).astype(np.int8)))
     q = torch.full((1, 4, 2), 0.5)
@@ -121,15 +121,16 @@ def test_site_pass_refuses_unpacked_panel():
     z, qq, ll, zc = tfs.zq_gendiff_pass(_keys(), 0, q, freq,
                                         data._replace(bits2=None), wg,
                                         structure=True)
-    assert zc is None and z.shape == (1, 4, 10) and ll.shape == (1, 4)
+    assert zc.shape == (1, 2, 5, 2) and z.shape == (1, 4, 10)
+    assert ll.shape == (1, 4)
     assert tfs.zq_gendiff_pass(_keys(), 0, q, freq, data, wg,
                                structure=True)[3].shape == (1, 2, 5, 2)
     with pytest.raises(ValueError, match="does not fit"):
         tfs.zq_gendiff_pass(_keys(), 0, q, torch.full((1, 2, 5, 3), 1 / 3),
                             data, wg, structure=True)
-    with pytest.raises(ValueError, match="n_pops <= 8"):
-        tfs.zq_sample_pass(_keys(), 0, torch.full((1, 4, 9), 1 / 9),
-                           torch.full((1, 9, 5, 2), 0.5), data)
+    with pytest.raises(ValueError, match="n_pops \\* n_alleles <= 64"):
+        tfs.zq_sample_pass(_keys(), 0, torch.full((1, 4, 33), 1 / 33),
+                           torch.full((1, 33, 5, 2), 0.5), data)
 
 
 def test_site_pass_chains_are_independent_streams():

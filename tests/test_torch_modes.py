@@ -310,8 +310,13 @@ def test_what_is_left_still_raises(kwargs, what, item):
     with pytest.raises(NotImplementedError, match="ROADMAP") as e:
         step_mod.check_supported(spec, data)
     assert what in str(e.value) and item in str(e.value)
-    with pytest.raises(NotImplementedError, match="kselect"):
-        tup.update_alpha(None, 0, spec, None, None, active=torch.ones(2))
+    # the K grid's active mask and K > 8 are ported: no longer refused
+    step_mod.check_supported(ModelSpec(mode=2, n_pops=12), data)
+    q = torch.full((1, 8, 2), 0.5)
+    assert torch.isfinite(tup.update_alpha(
+        None, 0, ModelSpec(mode=1, n_pops=2), q, torch.ones(1),
+        active=torch.ones(1, 2),
+        test_draws=(torch.zeros(1), torch.full((1,), 0.5)))).all()
 
 
 @pytest.mark.parametrize("kwargs", [

@@ -57,8 +57,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
 def test_exports_and_defaults():
     assert set(itt.__all__) == {"ModelSpec", "Schedule", "Priors", "Dataset",
                                 "Panel", "synthetic_panel", "run_mcmc",
-                                "RunResult", "__version__"}
-    for fn in (run_mcmc, init_state):
+                                "RunResult", "infer_k", "KSelectResult",
+                                "__version__"}
+    for fn in (run_mcmc, init_state, itt.infer_k):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     # importing the package builds nothing and loads no library
     assert _build._lib is None
@@ -96,12 +97,14 @@ def test_outside_the_slice_raises_not_implemented(panel, kwargs, what):
     (dict(mode=2, back_refl=0), True),
     (dict(mode=2, use_pallas=False), False),
     (dict(mode=2, priors=Priors(family=PriorFamily.NORMAL)), True),
-    (dict(mode=2, n_pops=9), False),
+    (dict(mode=2, n_pops=9), True),
+    (dict(mode=2, n_pops=33), False),
 ])
 def test_wider_specs_build_their_step_and_take_a_sweep(panel, kwargs, fused):
     """Mode 0, the normal prior, ``back_refl=0``, ``use_pallas=False`` and
-    K > 8 build their step, route to the sweep that runs them and take a
-    sweep from Philox, twice alike."""
+    K > 8 build their step, route to the sweep that runs them (the fused
+    one while K * A <= 64, the JAX gate) and take a sweep from Philox,
+    twice alike."""
     spec = ModelSpec(**{"n_pops": 2, **kwargs})
     step_mod.check_supported(spec, panel.data)
     assert step_mod.use_fused(spec, panel.data) == fused

@@ -1,12 +1,17 @@
 """Every entry point of the port's per-site pass (plain PyTorch versions,
 CPU) against the JAX package's Pallas kernel run in interpret mode, on the
-packed biallelic plane and on multi-allelic panels (the generic path).
+packed biallelic plane and on multi-allelic panels (the generic path), at
+K <= 8 and at 8 < K <= 32 (the kernel's run-time-K body).
 
 Inputs are made with numpy from a seed and handed to both sides together
 with the same injected z-draw uniforms, so z, qqnum and zcounts must agree
 exactly and the log-lik columns to f32 rounding (sums over L taken in
-another order than the Pallas blocks': rtol 1e-5, atol 1e-4).
+another order than the Pallas blocks': rtol 1e-5, atol 1e-4).  Every
+sampling pass carries its allele-pop counts on both paths: they equal JAX's
+carried counts and the plain ``allele_counts``.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -80,22 +85,24 @@ def _jax_panel_args(x):
 
 
 def _same_draw(x, got, want):
-    """z, qqnum, zcounts of a sampling pass: exactly equal.  The port's
-    generic path carries no allele-pop counts (the step recounts), so there
-    the JAX pass's carried counts are held against the recount."""
+    """z, qqnum, zcounts of a sampling pass: exactly equal, on both paths;
+    the carried counts also equal the plain ``allele_counts`` of the z
+    drawn.  (Where the JAX side ran with a padded allele of zero weight,
+    its counts of that allele are zero.)"""
     z, qq, zc = got
     jz, jqq, jzc = want
     assert z.dtype == torch.int8 and z.shape[0] == 1
     np.testing.assert_array_equal(z[0].numpy(), np.asarray(jz))
     np.testing.assert_array_equal(qq[0].numpy(), np.asarray(jqq))
     d = x["data"]
-    if tfs.is_packed(d):
-        np.testing.assert_array_equal(zc[0].numpy(), np.asarray(jzc))
-    else:
-        assert zc is None
-        zc = tfs.allele_counts(z, d.geno, d.site_valid, n_pops=x["k"],
-                               max_alleles=d.max_alleles)
-        np.testing.assert_array_equal(zc[0].numpy(), np.asarray(jzc))
+    a = d.max_alleles
+    jzc = np.asarray(jzc)
+    assert zc.shape == (1, x["k"], d.n_loci, a)
+    np.testing.assert_array_equal(zc[0].numpy(), jzc[..., :a])
+    assert not jzc[..., a:].any()
+    np.testing.assert_array_equal(
+        zc.numpy(), tfs.allele_counts(z, d.geno, d.site_valid,
+                                      n_pops=x["k"], max_alleles=a).numpy())
     assert float(qq.sum()) == float(zc.sum()) == 2.0 * float(
         d.site_valid.sum())
 
@@ -269,6 +276,240 @@ def test_generic_path_guards_allele_codes():
     q = _b(rng.dirichlet(np.ones(k), size=n).astype(np.float32))
     freq = _b(rng.dirichlet(np.ones(a), size=(k, l)).astype(np.float32))
     z, qq, ll, zc = tfs.zq_mode1_pass(_keys(), 0, q, freq, data)
-    assert z[0, 0, 3] == 0 and z[0, 2, l + 5] == 0 and zc is None
+    assert z[0, 0, 3] == 0 and z[0, 2, l + 5] == 0
     assert torch.isfinite(ll).all()
-    assert float(qq.sum()) == 2.0 * float(valid.sum())
+    assert float(qq.sum()) == float(zc.sum()) == 2.0 * float(valid.sum())
+    assert torch.equal(zc, tfs.allele_counts(z, data.geno, data.site_valid,
+                                             n_pops=k, max_alleles=a))
+
+
+# K > 8: the kernel's run-time-K body.  (N, L, K, A, generic): packed and
+# generic at A = 2, generic at A = 4.  The JAX kernel runs its affine path
+# at every A = 2 panel, so the port's generic path at A = 2 is held against
+# JAX's generic path, which it takes when P carries a third allele of zero
+# weight (the allele codes never name it, so every w and prefix is the
+# same).  Half the rows' q has three trailing zero columns, as in the
+# padded K grid.
+WIDE = {"packed-K9": (16, 40, 9, 2, False),
+        "packed-K12": (14, 37, 12, 2, False),
+        "packed-K32": (10, 24, 32, 2, False),
+        "generic-A2-K9": (16, 40, 9, 2, True),
+        "generic-A2-K12": (14, 37, 12, 2, True),
+        "generic-A2-K32": (10, 24, 32, 2, True),
+        "generic-K16": (12, 29, 16, 4, False)}
+N_ZERO = 3        # trailing zero-q columns of the padded rows
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_inputs(name):
+    n, l, k, a, generic = WIDE[name]
+    rng = np.random.default_rng(23)
+    n_alleles = (np.full(l, 2) if a == 2
+                 else rng.integers(2, a + 1, size=l))
+    n_alleles[0] = a
+    geno = rng.integers(0, 1 << 30, size=(n, l, 2)) % n_alleles[None, :, None]
+    missing = rng.random((n, l)) < 0.15
+    jdata = jax_make_dataset(geno, missing, n_alleles.astype(np.int32))
+    data = convert.dataset_from_numpy(
+        {f: None if v is None else np.asarray(v)
+         for f, v in jdata._asdict().items()})
+    if generic:
+        data = data._replace(bits2=None)
+    assert tfs.is_packed(data) == (a == 2 and not generic)
+    av = np.asarray(jdata.allele_valid, np.float64)
+    freq = rng.dirichlet(np.ones(a), size=(k, l)) * av[None]
+    freq = (freq / freq.sum(-1, keepdims=True)).astype(np.float32)
+    q = rng.dirichlet(np.ones(k), size=n)
+    q[: n // 2, k - N_ZERO:] = 0.0
+    q = (q / q.sum(-1, keepdims=True)).astype(np.float32)
+    jfreq = freq
+    if generic and a == 2:
+        jfreq = np.concatenate([freq, np.zeros_like(freq[..., :1])], -1)
+    return dict(
+        jdata=jdata, data=data, k=k, freq=freq, q=q,
+        jfreq=jnp.asarray(jfreq), jbits2=None if generic else jdata.bits2,
+        z=rng.integers(0, k, size=(n, 2 * l)).astype(np.int8),
+        u=rng.uniform(1e-6, 1 - 1e-6, size=(n, 2 * l)).astype(np.float32),
+        wg_pair=np.exp2(1.0 - rng.integers(1, 12, size=(n, 2))
+                        ).astype(np.float32),
+        f_pop=rng.uniform(0.02, 0.98, size=(k, 2)).astype(np.float32),
+        f_ind=rng.uniform(0.02, 0.98, size=(n, 2)).astype(np.float32))
+
+
+@pytest.fixture(scope="module",
+                params=["packed-K9", "packed-K12", "packed-K32",
+                        "generic-K16"])
+def wide(request):
+    """The panels whose every entry point is held against JAX's (the JAX
+    kernel's generic path at K = 32 takes minutes to compile, so the
+    generic A = 2 panels check the draw: test_wide_generic_a2_draw...)."""
+    return _wide_inputs(request.param)
+
+
+def _jax_site(x):
+    """(positional panel args, keyword args) of the JAX entry points."""
+    d = x["jdata"]
+    return d.geno, d.site_valid, d.hom, dict(interpret=True, bits2=x["jbits2"])
+
+
+def test_wide_sampling_passes_match_jax(wide):
+    """K > 8, every sampling entry point: z, qqnum and zcounts exactly
+    JAX's (``zq_sample_pass`` against the draw of JAX's mode-1 pass, the
+    same uniforms), the log-lik columns to f32 rounding; z never selects a
+    zero-q trailing slot."""
+    x = wide
+    geno, valid, hom, kw = _jax_site(x)
+    q, u = jnp.asarray(x["q"]), jnp.asarray(x["u"])
+    jf = x["jfreq"]
+    base = (_keys(), 0, _b(x["q"]), _b(x["freq"]), x["data"])
+    tu = dict(u=_b(x["u"]))
+    jz, jqq, jll, jzc = jfs.zq_mode1_pass(0, q, jf, geno, valid, u=u, **kw)
+    z, qq, zc = tfs.zq_sample_pass(*base, **tu)
+    _same_draw(x, (z, qq, zc), (jz, jqq, jzc))
+    n = x["q"].shape[0]
+    assert int(z[0, : n // 2].max()) < x["k"] - N_ZERO
+    z1, qq1, ll, zc1 = tfs.zq_mode1_pass(*base, **tu)
+    _same_draw(x, (z1, qq1, zc1), (jz, jqq, jzc))
+    _close(ll, jll)
+    zold, wg = jnp.asarray(x["z"]), jnp.asarray(x["wg_pair"])
+    jz, jqq, jll, jzc = jfs.zq_gen_pass(0, q, jf, geno, valid, hom, zold, wg,
+                                        structure=True, u=u, **kw)
+    zg, qqg, llg, zcg = tfs.zq_gen_pass(*base, _b(x["wg_pair"]),
+                                        structure=True, **tu)
+    _same_draw(x, (zg, qqg, zcg), (jz, jqq, jzc))
+    _close(llg, jll)
+    jz, jqq, jll, jzc = jfs.zq_gendiff_pass(0, q, jf, geno, valid, hom, zold,
+                                            wg, structure=True, u=u, **kw)
+    zd, qqd, lld, zcd = tfs.zq_gendiff_pass(*base, _b(x["wg_pair"]),
+                                            structure=True, **tu)
+    _same_draw(x, (zd, qqd, zcd), (jz, jqq, jzc))
+    _close(lld, jll)
+    for pop, f_pair in ((True, x["f_pop"]), (False, x["f_ind"])):
+        jz, jqq, jll, jzc = jfs.zq_f_pass(0, q, jf, geno, valid, hom, zold,
+                                          jnp.asarray(f_pair), pop=pop, u=u,
+                                          **kw)
+        zf, qqf, llf, zcf = tfs.zq_f_pass(*base, _b(f_pair), pop=pop, **tu)
+        _same_draw(x, (zf, qqf, zcf), (jz, jqq, jzc))
+        _close(llf, jll)
+        assert llf.shape == ((1, n, x["k"]) if pop else (1, n))
+
+
+def test_wide_stored_passes_match_jax(wide):
+    """K > 8, every stored-step entry point at a carried z: the log-lik
+    columns to f32 rounding.  XLA takes minutes to compile JAX's per-pop F
+    stored pass from K = 12 on, so there, as in the K <= 8 tests, it is held
+    to the JAX-checked sampling pass: at the z that pass drew, the stored
+    pass at (proposed F) minus at (current F) is its MH sum."""
+    x = wide
+    geno, valid, hom, kw = _jax_site(x)
+    jf, zc = x["jfreq"], jnp.asarray(x["z"])
+    tf, tz = _b(x["freq"]), _b(x["z"])
+    _close(tfs.panel_loglik_mode1_pass(tf, None, x["data"], tz),
+           jfs.panel_loglik_mode1_pass(jf, jnp.asarray(x["q"]), geno, valid,
+                                       zc, **kw))
+    wg = x["wg_pair"][:, 0]
+    _close(tfs.panel_loglik_pass(tf, _b(x["q"]), x["data"], tz, _b(wg),
+                                 structure=True),
+           jfs.panel_loglik_pass(jf, jnp.asarray(x["q"]), geno, valid, hom,
+                                 zc, jnp.asarray(wg)[:, None],
+                                 structure=True, **kw))
+    for pop in (True, False):
+        f = (x["f_pop"] if pop else x["f_ind"])[:, 0]
+        got = tfs.panel_loglik_f_pass(tf, x["data"], tz, _b(f), pop=pop)
+        if not pop or x["k"] <= 9:
+            _close(got, jfs.panel_loglik_f_pass(jf, geno, valid, hom, zc,
+                                                jnp.asarray(f)[:, None],
+                                                pop=pop, **kw))
+            continue
+        z, _, fdiff, _ = tfs.zq_f_pass(_keys(), 0, _b(x["q"]), tf, x["data"],
+                                       _b(x["f_pop"]), pop=True,
+                                       u=_b(x["u"]))
+        cur, new = [tfs.panel_loglik_f_pass(tf, x["data"], z,
+                                            _b(x["f_pop"][:, i]), pop=True)
+                    for i in (0, 1)]
+        np.testing.assert_allclose(fdiff.sum(dim=2).numpy(),
+                                   (new - cur).numpy(), rtol=1e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("name", sorted(n for n in WIDE
+                                         if n.startswith("generic-A2")))
+def test_wide_generic_a2_draw_matches_jax(name):
+    """K > 8, the generic path at A = 2: every sampling entry point draws
+    JAX's z, qqnum and zcounts (JAX's generic ``zq_sample_pass``, the same
+    uniforms), and z never selects a zero-q trailing slot."""
+    x = _wide_inputs(name)
+    geno, valid, _, kw = _jax_site(x)
+    want = jfs.zq_sample_pass(0, jnp.asarray(x["q"]), x["jfreq"], geno,
+                              valid, u=jnp.asarray(x["u"]), **kw)
+    base = (_keys(), 0, _b(x["q"]), _b(x["freq"]), x["data"])
+    tu = dict(u=_b(x["u"]))
+    outs = [tfs.zq_sample_pass(*base, **tu),
+            tfs.zq_mode1_pass(*base, **tu),
+            tfs.zq_gen_pass(*base, _b(x["wg_pair"]), structure=True, **tu),
+            tfs.zq_gendiff_pass(*base, _b(x["wg_pair"]), structure=True,
+                                **tu),
+            tfs.zq_f_pass(*base, _b(x["f_pop"]), pop=True, **tu),
+            tfs.zq_f_pass(*base, _b(x["f_ind"]), pop=False, **tu)]
+    for out in outs:
+        _same_draw(x, (out[0], out[1], out[-1]), want)
+        assert all(torch.isfinite(t).all() for t in out[2:-1])
+    n = x["q"].shape[0]
+    assert int(outs[0][0][0, : n // 2].max()) < x["k"] - N_ZERO
+
+
+@pytest.mark.parametrize("name", ["packed-K12", "generic-A2-K9"])
+def test_wide_expectation_way_matches_jax(name):
+    """K > 8, the expectation way (``structure=False``: the Q mixture in
+    place of P at z) of the G passes, sampling and stored-step."""
+    x = _wide_inputs(name)
+    geno, valid, hom, kw = _jax_site(x)
+    q, jf = jnp.asarray(x["q"]), x["jfreq"]
+    zold, wg = jnp.asarray(x["z"]), jnp.asarray(x["wg_pair"])
+    jz, jqq, jll, jzc = jfs.zq_gendiff_pass(0, q, jf, geno, valid, hom, zold,
+                                            wg, structure=False,
+                                            u=jnp.asarray(x["u"]), **kw)
+    z, qq, ll, zc = tfs.zq_gendiff_pass(_keys(), 0, _b(x["q"]),
+                                        _b(x["freq"]), x["data"],
+                                        _b(x["wg_pair"]), structure=False,
+                                        u=_b(x["u"]))
+    _same_draw(x, (z, qq, zc), (jz, jqq, jzc))
+    _close(ll, jll)
+    w0 = x["wg_pair"][:, 0]
+    _close(tfs.panel_loglik_pass(_b(x["freq"]), _b(x["q"]), x["data"],
+                                 _b(x["z"]), _b(w0), structure=False),
+           jfs.panel_loglik_pass(jf, q, geno, valid, hom, zold,
+                                 jnp.asarray(w0)[:, None], structure=False,
+                                 **kw))
+
+
+def test_wide_rerun_and_trailing_zero_q_never_drawn():
+    """The plain version at K = 32 from Philox (no injected uniforms):
+    reruns are bitwise equal, rows with trailing zero-q columns never draw
+    those slots, and the counts are the plain ``allele_counts``."""
+    x = _wide_inputs("packed-K32")
+    d, k = x["data"], x["k"]
+    keys = px.make_keys(5, 2, "cpu", chain_key=[3, 8])
+    q = _b(x["q"]).expand(2, -1, -1).contiguous()
+    f = _b(x["freq"]).expand(2, -1, -1, -1).contiguous()
+    z, qq, zc = tfs.zq_sample_pass(keys, 9, q, f, d)
+    again = tfs.zq_sample_pass(keys, 9, q, f, d)
+    assert all(torch.equal(a, b) for a, b in zip((z, qq, zc), again))
+    n = x["q"].shape[0]
+    assert int(z[:, : n // 2].max()) < k - N_ZERO
+    assert float(qq[:, : n // 2, k - N_ZERO:].abs().sum()) == 0.0
+    assert torch.equal(zc, tfs.allele_counts(z, d.geno, d.site_valid,
+                                             n_pops=k, max_alleles=2))
+
+
+def test_site_pass_gate_is_k_times_a():
+    """The wrappers run K * A <= 64 (the JAX step's gate) and refuse
+    beyond, naming the bound; the plain versions run any K."""
+    assert tfs.site_pass_fits(32, 2) and tfs.site_pass_fits(16, 4)
+    assert not tfs.site_pass_fits(33, 2) and not tfs.site_pass_fits(9, 8)
+    x = _wide_inputs("generic-K16")
+    freq = _b(np.concatenate([x["freq"]] * 3, axis=0))      # K = 48, A = 4
+    q = _b(np.concatenate([x["q"]] * 3, axis=1) / 3.0)
+    with pytest.raises(ValueError, match="64"):
+        tfs.zq_sample_pass(_keys(), 0, q, freq, x["data"])
+    z, qq, zc = tfs.zq_sample_pass_reference(_keys(), 0, q, freq, x["data"])
+    assert zc.shape == (1, 48, x["data"].n_loci, 4)

@@ -78,8 +78,9 @@ def test_plain_version_matches_the_jax_kernel(n, l, k, a, ploid):
 @pytest.mark.parametrize("n,l,k,a", [(17, 23, 3, 2), (12, 9, 8, 8),
                                      (6, 31, 5, 16)])
 def test_same_draw_as_the_generic_site_pass(n, l, k, a):
-    """For K <= 8 on a diploid panel K8 and the generic path of the site
-    pass read the same Philox words and form the same prefixes."""
+    """On a diploid panel K8 and the generic path of the site pass read the
+    same Philox words and form the same prefixes; the site pass also carries
+    the allele-pop counts of its z."""
     geno, valid, allele_valid, freq, q, u = _inputs(n, l, k, a, 2, seed=3)
     data = Dataset(geno=_t(geno), site_valid=_t(valid),
                    allele_valid=_t(allele_valid),
@@ -90,7 +91,8 @@ def test_same_draw_as_the_generic_site_pass(n, l, k, a):
                                        data.site_valid, n_pops=k, u=inj)
         z1, qq1, zc = fs.zq_sample_pass_reference(keys, 4, _t(q), _t(freq),
                                                   data, u=inj)
-        assert zc is None
+        assert torch.equal(zc, fs.allele_counts_reference(
+            z1, data.geno, data.site_valid, n_pops=k, max_alleles=a))
         assert torch.equal(z, z1) and torch.equal(qqnum, qq1)
     # another step or chain key is another draw
     z2, _ = zq.zq_sample_counts(keys, 5, _t(q), _t(freq), data.geno,
