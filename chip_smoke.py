@@ -40,6 +40,7 @@ tetra, kselect (development aid); the device and Philox phases always run.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import re
 import statistics
@@ -1211,14 +1212,57 @@ def rates_trajectory(data, spec, n_steps: int) -> torch.Tensor:
     return torch.stack(trace)
 
 
+PROFILE_WINDOWS = 3    # profiled windows tried before the profile fails
+
+
+def _profile_window(step, state, keys, i0: int, n_prof: int):
+    """One profiled window of ``n_prof`` sweeps behind one warm-up sweep
+    (the profiler's own warm-up step: the events of the first sweep after
+    it turns device tracing on can be lost).  Returns (state, kernel rows
+    (name, device us, events), the wrappers' launches in the window)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=n_prof,
+                                   repeat=1)) as prof:
+        state = step(state, keys, i0)
+        torch.cuda.synchronize()
+        prof.step()
+        before = collections.Counter(_build.launches)
+        for i in range(n_prof):
+            state = step(state, keys, i0 + 1 + i)
+            if i == n_prof - 1:
+                torch.cuda.synchronize()
+            prof.step()
+        host = collections.Counter(_build.launches)
+        host.subtract(before)
+    rows = []
+    for ev in prof.key_averages():
+        # the schedule's ProfilerStep# spans cover the step's kernels on the
+        # device: a range, not a kernel, so they are left out of the sums
+        if ev.key.startswith("ProfilerStep") or (
+                getattr(ev, "device_type", None) is not None
+                and "cuda" not in str(ev.device_type).lower()):
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            rows.append((ev.key, dev_us, ev.count))
+    return state, rows, host
+
+
 def sweep_profile(data, spec, n_steps: int = 100, n_prof: int = 30,
                   active=None) -> dict:
     """Where a sweep's time goes: host wall time per sweep of the bare step
     loop, and the device time of the kernels in it from ``torch.profiler``
-    (summed by kernel name).  Device numbers are ``None`` where the
-    profiler shows no device time.  ``active`` [C, K] profiles the padded
-    K grid's C replicas."""
-    from torch.profiler import ProfilerActivity, profile
+    (summed by kernel name).  The sweeps a trace holds are counted by an
+    anchor, the Dirichlet kernel: every sweep launches it a fixed number of
+    times, and the wrappers' counters say how many launches the window
+    made.  A window whose trace holds fewer Dirichlet events than that lost
+    events: it is reported and another is profiled, up to
+    ``PROFILE_WINDOWS``.  Every per-sweep number is over the sweeps the
+    trace holds.  Device numbers are ``None`` where the profiler shows no
+    device time.  ``active`` [C, K] profiles the padded K grid's C
+    replicas."""
     c = N_CHAINS if active is None else active.shape[0]
     keys = px.make_keys(RUN_SEED, c, "cuda")
     state = init_state(RUN_SEED, spec, data, n_chains=c, device="cuda",
@@ -1237,63 +1281,73 @@ def sweep_profile(data, spec, n_steps: int = 100, n_prof: int = 30,
                enqueue_ms_per_sweep=1e3 * enqueue / n_steps,
                device_ms_per_sweep=None, device_idle_share=None,
                top_kernels=None)
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for i in range(200, 200 + n_prof):
-                state = step(state, keys, i)
-            torch.cuda.synchronize()
-    except RuntimeError as e:
-        # the profiler is a measurement aid, not a check: where device
-        # tracing is not available the device numbers stay None
-        out["profiler_error"] = str(e)[:200]
+    lost = []
+    for w in range(PROFILE_WINDOWS):
+        try:
+            state, rows, host = _profile_window(
+                step, state, keys, 200 + w * (n_prof + 1), n_prof)
+        except RuntimeError as e:
+            # the profiler is a measurement aid: where device tracing is
+            # not available the device numbers stay None
+            out["profiler_error"] = str(e)[:200]
+            return out
+        if not rows:
+            return out
+        anchor_host = host["dirichlet_kla"] + host["dirichlet_nk"]
+        anchor = sum(r[2] for r in rows if "dirichlet_kernel" in r[0])
+        if anchor == anchor_host:
+            break
+        lost.append(dict(dirichlet_events=anchor,
+                         dirichlet_launches=anchor_host))
+    out.update(profiled_sweeps=n_prof, profile_windows_lost=lost,
+               profile_complete=anchor == anchor_host)
+    if not out["profile_complete"]:
         return out
-    rows = []
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) is not None and \
-                "cuda" not in str(ev.device_type).lower():
-            continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            rows.append((ev.key, dev_us / n_prof / 1e3, ev.count / n_prof))
-    if rows:
-        # the site pass is one launch a call (check_one_site_launch)
-        out.update(site_pass_device_launches_per_sweep=round(sum(
-                       r[2] for r in rows if "site_kernel" in r[0]), 2),
-                   memset_launches_per_sweep=round(sum(
-                       r[2] for r in rows if "memset" in r[0].lower()), 2))
-        rows.sort(key=lambda r: -r[1])
-        busy = sum(r[1] for r in rows)
-        out.update(device_ms_per_sweep=busy,
-                   device_idle_share=max(0.0, 1.0 - busy / out[
-                       "wall_ms_per_sweep"]),
-                   top_kernels=[dict(name=k[:60], ms_per_sweep=round(ms, 5),
-                                     launches_per_sweep=round(cnt, 2))
-                                for k, ms, cnt in rows[:8]],
-                   device_kernel_launches_per_sweep=round(
-                       sum(r[2] for r in rows), 1))
+    sweeps = n_prof * anchor // anchor_host
+    site_host = sum(v for name, v in host.items()
+                    if name.startswith("site_pass"))
+    out.update(sweeps_observed=sweeps,
+               site_pass_launches_per_sweep=site_host / sweeps,
+               site_pass_device_launches_per_sweep=sum(
+                   r[2] for r in rows if "site_kernel" in r[0]) / sweeps,
+               memset_launches_per_sweep=sum(
+                   r[2] for r in rows if "memset" in r[0].lower()) / sweeps)
+    rows = sorted(((k, us / sweeps / 1e3, cnt / sweeps)
+                   for k, us, cnt in rows), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    out.update(device_ms_per_sweep=busy,
+               device_idle_share=max(0.0, 1.0 - busy / out[
+                   "wall_ms_per_sweep"]),
+               top_kernels=[dict(name=k[:60], ms_per_sweep=round(ms, 5),
+                                 launches_per_sweep=round(cnt, 2))
+                            for k, ms, cnt in rows[:8]],
+               device_kernel_launches_per_sweep=round(
+                   sum(r[2] for r in rows), 1))
     return out
 
 
 def check_one_site_launch(tag, prof, fused, counts_each_sweep=False) -> None:
     """A fused sweep calls the site pass once, and that call is one kernel
-    launch on the device.  Every diploid sampling pass carries its counts,
-    so nothing else in the sweep memsets (K4 and K8, which do, run only at
-    the start): no memset shows either, unless the sweep counts with K4
-    each time (``counts_each_sweep``: the tetraploid P update).  The
-    profiler drops events of a busy window (one in 30 of every kernel once;
-    a fifth of them in a K-grid window of 25 000 launches), so the trace
-    can show fewer site-pass launches than sweeps -- the launch counters
-    prove each call launched -- but never more: a second kernel per call
-    fails."""
-    n = prof.get("site_pass_device_launches_per_sweep")
-    if not fused or n is None:
+    launch on the device: in a profiled window whose trace holds every
+    sweep (the Dirichlet anchor of ``sweep_profile``), exactly as many
+    site-pass kernels as sweeps.  Every diploid sampling pass carries its
+    counts, so nothing else in the sweep memsets (K4 and K8, which do, run
+    only at the start): no memset shows either, unless the sweep counts
+    with K4 each time (``counts_each_sweep``: the tetraploid P update).  A
+    profile in which every window lost events fails."""
+    if not fused or "profiler_error" in prof or \
+            prof.get("profile_complete") is None:
         return
+    if not prof["profile_complete"]:
+        raise AssertionError(f"{tag}: every profiled window lost events "
+                             f"{prof['profile_windows_lost']}")
+    host = prof["site_pass_launches_per_sweep"]
+    dev = prof["site_pass_device_launches_per_sweep"]
     memsets = prof["memset_launches_per_sweep"]
-    if not 0.0 < n <= 1.0 or (memsets and not counts_each_sweep):
-        raise AssertionError(f"{tag}: the site pass made {n} kernel launches "
-                             f"and the sweep {memsets} memsets per sweep")
+    if host != 1 or dev != 1 or (memsets and not counts_each_sweep):
+        raise AssertionError(f"{tag}: the site pass made {host} calls and "
+                             f"{dev} kernel launches, and the sweep "
+                             f"{memsets} memsets per sweep")
 
 
 def expected_launches(spec, data, steps, evals, attempts) -> dict:
@@ -1691,8 +1745,7 @@ def phase_kselect(panel, smi: str) -> dict:
     # run_mcmc's stored-step and WAIC passes
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    # few profiled sweeps: at ~2500 launches each the profiler drops events
-    prof = sweep_profile(data, spec_pad, n_steps=30, n_prof=4, active=act)
+    prof = sweep_profile(data, spec_pad, n_steps=30, n_prof=10, active=act)
     peak_sweeps = torch.cuda.max_memory_allocated()
     emit("sweep_profile", path="kselect: mode 2, headline panel, K = 1..10 "
          "grid", card=smi, **prof)
@@ -1706,6 +1759,9 @@ def phase_kselect(panel, smi: str) -> dict:
          wall_seconds=round(wall, 3),
          wall_ms_per_sweep=round(1e3 * wall / steps, 4),
          device_ms_per_sweep=prof.get("device_ms_per_sweep"),
+         profiled_sweeps_observed=prof.get("sweeps_observed"),
+         site_pass_device_launches_per_sweep=prof.get(
+             "site_pass_device_launches_per_sweep"),
          peak_device_memory_bytes=int(peak),
          peak_device_memory_bytes_bare_sweeps=int(peak_sweeps),
          launches=launches,

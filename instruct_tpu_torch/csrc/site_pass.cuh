@@ -920,13 +920,19 @@ int launch_one(const SiteArgs& a, dim3 grid, cudaStream_t s) {
   size_t dyn =
       table_counts(K) ? (size_t)a.K * a.A * kQuad * kThreads * 2 : 0;
   if (K == 0 && kSample) dyn += (size_t)2 * a.K * kThreads * sizeof(float);
-  static size_t opted = 0;               // dynamic bytes opted in so far
-  if (dyn > opted) {
+  // dynamic bytes opted in so far, per device: the attribute is set on the
+  // current device (beyond the 64th, it is set at every launch)
+  static size_t opted[64] = {};
+  int dev = 0;
+  const cudaError_t g = cudaGetDevice(&dev);
+  if (g != cudaSuccess) return (int)g;
+  size_t* seen = dev < 64 ? &opted[dev] : nullptr;
+  if (seen == nullptr || dyn > *seen) {
     const cudaError_t e = cudaFuncSetAttribute(
         site_kernel<K, FAM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)dyn);
     if (e != cudaSuccess) return (int)e;
-    opted = dyn;
+    if (seen != nullptr) *seen = dyn;
   }
   site_kernel<K, FAM><<<grid, kThreads, dyn, s>>>(a);
   return (int)cudaGetLastError();

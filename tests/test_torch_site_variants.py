@@ -396,10 +396,12 @@ def test_wide_sampling_passes_match_jax(wide):
 
 def test_wide_stored_passes_match_jax(wide):
     """K > 8, every stored-step entry point at a carried z: the log-lik
-    columns to f32 rounding.  XLA takes minutes to compile JAX's per-pop F
-    stored pass from K = 12 on, so there, as in the K <= 8 tests, it is held
-    to the JAX-checked sampling pass: at the z that pass drew, the stored
-    pass at (proposed F) minus at (current F) is its MH sum."""
+    columns to f32 rounding.  XLA takes more than 15 minutes to compile JAX's
+    per-pop F stored pass on its affine (packed) path from K = 12 on, so on
+    the packed panels there the port's stored pass is held to JAX's generic
+    path (a third allele of zero weight, as the generic-A2 panels do), and
+    also to the JAX-checked sampling pass: at the z that pass drew, the
+    stored pass at (proposed F) minus at (current F) is its MH sum."""
     x = wide
     geno, valid, hom, kw = _jax_site(x)
     jf, zc = x["jfreq"], jnp.asarray(x["z"])
@@ -416,10 +418,15 @@ def test_wide_stored_passes_match_jax(wide):
     for pop in (True, False):
         f = (x["f_pop"] if pop else x["f_ind"])[:, 0]
         got = tfs.panel_loglik_f_pass(tf, x["data"], tz, _b(f), pop=pop)
-        if not pop or x["k"] <= 9:
-            _close(got, jfs.panel_loglik_f_pass(jf, geno, valid, hom, zc,
-                                                jnp.asarray(f)[:, None],
-                                                pop=pop, **kw))
+        affine = x["jbits2"] is not None and pop and x["k"] > 9
+        jf_pass, kw_pass = jf, kw
+        if affine:
+            jf_pass = jnp.concatenate([jf, jnp.zeros_like(jf[..., :1])], -1)
+            kw_pass = dict(kw, bits2=None)
+        _close(got, jfs.panel_loglik_f_pass(jf_pass, geno, valid, hom, zc,
+                                            jnp.asarray(f)[:, None], pop=pop,
+                                            **kw_pass))
+        if not affine:
             continue
         z, _, fdiff, _ = tfs.zq_f_pass(_keys(), 0, _b(x["q"]), tf, x["data"],
                                        _b(x["f_pop"]), pop=True,
