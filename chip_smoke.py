@@ -35,6 +35,11 @@ last line is ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset of build, kernels, main_path, modes, unfused,
 tetra, kselect (development aid); the device and Philox phases always run.
+``--parent-csrc DIR`` (another tree's ``instruct_tpu_torch/csrc``, e.g. a
+``git archive`` of the parent commit unpacked under ``_parent/``) builds
+that tree's site pass beside this one's and times it on every timed entry
+point of the site pass (``parent_ms`` in the kernels phase line; null
+without it).
 """
 
 from __future__ import annotations
@@ -42,10 +47,13 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import pathlib
 import re
 import statistics
 import subprocess
 import sys
+import shutil
+import threading
 import time
 
 import numpy as np
@@ -69,6 +77,7 @@ from instruct_tpu_torch.kernels import tetra_geno as tg
 from instruct_tpu_torch.mcmc.state import init_state
 from instruct_tpu_torch.mcmc.step import build_step_parts, use_fused
 from instruct_tpu_torch.tetra import engine as te
+from instruct_tpu_torch.tools import site_pass_variants as spv
 
 # Headline shapes of the main path.
 N_INDV, N_LOCI, N_POPS, N_CHAINS, SUBSWEEPS = 1000, 10_000, 3, 4, 12
@@ -188,14 +197,22 @@ def phase_build() -> None:
     _build.library()
     seconds = time.time() - t0
     log = (_build.BUILD / "build.log")
-    regs = {}
+    regs, wide, wide_fn = {}, {}, None
     if log.exists():
         src, prev = None, ""
         for line in log.read_text().splitlines():
             m = re.match(r"== (\S+) ", line)
             if m:
                 src = m.group(1)
+            m = re.search(r"Function properties for \S*site_kernelILi"
+                          r"(\d+)ELi(\d)E", line)
+            if m and int(m.group(1)) > fs.WIDE_POPS:
+                wide_fn = f"{src}: K <= {m.group(1)}, family {m.group(2)}"
             m = re.search(r"Used (\d+) registers", line)
+            if m and wide_fn:
+                wide[wide_fn] = (f"{m.group(1)} registers, "
+                                 f"{prev.split(',')[1].strip()}")
+                wide_fn = None
             if m and src:
                 spill = "0 bytes spill stores" not in prev
                 r = regs.setdefault(src, {"max_registers": 0,
@@ -205,7 +222,7 @@ def phase_build() -> None:
                 r["spills"] = r["spills"] or spill
             prev = line
     emit("build", seconds=round(seconds, 2), nvcc=_build.find_nvcc(),
-         flags=" ".join(_build.NVCC_FLAGS), ptxas=regs)
+         flags=" ".join(_build.NVCC_FLAGS), ptxas=regs, ptxas_wide=wide)
 
 
 def phase_philox() -> dict:
@@ -601,6 +618,42 @@ def site_work(name, x, out, structure):
     return n_bytes, n_ops
 
 
+# The site pass of another tree (``--parent-csrc``), timed beside the current
+# one: its build thread, then its library or the build's error.
+PARENT: dict = {}
+
+
+def start_parent_build(csrc) -> None:
+    """Build the site-pass sources of ``csrc`` (another tree's
+    ``instruct_tpu_torch/csrc``) in a thread, into :data:`PARENT`."""
+    work_dir = _build.BUILD / "parent"
+    shutil.rmtree(work_dir, ignore_errors=True)
+
+    def work():
+        try:
+            lib, _ = spv.build_site_library(
+                work_dir, "parent", spv.source_texts(pathlib.Path(csrc)))
+            PARENT["lib"] = lib
+        except Exception as e:          # reported where it is needed
+            PARENT["error"] = repr(e)
+    PARENT["thread"] = threading.Thread(target=work)
+    PARENT["thread"].start()
+
+
+def parent_ms(name, x, structure):
+    """The parent site pass's time on the entry point and inputs (its
+    bodies take 16-row strips, as the kernel's ``site_pass_strips`` gives
+    them), or None without ``--parent-csrc``."""
+    if "thread" not in PARENT:
+        return None
+    PARENT["thread"].join()
+    if "lib" not in PARENT:
+        raise RuntimeError(f"the parent's site pass did not build: "
+                           f"{PARENT.get('error')}")
+    with spv.site_library(PARENT["lib"], fs.MIN_STRIP_ROWS):
+        return time_ms(site_calls(name, x, structure)[0])
+
+
 def check_site_entry(name, line, x, structure=True, timed=True,
                      plain_group=None):
     d = x["data"]
@@ -610,6 +663,23 @@ def check_site_entry(name, line, x, structure=True, timed=True,
     tag = f"{counter}(K={k}, structure={structure})"
     run, plain = site_calls(name, x, structure, plain_group=plain_group)
     got, want = run(), plain()
+    plan = None
+    if k > fs.WIDE_POPS:
+        # the wrapper's launch plan against the kernel's own shared memory
+        sample = got["z"] is not None
+        fam = name.replace("site_pass_", "").replace("loglik_", "")
+        fam = {"sample": "none", "loglik": "gen"}.get(fam, fam)
+        plan = fs.site_plan(c, n, d.n_loci, k, d.max_alleles, packed=packed,
+                            sample=sample, ll_kind=fam,
+                            structure=structure)._asdict()
+        dyn = getattr(_build.library(), (
+            f"site_{'packed' if packed else 'generic'}_"
+            f"{'sample' if sample else 'eval'}_launch_dyn_smem"))(
+                k, d.max_alleles, fs._FAMILY[fam], int(structure))
+        if dyn != plan["dyn_smem"]:
+            raise AssertionError(f"{tag}: the kernel takes {dyn} bytes of "
+                                 f"dynamic shared memory, the plan "
+                                 f"{plan['dyn_smem']}")
     scale = d.n_loci / 10_000
     err = site_agrees(tag, name, got, want, scale)
     sample = got["z"] is not None
@@ -672,13 +742,14 @@ def check_site_entry(name, line, x, structure=True, timed=True,
                  shape=dict(C=c, N=n, L=d.n_loci, K=k, A=d.max_alleles),
                  structure=structure, max_abs_err=err, bound_ms=b_ms,
                  bound_by=b_by, library_ms=None, bytes=n_bytes, ops=n_ops,
-                 notes=notes,
+                 notes=notes, plan=plan,
                  compared="z, qqnum, zcounts exactly equal; ll rtol "
                           f"{LL_RTOL.get(name, 1e-5)} atol "
                           f"{LL_ATOL.get(name, 1e-2) * scale:.1e}")
     if timed:
         entry.update(ms=time_ms(run),
-                     plain_ms=time_ms(plain, reps=3, warm=1, inner=1))
+                     plain_ms=time_ms(plain, reps=3, warm=1, inner=1),
+                     parent_ms=parent_ms(name, x, structure))
     return entry
 
 
@@ -933,7 +1004,8 @@ def phase_edge_shapes() -> None:
              (2, 45, 1030, 4, 3), (1, 1100, 36, 5, 5), (2, 40, 37, 6, 8),
              (1, 64, 250, 7, 5), (2, 1500, 9, 8, 8), (4, 77, 1030, 3, 4),
              (2, 45, 1030, 9, 3), (1, 70, 131, 12, 5), (2, 33, 250, 16, 4),
-             (3, 40, 37, 32, 2), (1, 1100, 36, 10, 6)]
+             (3, 40, 37, 32, 2), (1, 1100, 36, 10, 6), (2, 33, 250, 17, 3),
+             (1, 40, 37, 20, 3)]
     for c, n, l, k, a in cases:
         tag = f"edge shape C={c} N={n} L={l} K={k}"
         keys = px.make_keys(77, c, "cuda", chain_key=range(3, 3 + c))
@@ -1054,7 +1126,8 @@ def check_wide_site_entries(panel, panel_a4, variants) -> list:
     K = 12's mode-2 passes and expectation way, every entry point at K = 9
     and 32 on the headline panel, and mode 2's passes on the generic path
     at A = 2 (the headline panel without its packed plane) at K = 9, 12,
-    32."""
+    32; untimed, every entry point at the pop buckets' edge (K = 16 and 17
+    on the headline panel, K = 17 on an A = 3 panel)."""
     grid_passes = ("site_pass_gendiff", "site_pass_loglik")
     main = []
     x = kernel_inputs(panel, WIDE_K, zero_tail=3)
@@ -1080,6 +1153,13 @@ def check_wide_site_entries(panel, panel_a4, variants) -> list:
         x["data"] = x["data"]._replace(bits2=None)
         variants += check_site_entries(x, only=grid_passes)
         del x
+        torch.cuda.empty_cache()
+    panel_a3 = synthetic_panel(N_INDV, GEN_LOCI, n_pops=N_POPS, n_alleles=3,
+                               selfing_rates=np.array([0.1, 0.4, 0.8]),
+                               admixture_alpha=0.1, seed=PANEL_SEED)
+    for pnl, k in ((panel, 16), (panel, 17), (panel_a3, 17)):
+        variants += check_site_entries(kernel_inputs(pnl, k, zero_tail=3),
+                                       timed=False)
         torch.cuda.empty_cache()
     return main
 
@@ -2322,6 +2402,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="build,kernels,main_path,modes,unfused,tetra,"
                             "kselect")
+    ap.add_argument("--parent-csrc", default=None,
+                    help="another tree's instruct_tpu_torch/csrc: its site "
+                         "pass is built and timed beside this one's")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -2329,6 +2412,8 @@ def main(argv=None) -> int:
               "is false", file=sys.stderr)
         return 1
     smi = phase_device()
+    if args.parent_csrc:
+        start_parent_build(args.parent_csrc)
     if "build" in phases:
         phase_build()
     philox_entry = phase_philox()

@@ -6,9 +6,9 @@
 // separate valid and hom planes), SITE_SAMPLE (1: the pass draws z; 0: it
 // evaluates a log-lik at the carried z) and SITE_LAUNCH (the name of its
 // launch function).  The four sources are compiled side by side; each
-// instantiates the body for K = 1..8 and once for 8 < K <= 32 (K at run
-// time; K*A <= 64, the JAX step's gate), for the log-lik families of its
-// half:
+// instantiates the body for K = 1..8 and for 8 < K <= 32 in two pop buckets
+// (K at run time; K*A <= 64, the JAX step's gate), for the log-lik families
+// of its half:
 //
 //   family    sampling pass (at the FRESH z)            stored-step pass
 //   none      zq_sample_pass                            -
@@ -50,27 +50,44 @@
 //     to a partial row; the last block of a (chain, tile) to finish -- a
 //     ticket counter it resets for the next call -- adds the S strips in
 //     order and stores zcounts.  No memset, no atomics on the counts.
-//   * Generic path, and any path with 8 < K <= 32 (the "wide" body, K fixed
-//     at run time): P[k, l, a] is read through the read-only cache at the
-//     allele code of the copy (a code outside [0, A) gives w = 0), and the
-//     K*A <= 64 allele-pop counters of each of the thread's loci live in a
-//     shared-memory table of 16-bit cells that only the thread touches
-//     (K*A x 4 loci x 128 threads x 2 bytes: at most 64 KB, sized per call);
-//     the strip's nonzero cells are added to a u32 [C, K*A, L] total with
-//     integer atomics (exact in any order: the result is the same bits
-//     every run), and the last block of the (chain, tile) converts its
-//     loci's totals to zcounts and leaves them zero for the next call.  (A
-//     partial row per strip added by the last block, as above, was slower
-//     at K*A = 24: that block reads S times the cells.)  The wide body keeps
-//     no per-pop array in registers: each thread keeps the CDF prefixes of
-//     the site in hand in its own shared-memory column (2 x K floats) and
-//     counts those below u * total after the last, so z is the plain
-//     version's; q comes from the staged row, the per-pop F from the
-//     read-only cache, and the per-row copies per pop from four words of
-//     4-bit fields (a thread adds at most 8 copies a row).  It runs at ~15x
-//     its operation bound on an H100 (18.4 ms at 40 chains x K = 10 on the
-//     headline panel; two passes over P, the second recomputing the
-//     prefixes, took 24.8): the per-copy CDF over K waits on its P loads.
+//   * Generic path, K <= 8: P[k, l, a] is read through the read-only cache
+//     at the allele code of the copy (a code outside [0, A) gives w = 0),
+//     and the K*A <= 64 allele-pop counters of each of the thread's loci
+//     live in a shared-memory table of 16-bit cells that only the thread
+//     touches (K*A x 4 loci x 128 threads x 2 bytes: at most 64 KB, sized
+//     per call); the strip's nonzero cells are added to a u32 [C, K*A, L]
+//     total with integer atomics (exact in any order: the result is the
+//     same bits every run), and the last block of the (chain, tile)
+//     converts its loci's totals to zcounts and leaves them zero for the
+//     next call.  (A partial row per strip added by the last block, as
+//     above, was slower at K*A = 24: that block reads S times the cells.)
+//   * 8 < K <= 32 (the "wide" body, both paths): one instantiation per pop
+//     bucket (K <= 16, K <= 32), the run's K at run time.  The block copies
+//     the P rows of its tile into shared memory once (cp.async of
+//     consecutive loci, with the first stage of rows) and reuses them over
+//     its strip: packed (f0, d) pairs, generic all A alleles, each thread's
+//     4 loci in its own column of every pop plane (no bank conflict,
+//     whatever the pop or allele a site reads).  A stored-step pass that
+//     reads P only at z, generic or at K > 16, reads it through the
+//     read-only cache instead.  Each row's q sits in registers (zero past
+//     K), each site's prefixes in two register arrays of the bucket's
+//     width (one (A_k, B_k) pair per packed site for both copies), filled
+//     and then counted below u * total in unrolled runs of 2 (16 bucket)
+//     or 4 pops that stop at the first run past K.  A padded pop adds
+//     q * P = 0 * 0 = +0, so its prefix equals the total and counts
+//     nowhere (u * total never exceeds it; z is clamped to K - 1 for an
+//     injected u >= 1, where the plain version's count stops).  The
+//     strip's allele-pop counts go to byte fields in shared memory
+//     (packed: a 16-bit cell per pop and locus, copies with z = k in the
+//     low byte, those with allele bit 1 in the high one; generic: a byte
+//     per cell; at most 127 rows a strip), then to the u32 total by
+//     integer atomics as above; the per-row copies per pop to 4-bit fields
+//     of 64-bit words.  The wrapper's launch plan
+//     (kernels/fused_step.py:site_plan) gives strips of up to 64 rows.  At
+//     40 chains x K = 10 on the headline panel it runs at ~6.8x its
+//     operation bound on an H100 (8.5 ms), the CDF over K ~40% of it and
+//     issue-bound: the 4 sites' prefixes side by side, recomputed in a
+//     second pass instead of kept, take longer (tools/site_pass_variants.py).
 //   * Per row, the integer sums (copies per pop, four bits a pop in one
 //     word, and the het-site count of gendiff) take one redux.sync each;
 //     the float sums a warp butterfly; the block's 4 warp partials are added
@@ -101,11 +118,32 @@ constexpr int kThreads = SITE_THREADS;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = kThreads * kQuad;   // loci per block
 constexpr int kStage = SITE_STAGE_ROWS;   // rows staged at a time
+// The wide body of pop bucket KB: rows staged at a time (4 where the per-
+// row sums are many -- the 32 bucket, the per-pop F sums of fpop -- so
+// that their static shared memory leaves room for another block), and
+// pops a run of its unrolled prefix loops (K is padded to a multiple of
+// it); tools/site_pass_variants.py times other values.
+__host__ __device__ constexpr int wide_stage(int KB, bool fpop) {
+#ifdef SITE_WIDE_STAGE_ROWS
+  return SITE_WIDE_STAGE_ROWS + 0 * KB * fpop;
+#else
+  return KB <= 16 && !fpop ? kStage : 4;
+#endif
+}
+__host__ __device__ constexpr int wide_run(int KB) {
+#ifdef SITE_WIDE_RUN
+  return SITE_WIDE_RUN + 0 * KB;
+#else
+  return KB <= 16 ? 2 : 4;
+#endif
+}
 constexpr int kStripRows = 16;            // rows a strip is given ...
 constexpr int kMaxStrips = 64;            // ... up to this many strips
 constexpr int kMaxStripRows = 32767;      // half-word counts per strip
-constexpr int kMaxWide = 32;              // the wide body: 8 < K <= 32 ...
+constexpr int kNarrow = 8;                // K above: the wide body ...
+constexpr int kMaxWide = 32;              // ... up to K = 32 ...
 constexpr int kMaxCells = 64;             // ... and K*A <= 64 counters
+constexpr int kWideStripRows = 127;       // byte counts per strip (wide)
 constexpr float kEps = 1e-30f;
 constexpr float kLog2 = 0.6931471805599453f;
 constexpr bool kPacked = SITE_PACKED != 0;
@@ -114,13 +152,18 @@ constexpr bool kSample = SITE_SAMPLE != 0;
 // Blocks per SM the launch bounds ask for (registers: 65536 / (128 x this)
 // a thread): K pops of P rows and counts for 4 loci live in registers, and
 // fewer registers spill (tools/site_pass_variants.py times other values).
-// The wide body (K = 0 here) keeps no per-pop array but fpop's sums.
+// The wide buckets (K = 16, 32 here) keep q and a site's two prefix rows.
 __host__ __device__ constexpr int min_blocks(int K) {
 #ifdef SITE_MIN_BLOCKS
   return SITE_MIN_BLOCKS + 0 * K;
 #else
-  return K == 0 ? 2 : K <= 2 ? 6 : 3;
+  return K > kNarrow ? (K <= 16 ? 3 : 2) : K <= 2 ? 6 : 3;
 #endif
+}
+
+// The pop bucket of the wide body that runs K pops (8 < K <= 32).
+__host__ __device__ constexpr int wide_bucket(int K) {
+  return K <= 16 ? 16 : 32;
 }
 
 // Log-lik families; keep in step with kernels/fused_step.py.
@@ -129,12 +172,12 @@ enum : int {
   kFamFpop = 5
 };
 
-// Per-thread accumulators and output columns of a family at K pops (K = 0:
-// the wide body, whose capacities are those of kMaxWide pops and whose
-// counts at the run's K come from the functions below).
+// Per-thread accumulators and output columns of a family at K pops (K > 8:
+// a wide bucket, whose capacities are those of K pops and whose counts at
+// the run's K come from the functions below).
 template <int FAM, int K>
 struct Cols {
-  static constexpr int kK = K == 0 ? kMaxWide : K;
+  static constexpr int kK = K;
   // columns of colv / fvals read: (current, proposed) when sampling
   static constexpr int kIn = kSample ? 2 : 1;
   static constexpr int kAcc =
@@ -259,63 +302,28 @@ __device__ __forceinline__ int inverse_cdf(float u01, const float (&cum)[K]) {
   return z;
 }
 
-// The wide body's CDF prefixes of both copies of one site, pop by pop in
-// the order of the K <= 8 bodies (and of the plain versions):
-//   packed   cum_k = A_k + B_k g, A_k, B_k the prefix sums of q f0, q d
-//   generic  cum_k = sum_{j <= k} q_j P[j, l, g]  (0 for a code outside A)
-// `visit(k, cum0, cum1)` sees each prefix; `prow` points at P[c, 0, l, 0]
-// with pop stride `ps`.
-template <class Visit>
-__device__ __forceinline__ void wide_prefixes(const float* q, int nk,
-                                              const float* prow, long long ps,
-                                              int A, int g0, int g1,
-                                              Visit visit) {
-  if constexpr (kPacked) {
-    float ca = 0.0f, cb = 0.0f;
-#pragma unroll 4
-    for (int k = 0; k < nk; ++k) {
-      const float2 p = __ldg(reinterpret_cast<const float2*>(prow + k * ps));
-      const float f0 = p.x, d = p.y - p.x;
-      if (k == 0) {
-        ca = q[0] * f0;
-        cb = q[0] * d;
-      } else {
-        ca = ca + q[k] * f0;
-        cb = cb + q[k] * d;
-      }
-      const float ce = ca + cb;
-      visit(k, g0 ? ce : ca, g1 ? ce : ca);
-    }
-  } else {
-    const bool ok0 = g0 >= 0 && g0 < A, ok1 = g1 >= 0 && g1 < A;
-    float c0 = 0.0f, c1 = 0.0f;
-#pragma unroll 4
-    for (int k = 0; k < nk; ++k) {
-      const float w0 = ok0 ? __ldg(prow + k * ps + g0) : 0.0f;
-      const float w1 = ok1 ? __ldg(prow + k * ps + g1) : 0.0f;
-      if (k == 0) {
-        c0 = q[0] * w0;
-        c1 = q[0] * w1;
-      } else {
-        c0 = c0 + q[k] * w0;
-        c1 = c1 + q[k] * w1;
-      }
-      visit(k, c0, c1);
-    }
-  }
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem));
 }
 
-// P of a copy's allele in its pop z (< nk; else pop 0, as sel does), read
-// as the K <= 8 bodies compute it: packed f0 + d g, generic P[z, l, g].
-__device__ __forceinline__ float wide_at_z(const float* prow, long long ps,
-                                           int A, int nk, int z, int g) {
-  const float* p = prow + (z < nk ? z : 0) * ps;
-  if constexpr (kPacked) {
-    const float a0 = __ldg(p);
-    return g ? a0 + (__ldg(p + 1) - a0) : a0;
-  } else {
-    return g >= 0 && g < A ? __ldg(p + g) : 0.0f;
-  }
+// The wide body's dynamic shared memory.  A pop plane is [kQuad][kThreads]:
+// column j * kThreads + tid is locus l0 + j of thread tid.  First P of the
+// block's tile for K rounded up to a run of pops (the pops past K zero):
+// packed (f0, d) float2 [Kr][plane], generic float [Kr][A][plane]; then, in a
+// sampling pass, the strip's allele-pop counts: packed u16 [K][plane]
+// (copies with z = k in the low byte, those with allele bit 1 in the high
+// byte), generic u8 [K*A][plane].
+constexpr int kPlane = kQuad * kThreads;
+__host__ __device__ constexpr int pops_run(int nk, int KB) {
+  return (nk + wide_run(KB) - 1) / wide_run(KB) * wide_run(KB);
+}
+__host__ __device__ constexpr size_t wide_p_bytes(int nk, int A, int KB) {
+  return (size_t)pops_run(nk, KB) * kPlane * (kPacked ? 8 : 4 * A);
+}
+__host__ __device__ constexpr size_t wide_cnt_bytes(int nk, int A) {
+  return kSample ? (size_t)nk * kPlane * (kPacked ? 2 : A) : 0;
 }
 
 __device__ __forceinline__ int byte_of(uint32_t w, int j) {
@@ -331,10 +339,28 @@ struct Words {
   static constexpr int kCount = kPanel + (kSample ? 0 : 2);
 };
 
-// Dynamic shared memory of a launch: the count table (16-bit cells
-// [K*A][kQuad][kThreads]) where the counts are not kept in registers.
-__host__ __device__ constexpr bool table_counts(int K) {
-  return kSample && (!kPacked || K == 0);
+// Whether a sampling pass adds its counts to the u32 total (the generic
+// path, and the wide body on both paths); K <= 8 generic keeps the strip's
+// counts in a table of 16-bit cells [K*A][kQuad][kThreads] in the dynamic
+// shared memory.
+__host__ __device__ constexpr bool total_counts(int K) {
+  return kSample && (!kPacked || K > kNarrow);
+}
+
+// Dynamic shared memory of a launch of the body for K (a bucket when
+// K > 8) at the run's nk pops and A alleles, in family `fam` (the wide
+// body stages no P in a stored-step pass that reads P only at z -- the
+// structure way, or a family that is not the G pass's -- on the generic
+// path or at K > 16).
+__host__ __device__ constexpr size_t dyn_bytes(int K, int nk, int A, int fam,
+                                               bool structure) {
+  return K > kNarrow
+             ? (kSample || (kPacked && K <= 16) ||
+                        (fam == kFamGen && !structure)
+                    ? wide_p_bytes(nk, A, K)
+                    : 0) + wide_cnt_bytes(nk, A)
+         : total_counts(K) ? (size_t)nk * A * kPlane * 2
+                           : 0;
 }
 
 template <int K, int FAM>
@@ -342,8 +368,12 @@ __global__ void __launch_bounds__(kThreads, min_blocks(K))
 site_kernel(const SiteArgs a) {
   using CL = Cols<FAM, K>;
   using WD = Words<FAM>;
-  constexpr bool kWide = K == 0;                  // 8 < K <= 32 at run time
-  constexpr int KR = kWide ? 1 : K;               // per-pop register arrays
+  constexpr bool kWide = K > kNarrow;             // a bucket, K at run time
+  constexpr int KR = kWide ? 1 : K;               // K <= 8 register arrays
+  constexpr int KW = kWide ? K : 1;               // wide register arrays
+  constexpr int kSt =                             // rows staged at once
+      kWide ? wide_stage(K, FAM == kFamFpop && kSample) : kStage;
+  constexpr int kRun = wide_run(K);               // pops a prefix run
   constexpr int kNVCap = CL::kQq + CL::kAcc;
   constexpr int kNW = WD::kCount;
   constexpr bool kGenFam = FAM == kFamGen || FAM == kFamGendiff;
@@ -351,16 +381,18 @@ site_kernel(const SiteArgs a) {
   constexpr bool kHetInt = FAM == kFamGendiff;    // acc[1] is a count
   constexpr int kRowCols = CL::kK + 2;            // q[K], colv[kIn]
   constexpr int kQqWordsCap = (CL::kQq + 1) / 2;  // two pops a redux
-  constexpr int kQqW = kWide ? kMaxWide / 8 : 1;  // 8 pops a word
+  constexpr int kQ64 = kWide ? K / 16 : 1;        // wide: 16 pops a word
   constexpr bool kRegCnt = kPacked && kSample && !kWide;
-  constexpr bool kTable = table_counts(K);
-  __shared__ uint32_t stage[2][kNW][kStage][kThreads];
-  __shared__ float rowc[2][kStage][kRowCols];
-  __shared__ float part[2][kStage][kWarps][kNVCap > 0 ? kNVCap : 1];
+  constexpr bool kTotal = total_counts(K);
+  constexpr bool kTable = kTotal && !kWide;
+  __shared__ uint32_t stage[2][kNW][kSt][kThreads];
+  __shared__ float rowc[2][kSt][kRowCols];
+  __shared__ float part[2][kSt][kWarps][kNVCap > 0 ? kNVCap : 1];
   __shared__ int last;
-  // dynamic: the count table, 16-bit [K*A][kQuad][kThreads], then (wide
-  // sampling pass) the CDF prefixes of the site in hand, f32 [2][K][kThreads]
-  extern __shared__ uint16_t cnt_tab[];
+  // dynamic (dyn_bytes): K <= 8 generic, the count table; wide, P of the
+  // tile and the strip's byte counts (wide_p_bytes)
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  uint16_t* cnt_tab = reinterpret_cast<uint16_t*>(dyn_smem);
   const int N = a.N, L = a.L, T = a.T, A = a.A;
   const int nk = kWide ? a.K : K;
   const int n_qq = CL::qq(nk), n_acc = CL::acc(nk), n_out = CL::out(nk);
@@ -375,13 +407,19 @@ site_kernel(const SiteArgs a) {
   // the expectation way reads the Q mixture in place of P at z
   const bool mix = kGenFam && !structure;
   const bool need_q = kSample || mix;
+  // the wide body stages P but in a stored-step pass that reads P only at
+  // z, generic or at K > 16: that reads it through the read-only cache
+  const bool stage_p = kWide && (kSample || mix || (kPacked && K <= 16));
   const int n_begin = strip * a.strip_rows;
   const int n_end = min(N, n_begin + a.strip_rows);
   const int n_rows = max(0, n_end - n_begin);
-  const int n_stages = (n_rows + kStage - 1) / kStage;
-  const long long pop_stride = (long long)L * A;  // of P [C, K, L, A]
-  float* cum_s = reinterpret_cast<float*>(
-      cnt_tab + (kTable ? n_cells * kQuad * kThreads : 0));
+  const int n_stages = (n_rows + kSt - 1) / kSt;
+  // the wide body's planes: P as (f0, d) pairs or per allele, the counts
+  const int nkr = pops_run(nk, K);
+  float2* wp2 = reinterpret_cast<float2*>(dyn_smem);
+  float* wpa = reinterpret_cast<float*>(dyn_smem);
+  unsigned char* wcnt = dyn_smem + (kWide ? wide_p_bytes(nk, A, K) : 0);
+  uint16_t* wcnt2 = reinterpret_cast<uint16_t*>(wcnt);
 
   // packed path, K <= 8: the P rows of the thread's loci, and its counts of
   // copies with z = k (low half-word) and with z = k and allele bit 1 (high)
@@ -399,6 +437,14 @@ site_kernel(const SiteArgs a) {
     // the thread's own cells of the count table
     for (int i = 0; i < n_cells * kQuad; ++i) cnt_tab[i * kThreads + tid] = 0;
   }
+  if constexpr (kWide && kSample) {
+    // the thread's own byte counts
+    if constexpr (kPacked) {
+      for (int i = 0; i < nk * kQuad; ++i) wcnt2[i * kThreads + tid] = 0;
+    } else {
+      for (int i = 0; i < n_cells * kQuad; ++i) wcnt[i * kThreads + tid] = 0;
+    }
+  }
   float fv0[KR], fv1[KR];                      // per-pop F (current, proposed)
 #pragma unroll
   for (int k = 0; k < KR; ++k) {
@@ -413,8 +459,8 @@ site_kernel(const SiteArgs a) {
 
   // Issue the copies of stage `s` into buffer `buf` (one commit group).
   auto stage_rows = [&](int buf, int s) {
-    for (int rr = 0; rr < kStage; ++rr) {
-      const int n = n_begin + s * kStage + rr;
+    for (int rr = 0; rr < kSt; ++rr) {
+      const int n = n_begin + s * kSt + rr;
       if (n >= n_end) break;
       if (n_live <= 0) break;
       const int8_t* src[kNW];
@@ -446,9 +492,9 @@ site_kernel(const SiteArgs a) {
       }
     }
     const int row_cols = nk + 2;
-    for (int i = tid; i < kStage * row_cols; i += kThreads) {
+    for (int i = tid; i < kSt * row_cols; i += kThreads) {
       const int rr = i / row_cols, col = i - rr * row_cols;
-      const int n = n_begin + s * kStage + rr;
+      const int n = n_begin + s * kSt + rr;
       if (n >= n_end) continue;
       const long long cn = (long long)c * N + n;
       if (col < nk) {
@@ -463,9 +509,9 @@ site_kernel(const SiteArgs a) {
   // One partial per (row, column) of stage `s`: the warps in order.
   auto write_partials = [&](int buf, int s) {
     if constexpr (kNVCap > 0) {
-      for (int i = tid; i < kStage * n_nv; i += kThreads) {
+      for (int i = tid; i < kSt * n_nv; i += kThreads) {
         const int rr = i / n_nv, v = i - rr * n_nv;
-        const int n = n_begin + s * kStage + rr;
+        const int n = n_begin + s * kSt + rr;
         if (n >= n_end) continue;
         float t = part[buf][rr][0][v];
 #pragma unroll
@@ -475,21 +521,84 @@ site_kernel(const SiteArgs a) {
     }
   };
 
+  if constexpr (kWide) {
+    // P of the block's tile into the pop planes, in the first stage's
+    // commit group: the tile's loci of a pop are contiguous in P, so the
+    // threads copy consecutive loci (packed: (P0, P1), made (f0, d) below);
+    // each thread zeroes its own columns of the pops past nk
+    if (n_stages > 0 && stage_p) {
+      const int tl0 = tile * kTile, n_tl = min(kTile, L - tl0);
+      const float* pc = a.freq + ((long long)c * nk * L + tl0) * A;
+      for (int k = 0; k < nk; ++k) {
+        const float* src = pc + (long long)k * L * A;
+        for (int li = tid; li < n_tl; li += kThreads) {
+          const int col = (li & (kQuad - 1)) * kThreads + li / kQuad;
+          if constexpr (kPacked) {
+            cp_async8(&wp2[k * kPlane + col], src + 2 * li);
+          } else {
+            for (int al = 0; al < A; ++al)
+              cp_async4(&wpa[(k * A + al) * kPlane + col], src + li * A + al);
+          }
+        }
+      }
+      for (int k = nk; k < nkr; ++k) {
+#pragma unroll
+        for (int j = 0; j < kQuad; ++j) {
+          const int col = j * kThreads + tid;
+          if constexpr (kPacked) {
+            wp2[k * kPlane + col] = make_float2(0.0f, 0.0f);
+          } else {
+            for (int al = 0; al < A; ++al)
+              wpa[(k * A + al) * kPlane + col] = 0.0f;
+          }
+        }
+      }
+    }
+  }
   if (n_stages > 0) stage_rows(0, 0);
   for (int s = 0; s < n_stages; ++s) {
     const int buf = s & 1;
     cp_async_wait_all();
     __syncthreads();
+    if constexpr (kWide && kPacked) {
+      // d = P1 - P0, as load_freq and the plain version compute it; each
+      // thread rewrites its own columns, which only it reads
+      if (s == 0 && n_live > 0 && stage_p) {
+        for (int k = 0; k < nk; ++k) {
+#pragma unroll
+          for (int j = 0; j < kQuad; ++j) {
+            float2* pp = &wp2[k * kPlane + j * kThreads + tid];
+            const float2 v = *pp;
+            *pp = make_float2(v.x, v.y - v.x);
+          }
+        }
+      }
+    }
     if (s + 1 < n_stages) stage_rows(buf ^ 1, s + 1);
     if (s > 0) write_partials(buf ^ 1, s - 1);
-    const int rows = min(kStage, n_rows - s * kStage);
+    const int rows = min(kSt, n_rows - s * kSt);
     for (int rr = 0; rr < rows; ++rr) {
-      const int n = n_begin + s * kStage + rr;
+      const int n = n_begin + s * kSt + rr;
       const long long cn = (long long)c * N + n;
       const float* qrow = rowc[buf][rr];       // q[nk], then colv
       float qk[KR];
 #pragma unroll
       for (int k = 0; k < KR; ++k) qk[k] = need_q ? qrow[k] : 0.0f;
+      // the wide body's q, zero past nk (a padded pop weighs 0)
+      float qw[KW];
+#pragma unroll
+      for (int k = 0; k < KW; ++k) qw[k] = 0.0f;
+      if constexpr (kWide) {
+        if (need_q) {
+#pragma unroll
+          for (int kc = 0; kc < KW; kc += 4) {
+            if (kc >= nk) break;
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              qw[kc + i] = kc + i < nk ? qrow[kc + i] : 0.0f;
+          }
+        }
+      }
       float cv0 = 0.0f, cv1 = 0.0f;
       if constexpr (kNeedCol) {
         cv0 = qrow[nk];
@@ -498,10 +607,12 @@ site_kernel(const SiteArgs a) {
       float acc[CL::kAcc > 0 ? CL::kAcc : 1];
 #pragma unroll
       for (int i = 0; i < (CL::kAcc > 0 ? CL::kAcc : 1); ++i) acc[i] = 0.0f;
-      // copies per pop of the row's sites, 4 bits a pop (8 pops a word)
-      uint32_t qqw[kQqW];
+      // copies per pop of the row's sites, 4 bits a pop (8 pops a word;
+      // the wide body, 16 pops a 64-bit word)
+      uint32_t qqw = 0u;
+      uint64_t q64[kQ64];
 #pragma unroll
-      for (int i = 0; i < kQqW; ++i) qqw[i] = 0u;
+      for (int i = 0; i < kQ64; ++i) q64[i] = 0u;
       uint32_t het = 0;     // gendiff: het sites counted once each
 
       if (n_live > 0) {
@@ -557,9 +668,12 @@ site_kernel(const SiteArgs a) {
           }
           const int g0 = g0v[j], g1 = g1v[j];
           const bool valid = okv[j] != 0, hom = homv[j] != 0;
-          // the wide body's P row of the site: P[c, 0, l, 0]
-          const float* prow =
-              a.freq + ((long long)c * nk * L + (l0 + j)) * A;
+          // the wide body: the site's column of a pop plane, and the
+          // allele codes that name a cell (generic; else the site reads
+          // nothing and weighs 0: z = 0, p = 0)
+          const int col = j * kThreads + tid;
+          const bool in0 = kPacked || (g0 >= 0 && g0 < A);
+          const bool in1 = kPacked || (g1 >= 0 && g1 < A);
           // generic path: per-pop probability of each copy's allele
           float w0[KR], w1[KR];
           if constexpr (!kPacked && !kWide) {
@@ -569,27 +683,74 @@ site_kernel(const SiteArgs a) {
           float tot0 = 0.0f, tot1 = 0.0f;        // Q-mixture probabilities
           if (need_q) {
             if constexpr (kWide) {
-              // the prefixes, kept in the thread's shared-memory column
-              // when sampling; then the count of those below u * total
-              wide_prefixes(qrow, nk, prow, pop_stride, A, g0, g1,
-                            [&](int k, float c0, float c1) {
-                              if constexpr (kSample) {
-                                cum_s[k * kThreads + tid] = c0;
-                                cum_s[(nk + k) * kThreads + tid] = c1;
-                              }
-                              tot0 = c0;
-                              tot1 = c1;
-                            });
+              // the prefixes of both copies in runs of kRun pops up to nk
+              // rounded to kRun (a padded pop adds +0), as the K <= 8
+              // bodies sum them; then the count of those below u * total
+              float cum0[KW], cum1[KW];
+              if constexpr (kPacked) {
+                float ca = 0.0f, cb = 0.0f;
+#pragma unroll
+                for (int kc = 0; kc < KW; kc += kRun) {
+                  if (kc >= nk) break;
+#pragma unroll
+                  for (int i = 0; i < kRun; ++i) {
+                    const int k = kc + i;
+                    const float2 p = wp2[k * kPlane + col];
+                    if (k == 0) {
+                      ca = qw[0] * p.x;
+                      cb = qw[0] * p.y;
+                    } else {
+                      ca = ca + qw[k] * p.x;
+                      cb = cb + qw[k] * p.y;
+                    }
+                    const float ce = ca + cb;
+                    cum0[k] = g0 ? ce : ca;
+                    cum1[k] = g1 ? ce : ca;
+                  }
+                }
+                const float ce = ca + cb;
+                tot0 = g0 ? ce : ca;
+                tot1 = g1 ? ce : ca;
+              } else {
+                const float* pl0 = wpa + (in0 ? g0 : 0) * kPlane + col;
+                const float* pl1 = wpa + (in1 ? g1 : 0) * kPlane + col;
+                const int ps = A * kPlane;           // a pop's planes
+                float c0 = 0.0f, c1 = 0.0f;
+#pragma unroll
+                for (int kc = 0; kc < KW; kc += kRun) {
+                  if (kc >= nk) break;
+#pragma unroll
+                  for (int i = 0; i < kRun; ++i) {
+                    const int k = kc + i;
+                    const float v0 = pl0[k * ps], v1 = pl1[k * ps];
+                    if (k == 0) {
+                      c0 = qw[0] * v0;
+                      c1 = qw[0] * v1;
+                    } else {
+                      c0 = c0 + qw[k] * v0;
+                      c1 = c1 + qw[k] * v1;
+                    }
+                    cum0[k] = c0;
+                    cum1[k] = c1;
+                  }
+                }
+                tot0 = in0 ? c0 : 0.0f;
+                tot1 = in1 ? c1 : 0.0f;
+              }
               if constexpr (kSample) {
                 const float ut0 = u0[j] * tot0, ut1 = u1[j] * tot1;
                 int zz0 = 0, zz1 = 0;
-#pragma unroll 4
-                for (int k = 0; k < nk - 1; ++k) {
-                  zz0 += ut0 > cum_s[k * kThreads + tid] ? 1 : 0;
-                  zz1 += ut1 > cum_s[(nk + k) * kThreads + tid] ? 1 : 0;
+#pragma unroll
+                for (int kc = 0; kc < KW; kc += kRun) {
+                  if (kc >= nk) break;
+#pragma unroll
+                  for (int i = 0; i < kRun; ++i) {
+                    zz0 += ut0 > cum0[kc + i] ? 1 : 0;
+                    zz1 += ut1 > cum1[kc + i] ? 1 : 0;
+                  }
                 }
-                z0v[j] = zz0;
-                z1v[j] = zz1;
+                z0v[j] = in0 ? min(zz0, nk - 1) : 0;
+                z1v[j] = in1 ? min(zz1, nk - 1) : 0;
               }
             } else {
               // CDF prefixes.  Packed: cum_k = A_k + B_k * g with A_k, B_k
@@ -634,12 +795,16 @@ site_kernel(const SiteArgs a) {
           const int z0 = z0v[j], z1 = z1v[j];      // the conditioning z
           if constexpr (kSample) {
             if constexpr (kWide) {
-#pragma unroll
-              for (int i = 0; i < kQqW; ++i)
-                qqw[i] += ((z0 >> 3) == i ? 1u << (4 * (z0 & 7)) : 0u) +
-                          ((z1 >> 3) == i ? 1u << (4 * (z1 & 7)) : 0u);
+              const uint64_t b0 = 1ull << (4 * (z0 & 15));
+              const uint64_t b1 = 1ull << (4 * (z1 & 15));
+              if constexpr (kQ64 == 1) {
+                q64[0] += b0 + b1;
+              } else {
+                q64[0] += (z0 < 16 ? b0 : 0ull) + (z1 < 16 ? b1 : 0ull);
+                q64[1] += (z0 < 16 ? 0ull : b0) + (z1 < 16 ? 0ull : b1);
+              }
             } else {
-              qqw[0] += (1u << (4 * z0)) + (1u << (4 * z1));
+              qqw += (1u << (4 * z0)) + (1u << (4 * z1));
             }
             if constexpr (kRegCnt) {
               // a copy adds 1 to its pop's count and, with allele bit 1, 1
@@ -658,6 +823,23 @@ site_kernel(const SiteArgs a) {
               if (g1 >= 0 && g1 < A)
                 cnt_tab[((z1 * A + g1) * kQuad + j) * kThreads + tid] += 1;
             }
+            if constexpr (kWide) {
+              // the byte counts (z < nk here): packed, 1 to the pop's low
+              // byte and the allele bit to its high byte; generic, 1 to the
+              // (pop, allele) cell of a code in [0, A)
+              if constexpr (kPacked) {
+                const int v0 = 1 + (g0 << 8), v1 = 1 + (g1 << 8);
+                if (z0 == z1) {
+                  wcnt2[z0 * kPlane + col] += (uint16_t)(v0 + v1);
+                } else {
+                  wcnt2[z0 * kPlane + col] += (uint16_t)v0;
+                  wcnt2[z1 * kPlane + col] += (uint16_t)v1;
+                }
+              } else {
+                if (in0) wcnt[(z0 * A + g0) * kPlane + col] += 1;
+                if (in1) wcnt[(z1 * A + g1) * kPlane + col] += 1;
+              }
+            }
           }
           if constexpr (FAM != kFamNone) {
             // P of each copy's allele in its pop z: f0 + d * g (packed; g is
@@ -667,8 +849,31 @@ site_kernel(const SiteArgs a) {
               p0 = tot0;
               p1 = tot1;
             } else if constexpr (kWide) {
-              p0 = wide_at_z(prow, pop_stride, A, nk, z0, g0);
-              p1 = wide_at_z(prow, pop_stride, A, nk, z1, g1);
+              // from the staged P (a carried z outside [0, nk) reads pop
+              // 0, as sel does)
+              const int y0 = z0 < nk ? z0 : 0, y1 = z1 < nk ? z1 : 0;
+              const float* pl =
+                  a.freq + ((long long)c * nk * L + l0 + j) * A;
+              const long long ps = (long long)L * A;   // P's pop stride
+              if (kPacked && stage_p) {
+                const float2 v0 = wp2[y0 * kPlane + col];
+                const float2 v1 = wp2[y1 * kPlane + col];
+                p0 = g0 ? v0.x + v0.y : v0.x;
+                p1 = g1 ? v1.x + v1.y : v1.x;
+              } else if (kPacked) {
+                const float2 v0 = __ldg(reinterpret_cast<const float2*>(
+                    pl + y0 * ps));
+                const float2 v1 = __ldg(reinterpret_cast<const float2*>(
+                    pl + y1 * ps));
+                p0 = g0 ? v0.x + (v0.y - v0.x) : v0.x;
+                p1 = g1 ? v1.x + (v1.y - v1.x) : v1.x;
+              } else if (stage_p) {
+                p0 = in0 ? wpa[(y0 * A + g0) * kPlane + col] : 0.0f;
+                p1 = in1 ? wpa[(y1 * A + g1) * kPlane + col] : 0.0f;
+              } else {
+                p0 = in0 ? __ldg(pl + y0 * ps + g0) : 0.0f;
+                p1 = in1 ? __ldg(pl + y1 * ps + g1) : 0.0f;
+              }
             } else if constexpr (kPacked) {
               const float a0 = sel<K>(f0[j], z0), a1 = sel<K>(f0[j], z1);
               p0 = g0 ? a0 + sel<K>(d[j], z0) : a0;
@@ -742,8 +947,10 @@ site_kernel(const SiteArgs a) {
                     acc[0] = acc[0] + dl;
                   } else {
 #pragma unroll
-                    for (int k = 0; k < CL::kAcc; ++k)
+                    for (int k = 0; k < CL::kAcc; ++k) {
+                      if (kWide && k >= nk) break;
                       if (z0 == k) acc[k] = acc[k] + dl;
+                    }
                   }
                 }
               } else {
@@ -774,7 +981,9 @@ site_kernel(const SiteArgs a) {
 #pragma unroll
         for (int w = 0; w < kQqWordsCap; ++w) {
           if (w >= n_qq_words) break;
-          const uint32_t word = qqw[w >> 2];
+          uint32_t word = qqw;
+          if constexpr (kWide)
+            word = (uint32_t)(q64[w >> 3] >> (32 * ((w >> 2) & 1)));
           const int sh = 8 * (w & 3);
           const uint32_t pair = ((word >> sh) & 0xfu) |
                                 (((word >> (sh + 4)) & 0xfu) << 16);
@@ -825,6 +1034,35 @@ site_kernel(const SiteArgs a) {
         for (int j = 0; j < kQuad; ++j) {
           const uint32_t v = cnt_tab[(cell * kQuad + j) * kThreads + tid];
           if (j < n_live && v != 0u) atomicAdd(dst + j, v);
+        }
+      }
+    }
+  }
+  if constexpr (kWide && kSample) {
+    // the strip's byte counts into the total (cell k * A + a)
+    if (n_live > 0) {
+      uint32_t* total = static_cast<uint32_t*>(a.cnt_part) +
+                        (long long)c * n_cells * L + l0;
+      if constexpr (kPacked) {
+        for (int k = 0; k < nk; ++k) {
+#pragma unroll
+          for (int j = 0; j < kQuad; ++j) {
+            const uint32_t v = wcnt2[k * kPlane + j * kThreads + tid];
+            const uint32_t ones = v >> 8, zeros = (v & 0xffu) - ones;
+            if (j < n_live && zeros != 0u)
+              atomicAdd(total + (long long)(2 * k) * L + j, zeros);
+            if (j < n_live && ones != 0u)
+              atomicAdd(total + (long long)(2 * k + 1) * L + j, ones);
+          }
+        }
+      } else {
+        for (int cell = 0; cell < n_cells; ++cell) {
+#pragma unroll
+          for (int j = 0; j < kQuad; ++j) {
+            const uint32_t v = wcnt[cell * kPlane + j * kThreads + tid];
+            if (j < n_live && v != 0u)
+              atomicAdd(total + (long long)cell * L + j, v);
+          }
         }
       }
     }
@@ -890,7 +1128,7 @@ site_kernel(const SiteArgs a) {
       }
     }
   }
-  if constexpr (kTable) {
+  if constexpr (kTotal) {
     if ((last & 2) && n_live > 0) {
       uint32_t* total = static_cast<uint32_t*>(a.cnt_part);
       for (int cell = 0; cell < n_cells; ++cell) {
@@ -913,13 +1151,10 @@ site_kernel(const SiteArgs a) {
 
 inline int site_tiles(int L) { return (L + kTile - 1) / kTile; }
 
-// Launch one instantiation; the count table, where the counts are not kept
-// in registers, is the launch's dynamic shared memory.
+// Launch one instantiation with its dynamic shared memory (dyn_bytes).
 template <int K, int FAM>
 int launch_one(const SiteArgs& a, dim3 grid, cudaStream_t s) {
-  size_t dyn =
-      table_counts(K) ? (size_t)a.K * a.A * kQuad * kThreads * 2 : 0;
-  if (K == 0 && kSample) dyn += (size_t)2 * a.K * kThreads * sizeof(float);
+  const size_t dyn = dyn_bytes(K, a.K, a.A, FAM, a.structure != 0);
   // dynamic bytes opted in so far, per device: the attribute is set on the
   // current device (beyond the 64th, it is set at every launch)
   static size_t opted[64] = {};
@@ -938,28 +1173,42 @@ int launch_one(const SiteArgs& a, dim3 grid, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// Whether the site pass runs K pops of A alleles: K <= 8 (generic sampling:
+// its count table holds at most kMaxCells cells a locus), or the wide body
+// for 8 < K <= 32 with K*A <= kMaxCells.
+inline bool runs(int K, int A) {
+  if (K < 1 || K > kMaxWide) return false;
+  if (K > kNarrow || total_counts(K)) return K * A <= kMaxCells;
+  return true;
+}
+
 template <int FAM>
 int launch_family(int K, const SiteArgs& a, dim3 grid, cudaStream_t s) {
-  // a count table holds at most kMaxCells cells a locus
-  if (a.K * a.A > kMaxCells && table_counts(K > 8 ? 0 : K))
-    return (int)cudaErrorInvalidValue;
+  if (!runs(K, a.A)) return (int)cudaErrorInvalidValue;
+#ifdef SITE_K_ONLY
+  // one body only (tools/site_pass_variants.py): K itself, or its bucket
+  constexpr int kOnly = SITE_K_ONLY;
+  if constexpr (kOnly <= kNarrow) {
+    if (K == kOnly) return launch_one<kOnly, FAM>(a, grid, s);
+  } else {
+    if (K > kNarrow && wide_bucket(K) == wide_bucket(kOnly))
+      return launch_one<wide_bucket(kOnly), FAM>(a, grid, s);
+  }
+  return (int)cudaErrorInvalidValue;
+#else
 #define SITE_CASE(KK) \
   case KK:            \
     return launch_one<KK, FAM>(a, grid, s);
   switch (K) {
-#ifdef SITE_K_ONLY
-    SITE_CASE(SITE_K_ONLY)
-#else
     SITE_CASE(1) SITE_CASE(2) SITE_CASE(3) SITE_CASE(4)
     SITE_CASE(5) SITE_CASE(6) SITE_CASE(7) SITE_CASE(8)
-#endif
     default:
       break;
   }
 #undef SITE_CASE
-  if (K > 8 && K <= kMaxWide && K * a.A <= kMaxCells)
-    return launch_one<0, FAM>(a, grid, s);
-  return (int)cudaErrorInvalidValue;
+  return K <= 16 ? launch_one<16, FAM>(a, grid, s)
+                 : launch_one<32, FAM>(a, grid, s);
+#endif
 }
 
 }  // namespace
@@ -970,7 +1219,9 @@ int launch_family(int K, const SiteArgs& a, dim3 grid, cudaStream_t s) {
 // u32 [C, S, K, L]; else u32 [C, K*A, L], zero before the first call) and
 // tickets [C*S + C*T] (zero before the first call; every call leaves them
 // and the counts' total zero) are sized by the wrapper with
-// T = site_pass_tiles(L) and S = site_pass_strips(...).
+// T = site_pass_tiles(L) and S = site_pass_strips(N) (K <= 8) or the wide
+// body's launch plan (kernels/fused_step.py:site_plan; at most
+// kWideStripRows rows a strip).
 extern "C" int SITE_LAUNCH(
     const void* q, const void* freq, const void* bits2, const void* geno,
     const void* valid, const void* hom, const void* z_in, const void* colv,
@@ -980,7 +1231,8 @@ extern "C" int SITE_LAUNCH(
     unsigned k0, unsigned k1, const void* chain_key, unsigned step,
     void* stream) {
   if (C == 0 || N == 0 || L == 0) return 0;
-  if (S < 1 || (N + S - 1) / S > kMaxStripRows) return (int)cudaErrorInvalidValue;
+  const int max_rows = K > kNarrow ? kWideStripRows : kMaxStripRows;
+  if (S < 1 || (N + S - 1) / S > max_rows) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   SiteArgs a;
   a.q = (const float*)q;
@@ -1032,4 +1284,16 @@ extern "C" int SITE_LAUNCH(
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// Dynamic shared-memory bytes of this source's launch at K pops of A
+// alleles in family `fam` (0 where it does not run them): the wrapper's
+// launch plan computes the same (kernels/fused_step.py:site_plan).
+#define SITE_CAT2(x, y) x##y
+#define SITE_CAT(x, y) SITE_CAT2(x, y)
+extern "C" int SITE_CAT(SITE_LAUNCH, _dyn_smem)(int K, int A, int fam,
+                                                int structure) {
+  if (!runs(K, A)) return 0;
+  return (int)dyn_bytes(K > kNarrow ? wide_bucket(K) : K, K, A, fam,
+                        structure != 0);
 }

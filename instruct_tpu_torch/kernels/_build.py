@@ -92,6 +92,10 @@ _SIGNATURES = {
     # launches)
     "site_pass_tiles": [_I],
     "site_pass_strips": [_I],
+    # (K, A, family, structure) -> dynamic shared-memory bytes of a
+    # source's site-pass launch
+    **{f"site_{path}_{half}_launch_dyn_smem": [_I, _I, _I, _I]
+       for path in ("packed", "generic") for half in ("sample", "eval")},
 }
 
 

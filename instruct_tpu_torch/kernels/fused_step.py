@@ -54,7 +54,7 @@ z-draw uniforms: site ``(n, s)``, ``s = copy * L + l``, takes Philox word
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -65,7 +65,21 @@ from instruct_tpu_torch.kernels import philox as px
 _LOG2 = 0.6931471805599453
 _EPS = 1e-30
 MAX_CELLS = 64     # the site pass runs K * A <= 64 (K <= 32 at A = 2)
-WIDE_POPS = 8      # K above this runs the kernel's run-time-K body
+WIDE_POPS = 8      # K above this runs the kernel's run-time-K body ...
+WIDE_BUCKETS = (16, 32)    # ... instantiated for these pop buckets
+# The kernel's launch shape (csrc/site_pass.cuh): threads a block, loci a
+# thread, and the shared memory a block may take on the H100.
+SITE_THREADS, SITE_QUAD = 128, 4
+SMEM_LIMIT = 232_448
+# The wide body's row strips: at most WIDE_STRIP_ROWS rows where it stages
+# the tile's P (it reuses it over them), down to MIN_STRIP_ROWS while a call
+# has fewer than WIDE_BLOCKS blocks, and MIN_STRIP_ROWS where it does not;
+# its byte counts take at most 127 rows.  Per bucket, its rows staged at a
+# time (packed, generic; 4 in fpop's sampling pass) and the pops a run of
+# its prefix loops (K padded to a multiple of it).
+WIDE_STRIP_ROWS, MIN_STRIP_ROWS, WIDE_BLOCKS = 64, 16, 2048
+WIDE_STAGE_ROWS = {16: (8, 4), 32: (4, 4)}
+WIDE_RUN = {16: 2, 32: 4}
 
 # log-lik families; the values are those of csrc/site_pass.cuh
 _FAMILY = dict(none=0, mode1=1, gen=2, gendiff=3, find=4, fpop=5)
@@ -351,24 +365,27 @@ def _site_pass_reference(keys, step, q, freq, data: Dataset, z_in, colv,
 # the site pass: kernel launch
 # ---------------------------------------------------------------------------
 
-# (device, C, N, L, K, partial columns, counts) -> the site pass's scratch
+# (device, C, N, L, K, partial columns, counts, strips) -> the site pass's
+# scratch
 _SCRATCH: dict = {}
 
 
-def _site_scratch(dev, c, n, l, k, cols, counts):
+def _site_scratch(dev, c, n, l, k, cols, counts, strips=None):
     """(part, cnt_part, tickets, strips) of a site-pass call: the tile
     partials f32[C, N, T, cols], the counts' scratch (sampling pass; else
     None) and the tickets i32[C*S + C*T].  ``counts`` is None (no counts),
     ``"strips"`` (packed, K <= 8: the strips' i32[C, S, K, L], two
     half-word counts a cell) or the table's cells a locus, K * A (their
-    total i32[C, K*A, L]).  Allocated once per device and shape and kept:
+    total i32[C, K*A, L]).  ``strips`` is S (None: the kernel's
+    ``site_pass_strips``).  Allocated once per device and shape and kept:
     the tickets and the total are zeroed once, and every call leaves them
     zero.  Calls that share them run in stream order."""
-    key = (dev, c, n, l, k, cols, counts)
+    key = (dev, c, n, l, k, cols, counts, strips)
     hit = _SCRATCH.get(key)
     if hit is None:
         lib = _build.library()
-        t, s = lib.site_pass_tiles(l), lib.site_pass_strips(n)
+        t = lib.site_pass_tiles(l)
+        s = lib.site_pass_strips(n) if strips is None else strips
         cnt = None
         if counts == "strips":
             cnt = torch.empty((c, s, k, l), dtype=torch.int32, device=dev)
@@ -379,6 +396,59 @@ def _site_scratch(dev, c, n, l, k, cols, counts):
                torch.zeros(c * s + c * t, dtype=torch.int32, device=dev), s)
         _SCRATCH[key] = hit
     return hit
+
+
+class SitePlan(NamedTuple):
+    """Launch plan of the site pass's wide body (8 < K <= 32)."""
+    bucket: int         # the instantiation's pop bucket (K rounded up)
+    strips: int         # row strips S of the grid (T, S, C)
+    strip_rows: int     # rows of a strip: ceil(N / S)
+    dyn_smem: int       # dynamic shared memory of a block, bytes
+    static_smem: int    # its static shared memory, bytes
+
+
+def site_plan(c: int, n: int, l: int, k: int, a: int, *, packed: bool,
+              sample: bool, ll_kind: str, structure: bool = True
+              ) -> SitePlan:
+    """The wide body's launch plan for a call of ``C = c`` chains over an
+    ``n x l`` panel at K = k pops of A = a alleles (``packed``: the bits2
+    plane, A = 2): the pop bucket, the row strips and the shared memory of
+    a block, as ``csrc/site_pass.cuh`` takes them (its ``dyn_bytes`` and
+    the static arrays of ``site_kernel``; a stored-step pass that reads P
+    only at z, generic or at K > 16, stages none).  Pure arithmetic: the
+    CPU tests check it for every 8 < K <= 32 with K * A <= 64."""
+    if not (WIDE_POPS < k <= WIDE_BUCKETS[-1] and site_pass_fits(k, a)):
+        raise ValueError(f"the wide body runs 8 < K <= 32 with K * A <= "
+                         f"{MAX_CELLS}, got {k} x {a}")
+    bucket = next(b for b in WIDE_BUCKETS if k <= b)
+    plane = SITE_QUAD * SITE_THREADS             # one pop plane of a tile
+    run = WIDE_RUN[bucket]
+    k_run = -(-k // run) * run                   # pops staged
+    stage_p = (sample or (packed and bucket == WIDE_BUCKETS[0])
+               or (ll_kind == "gen" and not structure))
+    dyn = k_run * plane * (8 if packed else 4 * a) if stage_p else 0
+    if sample:
+        dyn += k * plane * (2 if packed else a)  # the strip's byte counts
+    # static: the staged site words, rows' q and columns, warp partials
+    fam = _FAMILY[ll_kind]
+    n_in = 2 if sample else 1
+    stage_rows = (4 if ll_kind == "fpop" and sample
+                  else WIDE_STAGE_ROWS[bucket][0 if packed else 1])
+    words = (1 if packed else (4 if fam >= _FAMILY["gen"] else 3)) + (
+        0 if sample else 2)
+    acc = {"none": 0, "gendiff": 2, "gen": n_in,
+           "fpop": bucket if sample else 1}.get(ll_kind, 1)
+    cols = (bucket if sample else 0) + acc
+    static = 4 * (2 * words * stage_rows * SITE_THREADS
+                  + 2 * stage_rows * (bucket + 2)
+                  + 2 * stage_rows * (SITE_THREADS // 32) * max(cols, 1) + 1)
+    tiles = -(-l // plane)
+    strips = max(-(-n // (WIDE_STRIP_ROWS if stage_p else MIN_STRIP_ROWS)),
+                 min(-(-WIDE_BLOCKS // (c * tiles)),
+                     -(-n // MIN_STRIP_ROWS)))
+    strips = max(1, min(strips, n))
+    rows = -(-n // strips)
+    return SitePlan(bucket, -(-n // rows), rows, dyn, static)
 
 
 def site_counter(name: str, data: Dataset, n_pops: int) -> str:
@@ -444,8 +514,12 @@ def _site_pass(name: str, keys, step, q, freq, data: Dataset, z_in, colv,
     counts = None
     if sample:
         counts = "strips" if packed and k <= WIDE_POPS else k * a
+    strips = None
+    if k > WIDE_POPS:
+        strips = site_plan(c, n, l, k, a, packed=packed, sample=sample,
+                           ll_kind=ll_kind, structure=structure).strips
     part, cnt_part, tickets, strips = _site_scratch(
-        dev, c, n, l, k, (k if sample else 0) + n_acc, counts)
+        dev, c, n, l, k, (k if sample else 0) + n_acc, counts, strips)
     res = {}
     z = qqnum = zcounts = ll = chain_key = None
     if sample:

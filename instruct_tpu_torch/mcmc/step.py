@@ -452,7 +452,9 @@ def build_marg_loglik(spec: ModelSpec, data: Dataset, tetra_tables=None):
     """``add_marg(state) -> state`` filling ``state.loglik_marg`` with the
     Z-marginalized per-individual log-likelihood that feeds WAIC and the
     corrected DIC: ``model/likelihood.py:marginal_site_loglik`` in modes
-    1-5 (inactive K-grid slots carry no q mass and need no mask), the
+    1-5, a chunk of chains at a time (``marginal_indv_loglik``: its
+    [chains, N, L] temporaries bounded by ``MARG_CHUNK_BYTES``; inactive
+    K-grid slots carry no q mass and need no mask), the
     uniform mixture over the K single-pop log-liks in mode 0 (over the
     active slots under the K grid's mask), the (z, geno)-conditional log-lik
     of the tetraploid engine

@@ -24,6 +24,11 @@ from instruct_tpu_torch.data.dataset import Dataset
 
 _LOG2 = 0.6931471805599453
 _EPS = 1e-30  # guards log(0) for Dirichlet draws that underflow
+# The Z-marginalized log-lik runs a chunk of chains at a time, so that each
+# of its [chains, N, L] float temporaries holds at most this many bytes
+# (at 40 chains of the 1000 x 10 000 headline panel, one-shot, they are
+# 1.6 GB each).
+MARG_CHUNK_BYTES = 1 << 28
 
 
 def _need_admixture(spec: ModelSpec, what: str) -> None:
@@ -204,8 +209,20 @@ def marginal_site_loglik(spec: ModelSpec, data: Dataset, freq, q, gen,
 
 
 def marginal_indv_loglik(spec, data, freq, q, gen, rates=None):
-    """f32[C, N] Z-marginalized per-individual log-lik."""
-    return marginal_site_loglik(spec, data, freq, q, gen, rates).sum(dim=-1)
+    """f32[C, N] Z-marginalized per-individual log-lik, evaluated a chunk
+    of chains at a time (:data:`MARG_CHUNK_BYTES`).  The chains are
+    independent and each one's sums run over its own rows, so the chunks
+    joined are the one-shot evaluation."""
+    c = freq.shape[0]
+    step = max(1, MARG_CHUNK_BYTES // (4 * data.n_indv * data.n_loci))
+
+    def rows(t, lo):
+        return None if t is None else t[lo:lo + step]
+
+    return torch.cat([
+        marginal_site_loglik(spec, data, rows(freq, lo), rows(q, lo),
+                             rows(gen, lo), rows(rates, lo)).sum(dim=-1)
+        for lo in range(0, c, step)])
 
 
 def allele_count_matrix(data: Dataset):

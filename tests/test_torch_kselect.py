@@ -304,3 +304,30 @@ def test_grid_threads_init_rates(panels):
     res = infer_k(tp.data, ModelSpec(mode=2, n_pops=2), sched, 2,
                   n_small=2, n_large=3, init_rates=init, device="cpu")
     assert set(res.results) == {2, 3}
+
+
+@pytest.mark.parametrize("mode", [1, 2, 3, 4, 5])
+def test_marginal_loglik_in_chain_chunks_is_one_shot(panels, mode,
+                                                     monkeypatch):
+    """The Z-marginalized log-lik of the WAIC refresh and the plug-in runs
+    a chunk of chains at a time (``MARG_CHUNK_BYTES``): with budgets of one
+    chain, two and all five, it is bitwise the one-shot evaluation."""
+    from instruct_tpu_torch.model import likelihood as tlk
+    _, tp = panels
+    d = tp.data
+    rng = np.random.default_rng(3)
+    c, n, l, k = 5, d.n_indv, d.n_loci, 3
+    freq = torch.from_numpy(rng.dirichlet(np.ones(2), size=(c, k, l))
+                            .astype(np.float32))
+    q = torch.from_numpy(rng.dirichlet(np.ones(k), size=(c, n))
+                         .astype(np.float32))
+    gen = torch.from_numpy(rng.integers(1, 6, size=(c, n)).astype(np.int32))
+    rates = torch.from_numpy(rng.uniform(0.05, 0.9, size=(c, n if mode == 5
+                                                          else k))
+                             .astype(np.float32))
+    spec = ModelSpec(mode=mode, n_pops=k)
+    want = tlk.marginal_site_loglik(spec, d, freq, q, gen, rates).sum(-1)
+    for chains in (1, 2, 5):
+        monkeypatch.setattr(tlk, "MARG_CHUNK_BYTES", chains * 4 * n * l)
+        got = tlk.marginal_indv_loglik(spec, d, freq, q, gen, rates)
+        assert got.shape == (c, n) and torch.equal(got, want)

@@ -12,6 +12,7 @@ carried counts and the plain ``allele_counts``.
 """
 
 import functools
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -296,7 +297,12 @@ WIDE = {"packed-K9": (16, 40, 9, 2, False),
         "generic-A2-K9": (16, 40, 9, 2, True),
         "generic-A2-K12": (14, 37, 12, 2, True),
         "generic-A2-K32": (10, 24, 32, 2, True),
-        "generic-K16": (12, 29, 16, 4, False)}
+        "generic-K16": (12, 29, 16, 4, False),
+        # bucket edges of the kernel's wide body (16 | 17), for the padding
+        # test below
+        "packed-K16": (12, 26, 16, 2, False),
+        "packed-K17": (12, 26, 17, 2, False),
+        "generic-A3-K17": (12, 27, 17, 3, False)}
 N_ZERO = 3        # trailing zero-q columns of the padded rows
 
 
@@ -520,3 +526,104 @@ def test_site_pass_gate_is_k_times_a():
         tfs.zq_sample_pass(_keys(), 0, q, freq, x["data"])
     z, qq, zc = tfs.zq_sample_pass_reference(_keys(), 0, q, freq, x["data"])
     assert zc.shape == (1, 48, x["data"].n_loci, 4)
+
+
+def _every_entry(x, q, freq, f_pop):
+    """{name: outputs} of every entry point's plain version (sampling from
+    the injected uniforms; the expectation way of the G passes too) at the
+    given q, P and per-pop F pair."""
+    d, keys = x["data"], _keys()
+    u, wg, f_ind, z = _b(x["u"]), _b(x["wg_pair"]), _b(x["f_ind"]), _b(x["z"])
+    out = {
+        "sample": tfs.zq_sample_pass_reference(keys, 0, q, freq, d, u=u),
+        "mode1": tfs.zq_mode1_pass_reference(keys, 0, q, freq, d, u=u),
+        "fpop": tfs.zq_f_pass_reference(keys, 0, q, freq, d, f_pop, pop=True,
+                                        u=u),
+        "find": tfs.zq_f_pass_reference(keys, 0, q, freq, d, f_ind,
+                                        pop=False, u=u),
+        "loglik_mode1": (tfs.panel_loglik_mode1_pass_reference(freq, q, d,
+                                                               z),),
+        "loglik_fpop": (tfs.panel_loglik_f_pass_reference(
+            freq, d, z, f_pop[:, :, 0], pop=True),),
+        "loglik_find": (tfs.panel_loglik_f_pass_reference(
+            freq, d, z, f_ind[:, :, 0], pop=False),)}
+    for st in (True, False):
+        out[f"gen {st}"] = tfs.zq_gen_pass_reference(keys, 0, q, freq, d, wg,
+                                                     structure=st, u=u)
+        out[f"gendiff {st}"] = tfs.zq_gendiff_pass_reference(
+            keys, 0, q, freq, d, wg, structure=st, u=u)
+        out[f"loglik {st}"] = (tfs.panel_loglik_pass_reference(
+            freq, q, d, z, wg[:, :, 0], structure=st),)
+    return out
+
+
+@pytest.mark.parametrize("name", ["packed-K9", "packed-K12", "packed-K16",
+                                  "packed-K17", "packed-K32", "generic-A2-K9",
+                                  "generic-A2-K12", "generic-A2-K32",
+                                  "generic-K16", "generic-A3-K17"])
+def test_zero_pops_up_to_a_bucket_change_nothing(name):
+    """What the kernel's wide body relies on: q and P padded with zero pops
+    up to K rounded to 2 (and 4) and up to every pop bucket at or above K
+    give, in
+    the plain version of every entry point, bitwise the native z, and the
+    native qqnum, zcounts and per-pop F sums in the first K slots (zero
+    past them), and the native log-liks."""
+    x = _wide_inputs(name)
+    k = x["k"]
+    q, freq, f_pop = _b(x["q"]), _b(x["freq"]), _b(x["f_pop"])
+    want = _every_entry(x, q, freq, f_pop)
+    widths = {-(-k // r) * r for r in (2, 4)} | {b for b in tfs.WIDE_BUCKETS
+                                                 if b >= k}
+    for w in sorted(widths - {k}):
+        pad = w - k
+        got = _every_entry(
+            x, torch.nn.functional.pad(q, (0, pad)),
+            torch.nn.functional.pad(freq, (0, 0, 0, 0, 0, pad)),
+            torch.cat([f_pop, torch.full((1, pad, 2), 0.5)], dim=1))
+        for entry, outs in want.items():
+            for i, (a, b) in enumerate(zip(outs, got[entry])):
+                tag = f"{entry} output {i} at {w} pops"
+                if b.dim() >= 3 and b.shape[-1] == w:        # qqnum, fdiff
+                    assert torch.equal(b[..., :k], a), tag
+                    assert not b[..., k:].any(), tag
+                elif b.dim() == 4:                            # zcounts
+                    assert torch.equal(b[:, :k], a), tag
+                    assert not b[:, k:].any(), tag
+                else:
+                    assert torch.equal(b, a), tag
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_wide_launch_plan_fits_the_card(packed):
+    """The wide body's launch plan for every 8 < K <= 32 with K * A <= 64,
+    every family, sampling and stored passes (both ways), at several call
+    shapes: a
+    bucket that holds K, a block's shared memory (dynamic and static)
+    within the H100's 232,448 bytes, strips that cover the rows with at
+    most 64 rows each (the byte counts take 127)."""
+    shapes = [(40, 1000, 10_000), (4, 1000, 10_000), (4, 1000, 2000),
+              (1, 7, 9), (3, 130_000, 600)]
+    kinds = [(True, f) for f in ("none", "mode1", "gen", "gendiff", "find",
+                                 "fpop")]
+    kinds += [(False, f) for f in ("mode1", "gen", "find", "fpop")]
+    n_plans = 0
+    for a in ([2] if packed else range(2, 8)):
+        for k in range(9, 33):
+            if k * a > 64:
+                continue
+            for sample, fam in kinds:
+                for (c, n, l), st in itertools.product(shapes,
+                                                       (True, False)):
+                    p = tfs.site_plan(c, n, l, k, a, packed=packed,
+                                      sample=sample, ll_kind=fam,
+                                      structure=st)
+                    assert p.bucket in tfs.WIDE_BUCKETS and k <= p.bucket
+                    assert p.dyn_smem + p.static_smem <= tfs.SMEM_LIMIT
+                    assert p.strips * p.strip_rows >= n
+                    assert (p.strips - 1) * p.strip_rows < n
+                    assert p.strip_rows <= tfs.WIDE_STRIP_ROWS
+                    n_plans += 1
+    assert n_plans > 0
+    with pytest.raises(ValueError, match="64"):
+        tfs.site_plan(4, 100, 100, 9, 8, packed=False, sample=True,
+                      ll_kind="none")
