@@ -37,9 +37,9 @@ last line is ``{"ok": true, "device": {...}}``.
 tetra, kselect (development aid); the device and Philox phases always run.
 ``--parent-csrc DIR`` (another tree's ``instruct_tpu_torch/csrc``, e.g. a
 ``git archive`` of the parent commit unpacked under ``_parent/``) builds
-that tree's site pass beside this one's and times it on every timed entry
-point of the site pass (``parent_ms`` in the kernels phase line; null
-without it).
+that tree's site pass, K5 and K8 beside this one's and times them on every
+timed entry point of the site pass and on the K5 and K8 entries
+(``parent_ms`` in the kernels phase line; null without it).
 """
 
 from __future__ import annotations
@@ -77,6 +77,7 @@ from instruct_tpu_torch.kernels import tetra_geno as tg
 from instruct_tpu_torch.mcmc.state import init_state
 from instruct_tpu_torch.mcmc.step import build_step_parts, use_fused
 from instruct_tpu_torch.tetra import engine as te
+from instruct_tpu_torch.tools import geno_zq_variants as gzv
 from instruct_tpu_torch.tools import site_pass_variants as spv
 
 # Headline shapes of the main path.
@@ -362,6 +363,19 @@ def allele_counts_library_ms(x, want) -> float:
     return ms
 
 
+def zq_plan_agrees(tag, q, freq) -> dict:
+    """The wrapper's launch plan of K8 on these operands, checked against
+    the shared memory the kernel's launch function computes for it."""
+    c, k, l, a = freq.shape
+    plan = zqk.zq_plan(c, q.shape[1], l, k, a)
+    dyn = _build.library().zq_sample_launch_dyn_smem(k, a, plan.rows)
+    if dyn != plan.dyn_smem:
+        raise AssertionError(f"{tag}: the kernel takes {dyn} bytes of "
+                             f"dynamic shared memory, the plan "
+                             f"{plan.dyn_smem}")
+    return plan._asdict()
+
+
 def zq_agrees(tag, keys, q, freq, geno, site_valid, u=None):
     """Raise unless ``zq_sample_counts`` gives exactly its plain version's
     z and qqnum on these inputs; returns the kernel's (z, qqnum)."""
@@ -381,6 +395,9 @@ def zq_agrees(tag, keys, q, freq, geno, site_valid, u=None):
                                  "sites")
     if int(got[0].min()) < 0 or int(got[0].max()) >= k:
         raise AssertionError(f"{tag}: z outside [0, K)")
+    again = zqk.zq_sample_counts(*args, n_pops=k, u=u)
+    if not all(torch.equal(a_, b_) for a_, b_ in zip(got, again)):
+        raise AssertionError(f"{tag}: two launches are not bitwise equal")
     return got
 
 
@@ -393,6 +410,7 @@ def check_zq_sample_counts(name, keys, q, freq, geno, site_valid,
     c, n, k = q.shape
     s, l, a = geno.shape[1], site_valid.shape[1], freq.shape[3]
     got = zq_agrees(name, keys, q, freq, geno, site_valid)
+    plan = zq_plan_agrees(name, q, freq)
     u = torch.rand((c, n, s), device="cuda",
                    generator=torch.Generator("cuda").manual_seed(3))
     zq_agrees(name + " under injected uniforms", keys, q, freq, geno,
@@ -426,7 +444,10 @@ def check_zq_sample_counts(name, keys, q, freq, geno, site_valid,
                 # torch.multinomial draws from the same distribution but is
                 # another function of the uniforms
                 library_ms=None, bytes=n_bytes, ops=n_ops, notes=notes,
-                shape=dict(C=c, N=n, L=l, S=s, K=k, A=a),
+                shape=dict(C=c, N=n, L=l, S=s, K=k, A=a), plan=plan,
+                parent_ms=parent_kernel_ms(
+                    "zq_sample_counts", (keys, 5, q, freq, geno,
+                                         site_valid)),
                 compared="z, qqnum exactly equal")
 
 
@@ -625,32 +646,52 @@ PARENT: dict = {}
 
 def start_parent_build(csrc) -> None:
     """Build the site-pass sources of ``csrc`` (another tree's
-    ``instruct_tpu_torch/csrc``) in a thread, into :data:`PARENT`."""
+    ``instruct_tpu_torch/csrc``) and its K5 and K8 sources in two threads,
+    into :data:`PARENT`."""
     work_dir = _build.BUILD / "parent"
     shutil.rmtree(work_dir, ignore_errors=True)
 
-    def work():
+    def work(key, build):
         try:
-            lib, _ = spv.build_site_library(
-                work_dir, "parent", spv.source_texts(pathlib.Path(csrc)))
-            PARENT["lib"] = lib
+            PARENT[key], _ = build()
         except Exception as e:          # reported where it is needed
-            PARENT["error"] = repr(e)
-    PARENT["thread"] = threading.Thread(target=work)
-    PARENT["thread"].start()
+            PARENT[key + "_error"] = repr(e)
+    jobs = {"lib": lambda: spv.build_site_library(
+                work_dir, "parent", spv.source_texts(pathlib.Path(csrc))),
+            "lib_geno_zq": lambda: gzv.build_library(
+                work_dir, "parent_geno_zq", pathlib.Path(csrc))}
+    PARENT["threads"] = [threading.Thread(target=work, args=(key, fn))
+                         for key, fn in jobs.items()]
+    for t in PARENT["threads"]:
+        t.start()
+
+
+def _parent_lib(key):
+    for t in PARENT["threads"]:
+        t.join()
+    if key not in PARENT:
+        raise RuntimeError(f"the parent's kernels did not build: "
+                           f"{PARENT.get(key + '_error')}")
+    return PARENT[key]
+
+
+def parent_kernel_ms(kernel, args, kw=None):
+    """The parent's K5 (``geno_choice_pass``) or K8 (``zq_sample_counts``)
+    time on these arguments of the current wrapper, or None without
+    ``--parent-csrc``."""
+    if "threads" not in PARENT:
+        return None
+    lib = _parent_lib("lib_geno_zq")
+    return time_ms(lambda: gzv.parent_call(lib, kernel, args, kw or {}))
 
 
 def parent_ms(name, x, structure):
     """The parent site pass's time on the entry point and inputs (its
     bodies take 16-row strips, as the kernel's ``site_pass_strips`` gives
     them), or None without ``--parent-csrc``."""
-    if "thread" not in PARENT:
+    if "threads" not in PARENT:
         return None
-    PARENT["thread"].join()
-    if "lib" not in PARENT:
-        raise RuntimeError(f"the parent's site pass did not build: "
-                           f"{PARENT.get('error')}")
-    with spv.site_library(PARENT["lib"], fs.MIN_STRIP_ROWS):
+    with spv.site_library(_parent_lib("lib"), fs.MIN_STRIP_ROWS):
         return time_ms(site_calls(name, x, structure)[0])
 
 
@@ -1080,6 +1121,13 @@ def phase_edge_shapes() -> None:
                 (1, 70, 131, 20, 30, 2), (2, 19, 250, 9, 3, 1),
                 (1, 50, 1025, 20, 16, 3), (2, 37, 66, 5, 30, 4),
                 (2, 40, 38, 5, 16, 2)]
+    # every edge of K8's pop buckets (K <= 8 each, 16, 32, then the generic
+    # body) at A = 16, across the ploidies; the first half of the rows with
+    # zero q in the trailing pops; and a tile of P too wide for a block
+    zq_cases += [(2, 41, 259, kk, 16, 1 + i % 4) for i, kk in enumerate(
+        (1, 4, 5, 8, 9, 16, 17, 32, 33, 50))]
+    zq_cases += [(1, 30, 130, 16, 127, 2), (1, 30, 130, 3, 127, 3),
+                 (1, 30, 130, 10, 44, 2)]
     for c, n, l, k, a, ploid in zq_cases:
         tag = f"edge shape C={c} N={n} L={l} K={k} A={a} ploidy={ploid}"
         keys = px.make_keys(78, c, "cuda", chain_key=range(5, 5 + c))
@@ -1092,8 +1140,12 @@ def phase_edge_shapes() -> None:
         geno = torch.where(site_valid.repeat(1, ploid), geno,
                            torch.full_like(geno, -1)).to(torch.int8)
         q = simplex(c, n, k)
+        if k > 8:
+            q[:, : n // 2, k - 3:] = 0.0
+            q = (q / q.sum(-1, keepdim=True)).contiguous()
         freq = simplex(c, k, l, a, mask=allele_valid.float()[None, None])
         z, _ = zq_agrees(tag, keys, q, freq, geno, site_valid)
+        zq_plan_agrees(tag, q, freq)
         zq_agrees(tag + " under injected uniforms", keys, q, freq, geno,
                   site_valid, u=rand(c, n, ploid * l).contiguous())
         if ploid == 2 and k * a > 64:
@@ -1398,9 +1450,11 @@ def sweep_profile(data, spec, n_steps: int = 100, n_prof: int = 30,
     out.update(device_ms_per_sweep=busy,
                device_idle_share=max(0.0, 1.0 - busy / out[
                    "wall_ms_per_sweep"]),
+               # the 8 longest, and every hand-written kernel of the sweep
                top_kernels=[dict(name=k[:60], ms_per_sweep=round(ms, 5),
                                  launches_per_sweep=round(cnt, 2))
-                            for k, ms, cnt in rows[:8]],
+                            for i, (k, ms, cnt) in enumerate(rows)
+                            if i < 8 or "(anonymous namespace)" in k],
                device_kernel_launches_per_sweep=round(
                    sum(r[2] for r in rows), 1))
     return out
@@ -2009,6 +2063,25 @@ def views_agree(tag, x):
               f8, geno8, sv)
 
 
+def mixtures_used(cand_sel, nc, autopoly: bool) -> torch.Tensor:
+    """int64[N, L]: the (distinct allele, system) pairs whose Q-mixture the
+    valid candidates of a site read -- slots 0-1 read system 1, slots 2-3
+    system 2 (allo; every slot system 1 when ``autopoly``): the mixtures
+    and logs K5 needs at a mixed-z site."""
+    sel = cand_sel.to(torch.int64)
+    ok = (torch.arange(sel.shape[0], device=sel.device)[:, None, None]
+          < nc.to(torch.int64)[None])
+    systems = ((0, 1, 2, 3),) if autopoly else ((0, 1), (2, 3))
+    total = torch.zeros(sel.shape[1:], dtype=torch.int64, device=sel.device)
+    for slots in systems:
+        for j in range(4):
+            hit = torch.zeros_like(ok)
+            for m in slots:
+                hit = hit | (ok & (((sel >> (2 * m)) & 3) == j))
+            total = total + hit.any(dim=0).to(torch.int64)
+    return total
+
+
 def tetra_work(x):
     """(bytes, operations) of one call of K5, K6, K7 on these inputs: each
     operand read once, each result written once; operations counted from
@@ -2026,15 +2099,21 @@ def tetra_work(x):
     ncand = t.cand_nc.long()[None].expand(c, n, l)
     cand_same = int(ncand[same].sum())
     cand_mixed = int(ncand[~same].sum())
-    n_mixed_sites = n_sites - int(same.sum())
     planes = c * n * 4 * l
     k5_bytes = (planes + n * 4 * l + n * l + t.n_cand * n * l * 4
                 + c * n * k * 4 + n_sys * c * k * l * a * 4
                 + c * k * l * g * 4 + c * n * l)
-    k5_ops = (n_mixed_sites * n_sys * 4 * 2 * k
-              + cand_mixed * (5 * OPS_TRANSC + 5) + cand_same * 1
+    # K5's least work: per mixed site, the mixture (K products and adds) and
+    # its log for each distinct allele that a valid candidate routes to a
+    # system; per mixed candidate a log-multiplicity lookup and 4 adds; per
+    # same-z candidate a table read; per valid candidate 2 Gumbel logs, a
+    # quarter of a Philox block, the add and the compare
+    mix_logs = (mixtures_used(t.cand_sel, t.cand_nc, spec.autopoly)[None]
+                .expand(c, n, l)[~same].sum())
+    k5_ops = (int(mix_logs) * (2 * k + OPS_TRANSC)
+              + cand_mixed * 5 + cand_same * 1
               + (cand_same + cand_mixed) * (2 * OPS_TRANSC + OPS_PHILOX / 4
-                                            + 3))
+                                            + 2))
     k6_bytes = 2 * c * k * l * g * 4 + l * v * 4 + 2 * planes + n * l \
         + c * k * 4
     k6_ops = n_same * (12 + 1 + k)
@@ -2046,7 +2125,8 @@ def tetra_work(x):
                 site_ll_pass=(k7_bytes, k7_ops))
 
 
-def _tetra_entry(name, counter, x, work, err, run, plain, compared, notes):
+def _tetra_entry(name, counter, x, work, err, run, plain, compared, notes,
+                 parent_ms=None):
     b_ms, b_by = bound(*work)
     return dict(name=counter, route="cuda",
                 source="instruct_tpu_torch/csrc/tetra_geno.cu",
@@ -2063,7 +2143,7 @@ def _tetra_entry(name, counter, x, work, err, run, plain, compared, notes):
                            L=x["data"].n_loci, K=x["spec"].n_pops,
                            A=x["data"].max_alleles, G=x["tables"].g_max,
                            n_cand=x["tables"].n_cand),
-                compared=compared)
+                compared=compared, parent_ms=parent_ms)
 
 
 def check_tetra_kernels(panels) -> list:
@@ -2100,7 +2180,8 @@ def check_tetra_kernels(panels) -> list:
             lambda: tg.geno_choice_pass(*a5, autopoly=auto),
             lambda: tg.geno_choice_pass_reference(*a5, autopoly=auto),
             "choice exactly equal (Philox and injected Gumbel planes)",
-            [f"same-z share {share:.3f}"]))
+            [f"same-z share {share:.3f}"],
+            parent_kernel_ms("geno_choice_pass", a5, dict(autopoly=auto))))
         a6 = _k6_args(x)
         e6 = _tetra_entry(
             "s_delta_pass", "s_delta_pass", x, work["s_delta_pass"],
@@ -2128,6 +2209,37 @@ def check_tetra_kernels(panels) -> list:
     return entries
 
 
+def k5_edge_rows(tag, x) -> None:
+    """K5 on the same inputs with every site of the first half of the rows
+    same-z and every site of the second half mixed (where K > 1), and with
+    every candidate count cut to 1: exactly the plain version, bitwise
+    equal on a rerun, with Philox and with injected Gumbel planes."""
+    z, l = x["z"], x["data"].n_loci
+    n, k = z.shape[1], x["spec"].n_pops
+    zs = z.clone()
+    zs[:, : (n + 1) // 2] = z[:, : (n + 1) // 2, :l].repeat(1, 1, 4)
+    if k > 1:
+        zs[:, (n + 1) // 2:, l:2 * l] = (z[:, (n + 1) // 2:, :l] + 1) % k
+    t = x["tables"]
+    one = torch.ones_like(t.cand_nc)
+    cases = ((" same-z / mixed rows", dict(x, z=zs.contiguous())),
+             (" nc = 1", dict(x, tables=t._replace(cand_nc=one))))
+    c, nn = z.shape[:2]
+    gum = -torch.log(-torch.log(torch.rand(
+        (c, t.n_cand, nn, l), device="cuda",
+        generator=torch.Generator("cuda").manual_seed(9)).clamp(
+            1e-7, 1 - 1e-7)))
+    for what, xx in cases:
+        for g in (None, gum):
+            got = k5_agrees(tag + what, xx, g)
+            if not torch.equal(got, k5_agrees(tag + what + " (rerun)", xx,
+                                              g)):
+                raise AssertionError(f"{tag}{what}: two K5 launches differ")
+            if what == " nc = 1" and bool(got.any()):
+                raise AssertionError(f"{tag}{what}: a choice beyond the one "
+                                     "candidate")
+
+
 def tetra_edge_shapes() -> None:
     """K5-K7 and the view launches at small ragged shapes: N = 1, L not a
     multiple of the block, missing sites, K = 1..5, A = 2, 3, auto and
@@ -2146,6 +2258,7 @@ def tetra_edge_shapes() -> None:
             k6_agrees(tag, x)
             k7_agrees(tag, x)
             views_agree(tag, x)
+            k5_edge_rows(tag, x)
     emit("tetra_edge_shapes", cases=[dict(C=c, N=n, L=l, K=k, A=a)
                                      for c, n, l, k, a in cases],
          all_match=True)
@@ -2404,7 +2517,8 @@ def main(argv=None) -> int:
                             "kselect")
     ap.add_argument("--parent-csrc", default=None,
                     help="another tree's instruct_tpu_torch/csrc: its site "
-                         "pass is built and timed beside this one's")
+                         "pass, K5 and K8 are built and timed beside this "
+                         "one's")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():

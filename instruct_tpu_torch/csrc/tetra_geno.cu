@@ -27,24 +27,35 @@
 // one order; the table and frequency reads are gathers that stay in L2 (a
 // chain's table is 6 MB at L = 5000, G = 100, K = 3).
 // Design: the TPU kernels run K-way and V-way select chains, because a TPU
-// has no fast gather; here every lookup is one indexed load.  A block owns
-// one row (chain, individual); its threads walk the row's loci with stride
-// 256, so the byte planes are read coalesced along L.
-//   * geno_choice: the Q-mixture of each of the site's (up to 4) distinct
-//     alleles, m_j = sum_k q_k freq[k, l, d_j], is computed in the thread, in
-//     the order of k, only at mixed-z sites -- no [A, N, L] mixture planes in
-//     device memory.  Gumbel noise: u01_open of Philox words of the
-//     (chain, step, STREAM_GENO) counter space, word cand of the site's
-//     bps = ceil(n_cand / 4) blocks (counter site * bps + cand / 4); only the
-//     blocks of the site's valid candidates are drawn.  The first maximum of
-//     w + gumbel wins (strict >), in candidate order.
+// has no fast gather; here every lookup is one indexed load.
+//   * geno_choice: its first body took a block per (row, chain): every
+//     chain re-read the data-only candidate planes (sel, cls, mult: 4 bytes
+//     per candidate and site, 120 MB for allo at 500 x 5000, beyond L2), a
+//     mixed-z site took 5 logs per candidate (log mult and 4 slot logs)
+//     where it has at most 4 distinct mixtures per system, and a warp ran
+//     its candidate loop to the largest count among its 32 sites.  Now a
+//     block owns 8 rows x 32 loci and hands its sites to its threads in
+//     the order of their candidate counts; the block reads its sites'
+//     planes once into shared memory, and a thread walks the C chains of
+//     its site.  Per chain and mixed-z site it
+//     forms the Q-mixture of each distinct allele that a candidate routes to
+//     a system, m_j = sum_k q_k freq[k, l, d_j] (in the order of k), and its
+//     log once; a candidate's weight is then logf(mult), from a block table
+//     of logf(i), plus its 4 slots' logs in slot order -- the plain
+//     version's values and order, so bitwise its weight.  Gumbel noise:
+//     u01_open of Philox words of the (chain, step, STREAM_GENO) counter
+//     space, word cand of the site's bps = ceil(n_cand / 4) blocks (counter
+//     site * bps + cand / 4); only the blocks of the site's valid
+//     candidates are drawn.  The first maximum of w + gumbel wins (strict
+//     >), in candidate order.
 //   * s_delta, site_ll: real-valued sums in a fixed order, no float atomics:
 //     each thread adds its loci in order, a warp butterfly, the block's 8
 //     warp partials in order; s_delta's per-row partials are then added over
 //     the rows in order by a second small kernel.  Two runs are bitwise
 //     equal.  An s_delta block keeps the sums of a group of up to 8 pops
-//     (grid z: the groups), so any K runs; geno_choice keeps the row's K
-//     admixture proportions in dynamic shared memory.
+//     (grid z: the groups), so any K runs.  A block of either owns one row
+//     (chain, individual); its threads walk the row's loci with stride 256,
+//     so the byte planes are read coalesced along L.
 // The source is compiled without FMA contraction, so the mixtures and the
 // weights round as in the plain PyTorch versions (kernels/tetra_geno.py).
 #include "philox.cuh"
@@ -100,65 +111,135 @@ struct GenoArgs {
   const uint8_t* mult;     // [n_cand, N, L] ordering multiplicity
   const float* gumbel;     // [C, n_cand, N, L] injected noise, or null
   int8_t* choice;          // [C, N, L] out
-  int N, L, K, A, G, n_cand, autopoly, bps;
+  int C, N, L, K, A, G, n_cand, bps;
   uint32_t k0, k1, step;
   const int* chain_key;
 };
 
-__global__ void __launch_bounds__(kThreads) geno_choice_kernel(
-    const GenoArgs a) {
-  const int n = blockIdx.x, c = blockIdx.y;
-  const int N = a.N, L = a.L, K = a.K, A = a.A, G = a.G;
-  extern __shared__ float qs[];  // [K]
-  for (int k = threadIdx.x; k < K; k += kThreads)
-    qs[k] = a.q[((long long)c * N + n) * K + k];
-  __syncthreads();
-  const uint32_t chain = (uint32_t)a.chain_key[c];
-  const long long NL = (long long)N * L;
-  const int8_t* zrow = a.z + ((long long)c * N + n) * 4 * L;
-  const int8_t* drow = a.dist + (long long)n * 4 * L;
-  const float* f1 = a.freq + (long long)c * K * L * A;
-  const float* f2 = a.freq2 + (long long)c * K * L * A;
-  for (int l = threadIdx.x; l < L; l += kThreads) {
+// A block owns 8 rows x 32 loci.  Its sites are handed to its threads in
+// the order of their candidate counts (a counting sort in shared memory), so
+// a warp's candidate loop runs about as long as its sites need and not to
+// the block's largest count; which thread takes a site changes nothing in
+// the site's result.  The block reads its sites' candidate planes once,
+// coalesced, into shared memory (one packed word a candidate); a thread
+// walks the C chains of its site.  A
+// candidate's mixed-z weight log mult + sum_m log mix_sys(m)[sel_m] takes
+// its log multiplicity from a block table of logf(i) and its slots' logs
+// from the <= 4 per system computed once per site and chain (only for the
+// alleles some candidate routes to that system): the same logs of the same
+// values, added in slot order -- bitwise the plain version's weight.  kAuto:
+// one system (every slot reads freq).  The candidate loop is not unrolled,
+// so the body keeps few registers and many warps an SM.
+#ifndef GENO_MIN_BLOCKS
+#define GENO_MIN_BLOCKS 4
+#endif
+template <bool kAuto>
+__global__ void __launch_bounds__(kThreads, GENO_MIN_BLOCKS)
+    geno_choice_kernel(const GenoArgs a) {
+  __shared__ float log_int[256];       // logf(i): a u8 multiplicity's log
+  __shared__ uint32_t cand_s[kMaxCand][kThreads];  // sel | mult | cls
+  __shared__ int bucket[kMaxCand + 2];             // sites by count, starts
+  __shared__ uint8_t order[kThreads];              // sites in count order
+  const int tid = threadIdx.x;
+  log_int[tid] = logf((float)tid);
+  if (tid < kMaxCand + 2) bucket[tid] = 0;
+  const int N = a.N, L = a.L, K = a.K, G = a.G;
+  const long long NL = (long long)N * L, LA = (long long)L * a.A;
+  // the block's site `tid`: stage its planes and count it
+  {
+    const int l = blockIdx.x * 32 + (tid & 31);
+    const int n = blockIdx.y * kWarps + (tid >> 5);
     const long long site = (long long)n * L + l;
+    const int nc = l < L && n < N ? min((int)a.nc[site], a.n_cand) : 0;
+    for (int cc = 0; cc < nc; ++cc) {
+      const long long cs = (long long)cc * NL + site;
+      cand_s[cc][tid] = a.sel[cs] | ((uint32_t)a.mult[cs] << 8) |
+                        ((uint32_t)(uint16_t)a.cls[cs] << 16);
+    }
+    __syncthreads();
+    const int rank = atomicAdd(&bucket[nc + 1], 1);
+    __syncthreads();
+    if (tid == 0)
+      for (int b = 1; b <= kMaxCand + 1; ++b) bucket[b] += bucket[b - 1];
+    __syncthreads();
+    order[bucket[nc] + rank] = (uint8_t)tid;
+    __syncthreads();
+  }
+  const int me = order[tid];           // the site this thread draws
+  const int l = blockIdx.x * 32 + (me & 31);
+  const int n = blockIdx.y * kWarps + (me >> 5);
+  if (l >= L || n >= N) return;
+  const long long site = (long long)n * L + l;
+  const int nc = min((int)a.nc[site], a.n_cand);
+  uint32_t used1 = 0u, used2 = 0u;     // alleles routed to each system
+  for (int cc = 0; cc < nc; ++cc) {
+    const uint32_t sel8 = cand_s[cc][me];
+    used1 |= (1u << (sel8 & 3)) | (1u << ((sel8 >> 2) & 3));
+    used2 |= (1u << ((sel8 >> 4) & 3)) | (1u << ((sel8 >> 6) & 3));
+  }
+  if (kAuto) used1 |= used2;
+  uint32_t dist4 = 0u;                 // the site's distinct alleles, 8 bits
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    dist4 |= (uint32_t)(uint8_t)a.dist[(long long)n * 4 * L + j * L + l]
+             << (8 * j);
+
+  for (int c = 0; c < a.C; ++c) {
+    const long long row = (long long)c * N + n;
+    const int8_t* zrow = a.z + row * 4 * L;
     const int z0 = zrow[l], z1 = zrow[L + l], z2 = zrow[2 * L + l],
               z3 = zrow[3 * L + l];
     const bool same = z0 == z1 && z1 == z2 && z2 == z3;
-    const int nc = a.nc[site];
-    // mixed-z sites: the Q-mixture of each distinct allele, per system
+    const float* trow = a.table + (((long long)c * K + z0) * L + l) * G;
+    // the mixtures of the used alleles, every (allele, system) of a pop k
+    // loaded together; each sum still runs over k in order
     float m1[4] = {0.0f, 0.0f, 0.0f, 0.0f}, m2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (!same) {
+      const float* qrow = a.q + row * K;
+      const float* f1 = a.freq + (long long)c * K * LA + (long long)l * a.A;
+      const float* f2 = a.freq2 + (long long)c * K * LA + (long long)l * a.A;
+      for (int k = 0; k < K; ++k) {
+        const float qk = __ldg(qrow + k);
+        const long long ko = (long long)k * LA;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int d = (dist4 >> (8 * j)) & 0xffu;
+          if ((used1 >> j) & 1u) {
+            const float t = qk * __ldg(f1 + ko + d);
+            m1[j] = k == 0 ? t : m1[j] + t;
+          }
+          if (!kAuto && ((used2 >> j) & 1u)) {
+            const float t = qk * __ldg(f2 + ko + d);
+            m2[j] = k == 0 ? t : m2[j] + t;
+          }
+        }
+      }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int d = drow[j * L + l];
-        const long long off = (long long)l * A + d;
-        float s1 = qs[0] * __ldg(f1 + off);
-        float s2 = a.autopoly ? 0.0f : qs[0] * __ldg(f2 + off);
-        for (int k = 1; k < K; ++k) {
-          const long long ok = (long long)k * L * A + off;
-          s1 = s1 + qs[k] * __ldg(f1 + ok);
-          if (!a.autopoly) s2 = s2 + qs[k] * __ldg(f2 + ok);
-        }
-        m1[j] = s1;
-        m2[j] = a.autopoly ? s1 : s2;
+        if ((used1 >> j) & 1u) m1[j] = slog(m1[j]);
+        if (!kAuto && ((used2 >> j) & 1u)) m2[j] = slog(m2[j]);
       }
     }
-    const float* trow = a.table + (((long long)c * K + z0) * L + l) * G;
+    const uint32_t chain = (uint32_t)a.chain_key[c];
     float best = kNeg;
     int choice = 0;
     Philox4 r = {0u, 0u, 0u, 0u};
-    for (int cc = 0; cc < nc && cc < kMaxCand; ++cc) {
-      const long long cs = (long long)cc * NL + site;
+    // a same-z site's next table weight is loaded a candidate ahead
+    float next = same && nc > 0 ? __ldg(trow + (int)(cand_s[0][me] >> 16))
+                                : 0.0f;
+#pragma unroll 1
+    for (int cc = 0; cc < nc; ++cc) {
+      const uint32_t v = cand_s[cc][me];
       float w;
       if (same) {
-        w = __ldg(trow + a.cls[cs]);
+        w = next;
+        if (cc + 1 < nc) next = __ldg(trow + (int)(cand_s[cc + 1][me] >> 16));
       } else {
-        const int sel8 = a.sel[cs];
-        w = logf((float)a.mult[cs]);
+        w = log_int[(v >> 8) & 0xffu];
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
-          const int j = (sel8 >> (2 * m)) & 3;
-          w = w + slog(m < 2 ? pick4(m1, j) : pick4(m2, j));
+          const int j = (v >> (2 * m)) & 3;
+          w = w + ((kAuto || m < 2) ? pick4(m1, j) : pick4(m2, j));
         }
       }
       float g;
@@ -166,17 +247,17 @@ __global__ void __launch_bounds__(kThreads) geno_choice_kernel(
         g = a.gumbel[((long long)c * a.n_cand + cc) * NL + site];
       } else {
         if ((cc & 3) == 0)
-          r = philox4x32_10((uint32_t)(site * a.bps + (cc >> 2)), STREAM_GENO,
-                            a.step, chain, a.k0, a.k1);
+          r = philox4x32_10((uint32_t)(site * a.bps + (cc >> 2)),
+                            STREAM_GENO, a.step, chain, a.k0, a.k1);
         g = -logf(-logf(u01_open(philox_word(r, cc & 3))));
       }
-      const float v = w + g;
-      if (v > best) {
-        best = v;
+      const float x = w + g;
+      if (x > best) {
+        best = x;
         choice = cc;
       }
     }
-    a.choice[(long long)c * NL + site] = (int8_t)choice;
+    a.choice[row * L + l] = (int8_t)choice;
   }
 }
 
@@ -319,7 +400,8 @@ extern "C" int geno_choice_launch(
     const void* cls, const void* mult, const void* gumbel, void* choice, int C,
     int N, int L, int K, int A, int G, int n_cand, int autopoly, unsigned k0,
     unsigned k1, const void* chain_key, unsigned step, void* stream) {
-  if (K < 1 || K > kMaxPops || n_cand < 1 || n_cand > kMaxCand || C > 65535)
+  if (K < 1 || K > kMaxPops || n_cand < 1 || n_cand > kMaxCand ||
+      (N + kWarps - 1) / kWarps > 65535)
     return (int)cudaErrorInvalidValue;
   if (C == 0 || N == 0 || L == 0) return 0;
   GenoArgs a;
@@ -335,21 +417,24 @@ extern "C" int geno_choice_launch(
   a.mult = (const uint8_t*)mult;
   a.gumbel = (const float*)gumbel;
   a.choice = (int8_t*)choice;
+  a.C = C;
   a.N = N;
   a.L = L;
   a.K = K;
   a.A = A;
   a.G = G;
   a.n_cand = n_cand;
-  a.autopoly = autopoly;
   a.bps = (n_cand + 3) / 4;
   a.k0 = k0;
   a.k1 = k1;
   a.step = step;
   a.chain_key = (const int*)chain_key;
-  const dim3 grid(N, C);
-  geno_choice_kernel<<<grid, kThreads, K * sizeof(float),
-                       (cudaStream_t)stream>>>(a);
+  const dim3 grid((L + 31) / 32, (N + kWarps - 1) / kWarps);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (autopoly)
+    geno_choice_kernel<true><<<grid, kThreads, 0, s>>>(a);
+  else
+    geno_choice_kernel<false><<<grid, kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 

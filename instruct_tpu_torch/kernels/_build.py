@@ -75,9 +75,11 @@ _SIGNATURES = {
     # z, bits2, geno, valid, counts, C, N, L, K, A, plane chain stride,
     # stream
     "allele_counts_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P],
-    # q, freq_t, geno, valid, u, z, qqnum, C, N, L, K, A, ploidy, geno chain
-    # stride, k0, k1, chain_key, step, stream
-    "zq_sample_launch": [_P] * 7 + [_I] * 6 + [_L, _U, _U, _P, _U, _P],
+    # q, freq, geno, valid, u, z, qqnum, C, N, L, K, A, ploidy, rows (0:
+    # the generic body), geno chain stride, k0, k1, chain_key, step, stream
+    "zq_sample_launch": [_P] * 7 + [_I] * 7 + [_L, _U, _U, _P, _U, _P],
+    # (K, A, rows) -> dynamic shared-memory bytes of a K8 launch
+    "zq_sample_launch_dyn_smem": [_I] * 3,
     # table, z, dist, nc, q, freq, freq2, cand_sel, cand_cls, cand_mult,
     # gumbel, choice, C, N, L, K, A, G, n_cand, autopoly, k0, k1, chain_key,
     # step, stream

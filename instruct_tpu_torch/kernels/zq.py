@@ -19,10 +19,13 @@ form the prefixes ``cum += q_k * P[k, l, a]`` in the order of k and read
 the same Philox words.
 
 Chains are a written-out leading axis.  On CUDA tensors the wrapper launches
-``csrc/zq_sample.cu`` (K, A and the ploidy are run-time arguments: one
-instantiation, no bound on K*A) on a pop-minor copy of P, so that the K
-values a copy gathers are consecutive in memory; on CPU tensors it runs the
-plain version below.
+``csrc/zq_sample.cu`` with the launch plan :func:`zq_plan`: a pop-bucket
+body (one per K <= 8, padded ones for K <= 16 and K <= 32) that stages a
+tile of P in shared memory, or the generic run-time-K body (K > 32, or a
+tile of P beyond shared memory) on a pop-minor copy of P; on CPU tensors it
+runs the plain version below.  A pop past K, zero in q, changes neither z
+nor the counts (``u * total <= total``), which is why a padded bucket draws
+as the plain version does.
 
 Uniforms: copy ``(n, s)``, ``s = copy * L + l``, takes Philox word
 ``n * S + s`` of the (chain, step, ``STREAM_Z``) counter space through the
@@ -31,7 +34,7 @@ Uniforms: copy ``(n, s)``, ``s = copy * L + l``, takes Philox word
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -39,7 +42,67 @@ from instruct_tpu_torch.kernels import _build
 from instruct_tpu_torch.kernels import philox as px
 
 MAX_POPS = 127     # z is int8
+MAX_ALLELES = 127  # allele codes are int8
 MAX_PLOID = 4
+
+# The bucket bodies' launch shape (csrc/zq_sample.cu): 256 threads over a
+# tile of 128 loci, each warp drawing its own rows of the block's strip;
+# strips as long as leaves at least BLOCKS_TARGET blocks (4 an SM), so that
+# the staged P serves many rows, and short enough for the block's shared
+# memory (SMEM_MAX) and the grid.
+THREADS, TILE = 256, 128
+ROWS = (128, 64, 32, 16, 8, 4, 2, 1)
+SMEM_MAX = 232_448
+BLOCKS_TARGET = 528
+GRID_MAX = 65_535
+GENERIC_ROWS = 16  # the generic body's rows a block
+
+
+class ZqPlan(NamedTuple):
+    """Launch plan of one K8 call: ``bucket`` the pop bucket (K itself for
+    K <= 8, 16, 32; 0 for the generic body), ``rows`` the individuals of a
+    bucket block (0: the generic body, GENERIC_ROWS a block), the grid, and
+    the dynamic shared memory of a block."""
+    bucket: int
+    rows: int
+    grid: tuple
+    dyn_smem: int
+
+
+def zq_bucket(k: int) -> int:
+    """The pop bucket of K: K for K <= 8, then 16 and 32; 0 beyond."""
+    return k if k <= 8 else (16 if k <= 16 else (32 if k <= 32 else 0))
+
+
+def _bucket_smem(k: int, a: int, rows: int) -> int:
+    # the tile's P, [K][4][32][A | 1] floats, and the strip's q rows and
+    # counters, [rows][K] each
+    return 4 * (k * TILE * (a | 1) + 2 * rows * k)
+
+
+def zq_plan(c: int, n: int, l: int, k: int, a: int) -> ZqPlan:
+    """The launch plan of K8 for C = c chains of an n x l panel at K = k
+    pops and A = a alleles (any ploidy: a copy's row is one of the tile's
+    rows), as ``csrc/zq_sample.cu`` takes it.  Pure arithmetic: the CPU
+    tests check that it fits the card for every K and A the wrapper takes;
+    the card checks its shared memory against the kernel's
+    ``zq_sample_launch_dyn_smem``."""
+    bucket = zq_bucket(k)
+    least = max(1, -(-n // GRID_MAX))            # rows the grid needs
+    if bucket:
+        tiles = -(-l // TILE)
+        rows = next((r for r in ROWS
+                     if c * tiles * -(-n // r) >= BLOCKS_TARGET), ROWS[-1])
+        # the strip's rows share the block's memory with the tile's P
+        room = (SMEM_MAX - _bucket_smem(k, a, 0)) // (8 * k)
+        rows = min(max(rows, least), room)
+        if rows >= least:
+            strips = max(1, -(-n // rows))
+            rows = max(1, -(-n // strips))            # balanced strips
+            return ZqPlan(bucket, rows, (tiles, strips, c),
+                          _bucket_smem(k, a, rows))
+    return ZqPlan(0, 0, (-(-l // (THREADS * 4)), -(-n // GENERIC_ROWS), c),
+                  4 * 2 * GENERIC_ROWS * k)
 
 
 def _shapes(q, freq, geno, site_valid, n_pops, u):
@@ -60,6 +123,8 @@ def _shapes(q, freq, geno, site_valid, n_pops, u):
                          "site grid")
     if not 1 <= k <= MAX_POPS:
         raise ValueError(f"n_pops must be in [1, {MAX_POPS}], got {k}")
+    if not 1 <= a <= MAX_ALLELES:
+        raise ValueError(f"freq: A must be in [1, {MAX_ALLELES}], got {a}")
     if u is not None and tuple(u.shape) != (c, n, s):
         raise ValueError(f"u: expected {(c, n, s)}, got {tuple(u.shape)}")
     return c, n, s, l, k, a
@@ -138,10 +203,15 @@ def zq_sample_counts(keys, step: int, q: torch.Tensor, freq: torch.Tensor,
         chk(u, "u", torch.float32, (c, n, s))
     z = torch.empty((c, n, s), dtype=torch.int8, device=freq.device)
     qqnum = torch.empty((c, n, k), dtype=torch.float32, device=freq.device)
+    plan = zq_plan(c, n, l, k, a)
+    if max(plan.grid[1:]) > GRID_MAX:
+        raise ValueError(f"zq_sample_counts: grid {plan.grid} beyond the "
+                         f"card's {GRID_MAX} in y or z")
+    # the generic body gathers from a pop-minor copy, [C, L, A, K]
+    src = freq if plan.bucket else freq.permute(0, 2, 3, 1).contiguous()
     p = _build.ptr
-    # the layout the kernel gathers from: [C, L, A, K]
-    freq_t = freq.permute(0, 2, 3, 1).contiguous()
-    _build.launch("zq_sample_counts", "zq_sample_launch", p(q), p(freq_t),
+    _build.launch("zq_sample_counts", "zq_sample_launch", p(q), p(src),
                   p(geno), p(site_valid), p(u), p(z), p(qqnum), c, n, l, k, a,
-                  s // l, geno_cs, keys.k0, keys.k1, p(keys.chain_key), step)
+                  s // l, plan.rows, geno_cs, keys.k0, keys.k1,
+                  p(keys.chain_key), step)
     return z, qqnum

@@ -305,6 +305,116 @@ def test_geno_move_plain_version_matches_jax(autopoly, n_alleles):
         pkeys, 4, *args[2:], autopoly=autopoly))
 
 
+def _reference_weights(table, z, dist, q, freq, freq2, cand_sel, cand_cls,
+                       cand_mult, autopoly):
+    """f32[C, n_cand, N, L]: the candidate weights of
+    ``geno_choice_pass_reference`` as its loop forms them (5 logs a mixed
+    candidate)."""
+    c = z.shape[0]
+    n_cand, n, l = cand_sel.shape
+    zc = tg.split4(z)
+    mix1 = tg.mix_per_allele(freq, q)
+    mix2 = mix1 if autopoly else tg.mix_per_allele(freq2, q)
+    dist4 = torch.stack(tg.split4(dist))
+    out = []
+    for cc in range(n_cand):
+        w_mix = torch.log(cand_mult[cc].to(torch.float32))
+        sel8 = cand_sel[cc].to(torch.int64)
+        for m in range(4):
+            av = dist4.gather(0, ((sel8 >> (2 * m)) & 3)[None])
+            mix = mix1 if (autopoly or m < 2) else mix2
+            w_mix = w_mix + tg._slog(
+                mix.gather(1, av[None].expand(c, 1, n, l))[:, 0])
+        out.append(torch.where(tg.same_z(zc),
+                               tg.table_at(table, zc[0], cand_cls[cc]),
+                               w_mix))
+    return torch.stack(out, dim=1)
+
+
+def _hoisted_weights(table, z, dist, q, freq, freq2, cand_sel, cand_cls,
+                     cand_mult, autopoly):
+    """The same weights as the CUDA kernel forms them: the log of each of
+    the site's (at most 4) distinct mixtures per system taken once, then a
+    candidate's weight log mult + those logs gathered by its selectors, in
+    slot order."""
+    c = z.shape[0]
+    n_cand, n, l = cand_sel.shape
+    zc = tg.split4(z)
+    dist4 = torch.stack(tg.split4(dist))
+    logs = []
+    for f in ((freq,) if autopoly else (freq, freq2)):
+        mix = tg.mix_per_allele(f, q)
+        logs.append(torch.stack(
+            [tg._slog(mix.gather(1, dist4[j][None, None].expand(c, 1, n, l))
+                      [:, 0]) for j in range(4)], dim=1))
+    log_int = torch.log(torch.arange(256, dtype=torch.float32))
+    out = []
+    for cc in range(n_cand):
+        w = log_int[cand_mult[cc].to(torch.int64)]
+        sel8 = cand_sel[cc].to(torch.int64)
+        for m in range(4):
+            lg = logs[0 if (autopoly or m < 2) else 1]
+            j = ((sel8 >> (2 * m)) & 3)[None, None].expand(c, 1, n, l)
+            w = w + lg.gather(1, j)[:, 0]
+        out.append(torch.where(tg.same_z(zc),
+                               tg.table_at(table, zc[0], cand_cls[cc]), w))
+    return torch.stack(out, dim=1)
+
+
+@pytest.mark.parametrize("autopoly,n_alleles", [(True, 2), (False, 2),
+                                                (True, 4), (False, 4)])
+def test_hoisted_geno_weights_are_the_plain_versions(autopoly, n_alleles):
+    """K5's kernel takes the log of each distinct mixture once per site and
+    chain and a log multiplicity from a table of log(i): its weights equal,
+    bit for bit, those the plain version forms per candidate, and their
+    Gumbel-argmax under injected noise is the plain version's choice."""
+    _, data = _panel(autopoly, n_alleles, n=14, l=23, missing=0.15,
+                     seed=20 + n_alleles)
+    spec = ModelSpec(mode=2, ploid=4, n_pops=3, autopoly=autopoly)
+    t = te.build_tables(spec, data)
+    assert set(data.n_distinct[data.site_valid].tolist()) == (
+        set(range(1, n_alleles + 1)))
+    c, k = 3, 3
+    rng = np.random.default_rng(40 + n_alleles)
+    n, l = data.n_distinct.shape
+    av = data.allele_valid.numpy()
+    freq, freq2 = (torch.from_numpy((rng.dirichlet(
+        np.ones(n_alleles), size=(c, k, l)) * av).astype(np.float32))
+        for _ in range(2))
+    q = torch.from_numpy(rng.dirichlet(np.ones(k), size=(c, n))
+                         .astype(np.float32))
+    z = rng.integers(0, k, size=(c, n, 4 * l)).astype(np.int8)
+    z[:, : n // 2] = np.tile(z[:, : n // 2, :l], (1, 1, 4))
+    z = torch.from_numpy(z)
+    rates = torch.from_numpy(np.array([[0.1, 0.5, 0.9]] * c, np.float32))
+    table = te.class_table(t, spec, freq, freq2, rates)
+    args = (table, z, t.dist8, q, freq, freq2, t.cand_sel, t.cand_cls,
+            t.cand_mult, autopoly)
+    want = _reference_weights(*args)
+    got = _hoisted_weights(*args)
+    live = (torch.arange(t.n_cand)[None, :, None, None]
+            < t.cand_nc.long()[None, None])
+    assert torch.equal(torch.where(live.expand_as(got), got, 0.0),
+                       torch.where(live.expand_as(want), want, 0.0))
+    for seed in range(3):
+        g = torch.from_numpy(-np.log(-np.log(np.random.default_rng(seed)
+                                             .uniform(1e-7, 1 - 1e-7, (
+                                                 c, t.n_cand, n, l))))
+                             .astype(np.float32))
+        v = torch.where(live, got + g, torch.full_like(got, -1e30))
+        best = torch.full((c, n, l), -1e30)
+        choice = torch.zeros((c, n, l), dtype=torch.int64)
+        for cc in range(t.n_cand):
+            take = v[:, cc] > best
+            best = torch.where(take, v[:, cc], best)
+            choice = torch.where(take, torch.full_like(choice, cc), choice)
+        ref = tg.geno_choice_pass_reference(
+            None, 0, table, z, t.dist8, t.cand_nc, q, freq, freq2,
+            t.cand_sel, t.cand_cls, t.cand_mult, autopoly=autopoly,
+            gumbel=g)
+        assert torch.equal(choice.to(torch.int8), ref)
+
+
 @pytest.mark.parametrize("autopoly", [True, False])
 def test_s_delta_plain_version_matches_jax(autopoly):
     """K6's plain version against the JAX S update's XLA log-ratio

@@ -130,3 +130,75 @@ def test_wrapper_has_no_cpu_path_for_cuda_tensors():
     assert "if not freq.is_cuda:" in src
     assert src.count("zq_sample_counts_reference") == 1
     assert "except" not in src
+
+
+@pytest.mark.parametrize("ploid", [1, 2, 3, 4])
+@pytest.mark.parametrize("k", [3, 9, 17])
+def test_zero_pops_up_to_a_bucket_change_nothing(k, ploid):
+    """The kernel's pop buckets (K <= 16, K <= 32) draw from q and P padded
+    with pops of zero weight: padding leaves the plain version's z and
+    counts bitwise as they were, with Philox uniforms and injected ones,
+    missing codes (-1 and A) included; the padded pops are never drawn."""
+    n, l, a = 9, 13, 4
+    geno, valid, _, freq, q, u = _inputs(n, l, k, a, ploid, seed=k + ploid)
+    geno = geno.copy()
+    geno[0, :2], geno[1, -2:] = -1, a
+    keys = px.make_keys(11, freq.shape[0], "cpu")
+    for bucket in (b for b in (8, 16, 32) if b >= k):
+        qp = np.concatenate([q, np.zeros(q.shape[:2] + (bucket - k,),
+                                         np.float32)], axis=2)
+        fp = np.concatenate([freq, np.zeros((freq.shape[0], bucket - k)
+                                            + freq.shape[2:], np.float32)],
+                            axis=1)
+        for inj in (None, _t(u)):
+            z, qq = zq.zq_sample_counts(keys, 2, _t(q), _t(freq), _t(geno),
+                                        _t(valid), n_pops=k, u=inj)
+            zp, qqp = zq.zq_sample_counts(keys, 2, _t(qp), _t(fp), _t(geno),
+                                          _t(valid), n_pops=bucket, u=inj)
+            assert torch.equal(z, zp)
+            assert torch.equal(qq, qqp[:, :, :k])
+            assert not qqp[:, :, k:].any()
+
+
+PLAN_SIZES = [(4, 1000, 10_000), (40, 1000, 10_000), (1, 5, 7),
+              (3, 600_000, 130), (2, 70, 2_000_000)]
+
+
+def test_launch_plan_fits_the_card():
+    """For every K and A the wrapper takes (1..127 each; any ploidy, which
+    the plan does not read: a copy is a row of the tile) and panels from a
+    handful of individuals to 600 000, the plan asks a block for at most
+    the card's 227 KB of shared memory and the grid for at most 65 535 in
+    y and z; K <= 8 runs its own body, 9..16 and 17..32 the padded buckets
+    where the tile's P fits, the rest the generic body."""
+    for c, n, l in PLAN_SIZES:
+        for k in range(1, zq.MAX_POPS + 1):
+            for a in range(1, zq.MAX_ALLELES + 1):
+                plan = zq.zq_plan(c, n, l, k, a)
+                assert plan.dyn_smem <= zq.SMEM_MAX
+                assert max(plan.grid[1:]) <= zq.GRID_MAX
+                assert plan.grid[0] * (zq.TILE if plan.bucket
+                                       else 4 * zq.THREADS) >= l
+                assert plan.grid[1] * (plan.rows or zq.GENERIC_ROWS) >= n
+                if plan.bucket:
+                    assert plan.bucket == zq.zq_bucket(k) >= k
+                    assert plan.dyn_smem == 4 * (k * zq.TILE * (a | 1)
+                                                 + 2 * plan.rows * k)
+                else:
+                    # a strip of the fewest rows the grid allows leaves no
+                    # room beside a tile of P
+                    least = max(1, -(-n // zq.GRID_MAX))
+                    assert k > 32 or 4 * k * (zq.TILE * (a | 1)
+                                              + 2 * least) > zq.SMEM_MAX
+    # the benchmark shapes take the buckets, at most 48 KB and at least 4
+    # blocks an SM
+    for c, n, l, k, a in [(4, 1000, 2000, 5, 16), (4, 1000, 10_000, 3, 2),
+                          (4, 1000, 2000, 3, 4)]:
+        plan = zq.zq_plan(c, n, l, k, a)
+        assert plan.bucket == k and plan.dyn_smem <= 48 * 1024
+        assert plan.grid[0] * plan.grid[1] * plan.grid[2] >= 528
+    with pytest.raises(ValueError, match="A must be"):
+        zq.zq_sample_counts(px.make_keys(0, 1, "cpu"), 0,
+                            torch.ones(1, 2, 1), torch.ones(1, 1, 3, 128),
+                            torch.zeros(2, 3, dtype=torch.int8),
+                            torch.ones(2, 3, dtype=torch.bool), n_pops=1)
