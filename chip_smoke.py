@@ -37,15 +37,18 @@ last line is ``{"ok": true, "device": {...}}``.
 tetra, kselect (development aid); the device and Philox phases always run.
 ``--parent-csrc DIR`` (another tree's ``instruct_tpu_torch/csrc``, e.g. a
 ``git archive`` of the parent commit unpacked under ``_parent/``) builds
-that tree's site pass, K5 and K8 beside this one's and times them on every
-timed entry point of the site pass and on the K5 and K8 entries
-(``parent_ms`` in the kernels phase line; null without it).
+that tree's site pass, K3, K4, K5 and K8 beside this one's and times them on
+every timed entry point of the site pass, on the K3 to K8 entries and on
+K3's and K4's shapes of every path (``parent_ms`` in the kernels phase line
+and the ``k3_shapes`` / ``k4_shapes`` lines; null without it), and holds
+K3 bitwise to the parent's body there.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import ctypes
 import json
 import pathlib
 import re
@@ -77,6 +80,7 @@ from instruct_tpu_torch.kernels import tetra_geno as tg
 from instruct_tpu_torch.mcmc.state import init_state
 from instruct_tpu_torch.mcmc.step import build_step_parts, use_fused
 from instruct_tpu_torch.tetra import engine as te
+from instruct_tpu_torch.tools import dirichlet_counts_variants as dcv
 from instruct_tpu_torch.tools import geno_zq_variants as gzv
 from instruct_tpu_torch.tools import site_pass_variants as spv
 
@@ -223,7 +227,23 @@ def phase_build() -> None:
                 r["spills"] = r["spills"] or spill
             prev = line
     emit("build", seconds=round(seconds, 2), nvcc=_build.find_nvcc(),
-         flags=" ".join(_build.NVCC_FLAGS), ptxas=regs, ptxas_wide=wide)
+         flags=" ".join(_build.NVCC_FLAGS), ptxas=regs, ptxas_wide=wide,
+         ptxas_k3_k4=k3_k4_frames(log.read_text() if log.exists() else ""))
+
+
+def k3_k4_frames(log: str) -> dict:
+    """Per instantiation of K3's and K4's kernels: registers, stack frame
+    and spills as ``ptxas -v`` printed them (a stack frame is local memory:
+    an array indexed at run time, or a library routine's slow path)."""
+    lines, out = log.splitlines(), {}
+    for i, line in enumerate(lines):
+        m = re.search(r"Function properties for (\S*(?:dirichlet_kernel|"
+                      r"allele_counts)\S*)", line)
+        if m and i + 2 < len(lines):
+            regs = re.search(r"Used (\d+) registers", lines[i + 2])
+            out[m.group(1)] = (f"{regs.group(1) if regs else '?'} "
+                               f"registers, {lines[i + 1].strip()}")
+    return out
 
 
 def phase_philox() -> dict:
@@ -296,9 +316,9 @@ def kernel_inputs(panel, k: int = N_POPS, c: int = N_CHAINS,
 
 
 def check_allele_counts(x):
-    """``allele_counts`` at the inputs' shape: the private-table kernel up
-    to K*A = 64 (on the packed plane and on the allele codes), the
-    direct-add kernel beyond."""
+    """``allele_counts`` at the inputs' shape: on the packed plane (the
+    packed body) and on the allele codes (the codes body to K*A = 8, the
+    table beyond)."""
     d = x["data"]
     c, n, k = x["q"].shape
     l, a = d.n_loci, d.max_alleles
@@ -325,7 +345,7 @@ def check_allele_counts(x):
             raise AssertionError(f"{name}: total != 2 * valid sites")
     planes = n * l if fs.is_packed(d) and not wide else n * 3 * l
     n_bytes = c * n * 2 * l + planes + c * k * l * a * 4
-    library_ms = None if wide else allele_counts_library_ms(x, want)
+    library = allele_counts_library_ms(x, want)
     n_ops = c * n * 2 * l * 4
     b_ms, b_by = bound(n_bytes, n_ops)
     return dict(name=name, route="cuda",
@@ -334,16 +354,22 @@ def check_allele_counts(x):
                 max_abs_err=max_err(got, want), ms=time_ms(run),
                 plain_ms=time_ms(plain, reps=5, warm=1, inner=1),
                 bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms, bytes=n_bytes,
+                bound_by=b_by, library_ms=min(library.values()),
+                library=library, bytes=n_bytes,
                 ops=n_ops, shape=dict(C=c, N=n, L=l, K=k, A=a),
+                plan=k4_plan_agrees(name, c, n, l, k, a,
+                                    d.bits2 is not None),
+                parent_ms=parent_k3k4(run, want)[0],
                 compared="counts exactly equal")
 
 
-def allele_counts_library_ms(x, want) -> float:
-    """The time of one PyTorch call that computes ``allele_counts``: an
-    accumulating ``index_put_`` of the valid copies into zeroed
-    [C, K, L, A] cells, on flat cell indices built beforehand (not timed).
-    Raises unless it gives the kernel's counts."""
+def allele_counts_library_ms(x, want) -> dict:
+    """The times of two PyTorch calls that compute ``allele_counts``, on
+    flat cell indices built beforehand (not timed): an accumulating
+    ``index_put_`` of every copy's weight (1 valid, 0 not) into zeroed
+    [C, K, L, A] cells, and ``torch.bincount`` of the valid copies' cells
+    with its cast to float32.  Raises unless each gives the kernel's
+    counts."""
     d, z = x["data"], x["z"]
     c, n, k = x["q"].shape
     l, a = d.n_loci, d.max_alleles
@@ -353,14 +379,128 @@ def allele_counts_library_ms(x, want) -> float:
              + torch.arange(l, device="cuda")) * a + geno)
     ones = d.site_valid.reshape(1, n, 1, l).expand(c, n, 2, l).float()
     cell, ones = cell.reshape(-1), ones.reshape(-1).contiguous()
-    run = lambda: torch.zeros(c * k * l * a, device="cuda").index_put_(
-        (cell,), ones, accumulate=True)
-    if not torch.equal(run().reshape(want.shape), want):
-        raise AssertionError("index_put_ counts differ from allele_counts")
-    ms = time_ms(run, reps=5, warm=1, inner=1)
-    del cell, ones
+    flat = cell[ones > 0]
+    size = c * k * l * a
+    runs = {"index_put_": lambda: torch.zeros(size, device="cuda")
+            .index_put_((cell,), ones, accumulate=True),
+            "bincount": lambda: torch.bincount(flat, minlength=size)
+            .to(torch.float32)}
+    out = {}
+    for name, run in runs.items():
+        if not torch.equal(run().reshape(want.shape), want):
+            raise AssertionError(f"{name} counts differ from allele_counts")
+        out[name] = time_ms(run, reps=5, warm=1, inner=1)
+    del cell, ones, flat
     torch.cuda.empty_cache()
-    return ms
+    return out
+
+
+def k4_plan_agrees(tag, c, n, l, k, a, packed=False) -> dict:
+    """K4's launch plan in Python (``fused_step.counts_plan``) against the
+    one the kernel's launch function makes."""
+    plan = fs.counts_plan(c, n, l, k, a, packed)
+    out = (ctypes.c_int * 5)()
+    rc = _build.library().allele_counts_launch_plan(c, n, l, k, a,
+                                                    int(packed), out)
+    got = (out[0], out[1], out[2], out[3], out[4])
+    want = (plan.grid[0], plan.grid[1], plan.rows, plan.pops_per_window,
+            plan.dyn_smem)
+    if rc or got != want:
+        raise AssertionError(f"{tag}: the kernel's plan {got} (rc {rc}), "
+                             f"the wrapper's {want}")
+    return plan._asdict()
+
+
+def k3_plan_agrees(tag, c, g, j, m) -> dict:
+    """K3's launch plan in Python (``dirichlet.dirichlet_plan``) against the
+    shared memory and threads of the kernel's launch function."""
+    plan = dk.dirichlet_plan(c, g, j, m)
+    out = (ctypes.c_int * 2)()
+    rc = _build.library().dirichlet_launch_plan(c, g, j, m, 3, out)
+    if rc or (out[0], out[1]) != (plan.dyn_smem, plan.threads):
+        raise AssertionError(f"{tag}: the kernel's shared memory and "
+                             f"threads {(out[0], out[1])} (rc {rc}), the "
+                             f"plan's {(plan.dyn_smem, plan.threads)}")
+    return plan._asdict()
+
+
+def k3_ops(cells: int) -> float:
+    """K3's least operations: a quarter of a Philox block a uniform (one
+    block serves four words), 16 transcendentals and ~40 float operations a
+    cell."""
+    return cells * (dk.n_test_draws() * OPS_PHILOX / 4 + 16 * OPS_TRANSC
+                    + 40)
+
+
+def check_k3_shapes() -> dict:
+    """K3 at every shape the sweeps give it (``dcv.K3_SHAPES``: the main
+    path's P and Q, A = 8 P, the K grid's P and Q at C = 40, K = 10, the
+    allotetraploid P2): against the plain version, a rerun bitwise, the
+    launch plan, and bitwise against the parent's body (``--parent-csrc``);
+    the device time of each (profiler; the parent's too), its time by CUDA
+    events (which read the host's enqueue where a launch is shorter), and
+    the bound."""
+    out = {}
+    for shape, (kind, dims, _) in dcv.K3_SHAPES.items():
+        run, plain, cells = dcv.k3_inputs(shape)
+        got = run()
+        margins = []
+        want = plain(margins)
+        n_off = dirichlet_agrees(f"K3 {shape}", got, want, margins[0], -1)
+        del want, margins
+        if not torch.equal(got, run()):
+            raise AssertionError(f"K3 {shape}: two launches are not "
+                                 "bitwise equal")
+        geom = ((dims[0], dims[1], dims[3], dims[2]) if kind == "P"
+                else (dims[0], 1, dims[2], dims[1]))
+        plan = k3_plan_agrees(f"K3 {shape}", *geom)
+        p_ms, _ = parent_k3k4(run, got, f"K3 {shape}", "dirichlet_kernel")
+        valid = dims[2] * dims[3] if kind == "P" else 0
+        b_ms, b_by = bound(cells * 8 + valid, k3_ops(cells))
+        out[shape] = dict(device_ms=profiled_ms(run, "dirichlet_kernel"),
+                          parent_device_ms=p_ms, ms=time_ms(run),
+                          bitwise_parent=p_ms is not None,
+                          knife_edge_cells=n_off, bound_ms=b_ms,
+                          bound_by=b_by, cells=cells, plan=plan)
+        torch.cuda.empty_cache()
+    dcv.k3_inputs.cache_clear()          # no input outlives the phase
+    torch.cuda.empty_cache()
+    emit("k3_shapes", shapes=out)
+    return out
+
+
+def check_k4_shapes() -> dict:
+    """K4 at every shape the sweeps give it (``dcv.K4_SHAPES``: the
+    headline's packed plane, A = 8, the wide panel, the tetraploid view of
+    per-chain planes, auto and allo): exactly the plain version's counts, a
+    rerun bitwise, the launch plan, its device time and the parent's
+    (profiler), its time by CUDA events."""
+    out = {}
+    for shape, (c, n, l, k, a, panel) in dcv.K4_SHAPES.items():
+        run = dcv.k4_run(shape)
+        got = run()
+        if not torch.equal(got, dcv.k4_plain(shape)):
+            raise AssertionError(f"K4 {shape}: counts differ from the "
+                                 "plain version")
+        if not torch.equal(got, run()):
+            raise AssertionError(f"K4 {shape}: two launches differ")
+        z, geno, _, _ = dcv.k4_inputs(shape)
+        l2 = z.shape[2] // 2
+        planes = n * l2 if panel == "packed" else geno.numel() + n * l2
+        n_bytes = z.numel() + planes + got.numel() * 4
+        b_ms, b_by = bound(n_bytes, z.numel() * 4)
+        out[shape] = dict(device_ms=profiled_ms(run, "allele_counts"),
+                          parent_device_ms=parent_k3k4(
+                              run, got, f"K4 {shape}", "allele_counts")[0],
+                          ms=time_ms(run),
+                          bound_ms=b_ms, bound_by=b_by,
+                          plan=k4_plan_agrees(f"K4 {shape}", c, n, l2, k, a,
+                                              panel == "packed"))
+        torch.cuda.empty_cache()
+    dcv.k4_inputs.cache_clear()          # no input outlives the phase
+    torch.cuda.empty_cache()
+    emit("k4_shapes", shapes=out)
+    return out
 
 
 def zq_plan_agrees(tag, q, freq) -> dict:
@@ -646,8 +786,8 @@ PARENT: dict = {}
 
 def start_parent_build(csrc) -> None:
     """Build the site-pass sources of ``csrc`` (another tree's
-    ``instruct_tpu_torch/csrc``) and its K5 and K8 sources in two threads,
-    into :data:`PARENT`."""
+    ``instruct_tpu_torch/csrc``), its K5 and K8 sources and its K3 and K4
+    sources in three threads, into :data:`PARENT`."""
     work_dir = _build.BUILD / "parent"
     shutil.rmtree(work_dir, ignore_errors=True)
 
@@ -659,7 +799,9 @@ def start_parent_build(csrc) -> None:
     jobs = {"lib": lambda: spv.build_site_library(
                 work_dir, "parent", spv.source_texts(pathlib.Path(csrc))),
             "lib_geno_zq": lambda: gzv.build_library(
-                work_dir, "parent_geno_zq", pathlib.Path(csrc))}
+                work_dir, "parent_geno_zq", pathlib.Path(csrc)),
+            "lib_k3k4": lambda: dcv.build_library(
+                work_dir, "parent_k3k4", pathlib.Path(csrc))}
     PARENT["threads"] = [threading.Thread(target=work, args=(key, fn))
                          for key, fn in jobs.items()]
     for t in PARENT["threads"]:
@@ -683,6 +825,24 @@ def parent_kernel_ms(kernel, args, kw=None):
         return None
     lib = _parent_lib("lib_geno_zq")
     return time_ms(lambda: gzv.parent_call(lib, kernel, args, kw or {}))
+
+
+def parent_k3k4(run, want=None, tag=None, kernel=None):
+    """The parent's K3 or K4 (``--parent-csrc``) on the current wrapper call
+    ``run``: (its time, its output), or (None, None) without a parent; with
+    ``kernel`` (a name the kernel's holds), the time is the profiler's
+    device time.  With ``want``, raises unless the parent's output is
+    bitwise ``want`` (K3: the same words, operations and order; K4: exact
+    counts)."""
+    if "threads" not in PARENT:
+        return None, None
+    with dcv.library(_parent_lib("lib_k3k4")):
+        out = run()
+        ms = time_ms(run) if kernel is None else profiled_ms(run, kernel)
+    if want is not None and not torch.equal(out, want):
+        raise AssertionError(f"{tag}: not bitwise equal to the parent's "
+                             "body")
+    return ms, out
 
 
 def parent_ms(name, x, structure):
@@ -945,9 +1105,11 @@ def _check_dirichlet(name, run, plain_with_margins, conc_numel, valid_numel):
         raise AssertionError(f"{name}: two launches from one seed are not "
                              "bitwise equal")
     n_bytes = conc_numel * 8 + valid_numel
-    n_ops = conc_numel * (dk.n_test_draws() * OPS_PHILOX + 16 * OPS_TRANSC
-                          + 40)
+    n_ops = k3_ops(conc_numel)
     b_ms, b_by = bound(n_bytes, n_ops)
+    # the bound before PR 9's op model: a whole Philox block a uniform
+    first_ms, _ = bound(n_bytes, n_ops + conc_numel * dk.n_test_draws()
+                        * OPS_PHILOX * 3 / 4)
     keep = torch.isclose(got, want, rtol=1e-4, atol=1e-6)
     return dict(name=name, route="cuda",
                 source="instruct_tpu_torch/csrc/dirichlet.cu",
@@ -957,9 +1119,12 @@ def _check_dirichlet(name, run, plain_with_margins, conc_numel, valid_numel):
                 plain_ms=time_ms(lambda: plain_with_margins(None), reps=5,
                                  warm=1, inner=1),
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                bound_ms_block_a_uniform=first_ms,
                 bytes=n_bytes, ops=n_ops,
+                parent_ms=parent_k3k4(run, got, name)[0],
                 compared="rtol 1e-4 atol 1e-6 on every cell not on an "
-                         "accept knife-edge")
+                         "accept knife-edge; bitwise the parent's body "
+                         "with --parent-csrc")
 
 
 def check_dirichlet(x):
@@ -1168,6 +1333,125 @@ def phase_edge_shapes() -> None:
                    for c, n, l, k, a, p in zq_cases], all_match=True)
 
 
+def k3_edge_shapes() -> list:
+    """K3 against its plain version (and bitwise against the parent's body,
+    ``--parent-csrc``) where its schedule has edges: columns M and planes
+    R*M not multiples of 4 or 32 (Philox blocks straddling tasks, rows and
+    planes), J = 1, 2, 3 and 50 cells a group, C = 1 and 40 chains, a masked
+    and a ragged P, Philox and injected uniforms; each shape's plan against
+    the kernel's."""
+    g = torch.Generator("cuda").manual_seed(13)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device="cuda")
+
+    cases = []
+    for c, groups, j, m in [(1, 3, 1, 37), (40, 2, 2, 33), (2, 1, 50, 7),
+                            (1, 5, 2, 1), (3, 2, 3, 65), (40, 1, 1, 31),
+                            (1, 2, 50, 64), (2, 7, 2, 1030)]:
+        tag = f"K3 edge rows C={c} groups={groups} J={j} M={m}"
+        keys = px.make_keys(81, c, "cuda", chain_key=range(9, 9 + c))
+        rows = rand(c, groups * j, m) * 30.0 + 0.05
+        valid = rand(groups * j, m) > 0.1
+        draws = (rand(c, dk.n_test_draws(), groups * j, m) * (1 - 2e-4)
+                 + 1e-4)
+        for inj in (None, draws):
+            kw = dict(rows_per_group=j, test_draws=inj)
+            run = lambda: dk.dirichlet_rows(keys, 3, px.STREAM_P, rows,
+                                            valid, **kw)
+            got = run()
+            margins = []
+            want = dk.dirichlet_rows_reference(keys, 3, px.STREAM_P, rows,
+                                               valid, margins=margins, **kw)
+            shape = (c, groups, j, m)
+            dirichlet_agrees(tag, got.reshape(shape), want.reshape(shape),
+                             margins[0].reshape(shape), 2)
+            if bool((got[:, ~valid] != 0).any()):
+                raise AssertionError(f"{tag}: masked cells are not zero")
+            parent_k3k4(run, got, tag)
+        k3_plan_agrees(tag, c, groups, j, m)
+        cases.append(dict(C=c, groups=groups, J=j, M=m))
+    for c, n, k in [(1, 37, 50), (40, 33, 50), (40, 1, 3), (1, 1025, 10)]:
+        tag = f"K3 edge Q C={c} N={n} K={k}"
+        keys = px.make_keys(82, c, "cuda", chain_key=range(2, 2 + c))
+        conc = (rand(c, n, k) * 5.0 + 0.05).contiguous()
+        draws = (rand(c, dk.n_test_draws(), k, n) * (1 - 2e-4) + 1e-4)
+        for inj in (None, draws):
+            run = lambda: dk.dirichlet_nk(keys, 4, conc, test_draws=inj)
+            got = run()
+            mg = []
+            want = dk.dirichlet_nk_reference(keys, 4, conc, test_draws=inj,
+                                             margins=mg)
+            dirichlet_agrees(tag, got, want, mg[0], -1)
+            parent_k3k4(run, got, tag)
+        k3_plan_agrees(tag, c, 1, k, n)
+        cases.append(dict(C=c, N=n, K=k))
+    for c, k, l, a in [(1, 3, 33, 3), (40, 2, 7, 5), (2, 1, 1, 127)]:
+        tag = f"K3 edge P C={c} K={k} L={l} A={a}"
+        keys = px.make_keys(83, c, "cuda")
+        counts = (rand(c, k, l, a) * 40.0 + 1.0).contiguous()
+        av = rand(l, a) > 0.2
+        av[:, 0] = True
+        run = lambda: dk.dirichlet_kla(keys, 6, counts, av)
+        got = run()
+        mg = []
+        want = dk.dirichlet_kla_reference(keys, 6, counts, av, margins=mg)
+        dirichlet_agrees(tag, got, want, mg[0], -1)
+        parent_k3k4(run, got, tag)
+        k3_plan_agrees(tag, c, k, a, l)
+        cases.append(dict(C=c, K=k, L=l, A=a))
+    return cases
+
+
+def k4_edge_shapes() -> list:
+    """K4 exactly against its plain version at every edge of its bodies:
+    the packed body's pop buckets (K = 4/5, 8/9, 16/17, 32 at A = 2; 33
+    leaves it), the codes body's 8 cells (8/9), the table's windows (one
+    pop of 127 alleles), on the packed plane and on the allele codes, with
+    shared and per-chain planes, N not a multiple of a strip nor of the
+    warps' rows, L not a multiple of 4 (byte loads) or of a tile, corrupted
+    z and missing codes dropped; each plan against the kernel's."""
+    g = torch.Generator("cuda").manual_seed(14)
+    cases = []
+    for k, a in [(4, 2), (5, 2), (8, 2), (9, 2), (16, 2), (17, 2), (32, 2),
+                 (33, 2), (8, 1), (9, 1), (3, 3), (4, 8), (11, 3), (16, 4),
+                 (13, 5), (9, 127)]:
+        for c, n, l in [(2, 259, 131), (3, 1013, 132), (1, 5, 3)]:
+            tag = f"K4 edge C={c} N={n} L={l} K={k} A={a}"
+            kw = dict(n_pops=k, max_alleles=a)
+            z = torch.randint(-1, k + 1, (c, n, 2 * l), generator=g,
+                              device="cuda", dtype=torch.int8)
+            valid = torch.rand((n, l), generator=g, device="cuda") > 0.1
+            geno = torch.randint(-1, a, (n, 2 * l), generator=g,
+                                 device="cuda", dtype=torch.int8)
+            per_chain = torch.randint(0, a, (c, n, 2 * l), generator=g,
+                                      device="cuda", dtype=torch.int8)
+            for gg in (geno, per_chain):
+                if not torch.equal(
+                        fs.allele_counts(z, gg, valid, **kw),
+                        fs.allele_counts_reference(z, gg, valid, **kw)):
+                    raise AssertionError(f"{tag}: counts differ (geno "
+                                         f"{tuple(gg.shape)})")
+            if a == 2 and k * a <= 64:
+                # the packed plane, shared or one a chain (the valid bit
+                # shared: site_valid is), and its allele codes
+                vbit = valid.to(torch.int8) << 2
+                for planes in ((n, l), (c, n, l)):
+                    bits2 = torch.randint(0, 4, planes, generator=g,
+                                          device="cuda",
+                                          dtype=torch.int8) | vbit
+                    gp = torch.cat([bits2 & 1, (bits2 >> 1) & 1], dim=-1)
+                    got = fs.allele_counts(z, gp, valid, **kw, bits2=bits2)
+                    if not torch.equal(got, fs.allele_counts_reference(
+                            z, gp, valid, **kw)):
+                        raise AssertionError(f"{tag}: counts on the packed "
+                                             f"plane {planes} differ")
+                k4_plan_agrees(tag, c, n, l, k, a, packed=True)
+            k4_plan_agrees(tag, c, n, l, k, a)
+            cases.append(dict(C=c, N=n, L=l, K=k, A=a))
+    return cases
+
+
 def check_wide_site_entries(panel, panel_a4, variants) -> list:
     """The site pass's run-time-K body (8 < K <= 32, K*A <= 64) against its
     plain version, half of each chain's rows with three trailing zero-q
@@ -1257,6 +1541,11 @@ def phase_kernels(panel, panel_a, panel_a4, panel_w, philox_entry,
     torch.cuda.empty_cache()
     main += check_wide_site_entries(panel, panel_a4, variants)
     phase_edge_shapes()
+    emit("k3_k4_edge_shapes", k3=k3_edge_shapes(), k4=k4_edge_shapes(),
+         parent_bitwise="threads" in PARENT, all_match=True)
+    torch.cuda.empty_cache()
+    check_k3_shapes()
+    check_k4_shapes()
     torch.cuda.empty_cache()
     main += check_tetra_kernels(tetra_panels)
     variants += tetra_variants
@@ -1389,9 +1678,9 @@ def sweep_profile(data, spec, n_steps: int = 100, n_prof: int = 30,
     (summed by kernel name).  The sweeps a trace holds are counted by an
     anchor, the Dirichlet kernel: every sweep launches it a fixed number of
     times, and the wrappers' counters say how many launches the window
-    made.  A window whose trace holds fewer Dirichlet events than that lost
-    events: it is reported and another is profiled, up to
-    ``PROFILE_WINDOWS``.  Every per-sweep number is over the sweeps the
+    made.  A window whose trace holds fewer Dirichlet events than that, or
+    fewer ``allele_counts`` kernels than its wrappers launched, lost events:
+    it is reported and another is profiled, up to ``PROFILE_WINDOWS``.  Every per-sweep number is over the sweeps the
     trace holds.  Device numbers are ``None`` where the profiler shows no
     device time.  ``active`` [C, K] profiles the padded K grid's C
     replicas."""
@@ -1427,12 +1716,17 @@ def sweep_profile(data, spec, n_steps: int = 100, n_prof: int = 30,
             return out
         anchor_host = host["dirichlet_kla"] + host["dirichlet_nk"]
         anchor = sum(r[2] for r in rows if "dirichlet_kernel" in r[0])
-        if anchor == anchor_host:
+        # K4's kernels in the trace, against its wrappers' launches
+        k4_host = host["allele_counts"] + host["allele_counts_wide"]
+        k4_dev = sum(r[2] for r in rows if "allele_counts" in r[0])
+        if anchor == anchor_host and k4_dev == k4_host:
             break
         lost.append(dict(dirichlet_events=anchor,
-                         dirichlet_launches=anchor_host))
+                         dirichlet_launches=anchor_host,
+                         allele_counts_events=k4_dev,
+                         allele_counts_launches=k4_host))
     out.update(profiled_sweeps=n_prof, profile_windows_lost=lost,
-               profile_complete=anchor == anchor_host)
+               profile_complete=anchor == anchor_host and k4_dev == k4_host)
     if not out["profile_complete"]:
         return out
     sweeps = n_prof * anchor // anchor_host
@@ -1446,6 +1740,13 @@ def sweep_profile(data, spec, n_steps: int = 100, n_prof: int = 30,
                    r[2] for r in rows if "memset" in r[0].lower()) / sweeps)
     rows = sorted(((k, us / sweeps / 1e3, cnt / sweeps)
                    for k, us, cnt in rows), key=lambda r: -r[1])
+    # K3 and K4 in the sweep (device ms and launches a sweep)
+    out["k3_k4_in_sweep"] = {
+        name: dict(ms_per_sweep=sum(r[1] for r in rows if pat in r[0]),
+                   launches_per_sweep=sum(r[2] for r in rows
+                                          if pat in r[0]))
+        for name, pat in (("dirichlet", "dirichlet_kernel"),
+                          ("allele_counts", "allele_counts"))}
     busy = sum(r[1] for r in rows)
     out.update(device_ms_per_sweep=busy,
                device_idle_share=max(0.0, 1.0 - busy / out[

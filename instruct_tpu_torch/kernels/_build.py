@@ -58,6 +58,9 @@ _SIGNATURES = {
     # stream
     "dirichlet_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L,
                          _L, _L, _L, _I, _U, _U, _P, _U, _U, _P],
+    # (C, G, J, M, rounds, out[2]) -> dynamic shared memory, threads of a
+    # launch
+    "dirichlet_launch_plan": [_I] * 5 + [_P],
     # q, gen, rates, draws(u_prop, u_acc, ug, ul), sbar scratch,
     # out rates, gen_prop, wg_pair, logu, C, N, K, subsweeps, delta0,
     # gen_cap, k0, k1, chain_key, step, stream
@@ -75,6 +78,9 @@ _SIGNATURES = {
     # z, bits2, geno, valid, counts, C, N, L, K, A, plane chain stride,
     # stream
     "allele_counts_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P],
+    # (C, N, L, K, A, packed, out[5]) -> the launch plan (grid x, grid y,
+    # rows a strip, pops a window, dynamic shared memory)
+    "allele_counts_launch_plan": [_I] * 6 + [_P],
     # q, freq, geno, valid, u, z, qqnum, C, N, L, K, A, ploidy, rows (0:
     # the generic body), geno chain stride, k0, k1, chain_key, step, stream
     "zq_sample_launch": [_P] * 7 + [_I] * 7 + [_L, _U, _U, _P, _U, _P],

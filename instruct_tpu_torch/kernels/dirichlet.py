@@ -9,11 +9,13 @@ would be a different function of the uniforms and could not be held against
 the JAX kernel with injected draws.
 
 Chains are a written-out leading axis.  On CUDA tensors the wrappers launch
-``csrc/dirichlet.cu`` (one thread per group, so normalisation needs no
-cross-thread traffic; the kernel indexes ``[C, K, L, A]`` and ``[C, N, K]``
-directly through strides, no row transposes); on CPU tensors they run the
-plain version below, which performs the same float32 operations in the same
-order.
+``csrc/dirichlet.cu`` with the plan :func:`dirichlet_plan` (a warp draws
+one cell row of 32 columns, a group's cells in parallel over the warps of a
+block, each Philox block of the draw computed once and shared through
+shared memory, the group sums in cell order after a barrier; the kernel
+indexes ``[C, K, L, A]`` and ``[C, N, K]`` directly through strides, no row
+transposes); on CPU tensors they run the plain version below, which
+performs the same float32 operations in the same order.
 
 Uniform planes: ``n_test_draws(rounds)`` planes per cell, in the JAX
 kernel's draw order (per round: two Box-Muller uniforms then the accept
@@ -26,8 +28,9 @@ uniforms are injected.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from instruct_tpu_torch.kernels import _build
@@ -146,6 +149,82 @@ def dirichlet_kla_reference(keys, step: int, counts_kla, allele_valid=None,
     return _gamma_normalised(counts_kla, v, u, rounds, 3, margins)
 
 
+# The kernel's launch shape (csrc/dirichlet.cu): a task is one cell row of
+# 32 columns, a warp; a block holds up to 4 warps; a block may take the
+# card's 227 KB of shared memory.
+COLS, MAX_WARPS = 32, 4
+SMEM_MAX = 232_448
+# From this many tiles a warp draws all J cells of its tile (8 waves of
+# 4-warp blocks, 8 an SM, on 132 SMs): the card is full without spreading.
+SERIAL_TILES = 8 * 132 * 8 * 4
+
+
+class DirichletPlan(NamedTuple):
+    """Launch plan of one K3 call (``csrc/dirichlet.cu:plan``): ``jw`` warps
+    share a tile's J cell rows (warp w draws rows w, w + jw, ...; one warp
+    all of them from ``SERIAL_TILES`` tiles on), ``nt``
+    tiles a block, ``slots`` Philox blocks staged a uniform plane of a task
+    (8 when M % 4 == 0: a task's 32 words start a block; else 9),
+    ``col_tiles`` 32-column tiles a (chain, group), ``blocks`` x
+    ``threads`` the grid, ``dyn_smem`` the block's shared memory: the
+    warps' staged blocks and the gammas of its tiles."""
+    jw: int
+    nt: int
+    slots: int
+    col_tiles: int
+    blocks: int
+    threads: int
+    dyn_smem: int
+
+
+def dirichlet_plan(c: int, g: int, j: int, m: int,
+                   rounds: int = 3) -> DirichletPlan:
+    """The launch plan of K3 for C = c chains of g groups of j cell rows
+    over m columns.  Pure arithmetic, the same as the kernel's: the CPU
+    tests check it for every J and alignment of M, the card checks its
+    shared memory and threads against ``dirichlet_launch_plan``."""
+    col_tiles = -(-m // COLS)
+    per = -(-j // MAX_WARPS)                  # cell rows a warp
+    jw = 1 if c * g * col_tiles >= SERIAL_TILES else -(-j // per)
+    nt = 1 if jw > MAX_WARPS // 2 else MAX_WARPS // jw
+    slots = 8 if m % 4 == 0 else 9
+    smem = (jw * nt * n_test_draws(rounds) * slots * 16
+            + nt * j * COLS * 4)
+    return DirichletPlan(jw, nt, slots, col_tiles,
+                         -(-(c * g * col_tiles) // nt), COLS * jw * nt, smem)
+
+
+def philox_schedule(g: int, j: int, m: int, rounds: int = 3):
+    """The kernel's Philox schedule for one chain, mirrored: which counter
+    blocks each task (group, cell row, column tile) stages in which slot,
+    and from which (slot, word) each cell takes each plane's uniform.
+
+    Returns ``(staged, read)``: ``staged`` int64[tasks, nd * slots] the
+    block staged in each slot (-1: none), ``read`` int64[nd, g * j * m]
+    the index ``task * nd * slots * 4 + slot * 4 + word`` of the staged
+    word that plane d of cell ``r * m + col`` reads."""
+    plan = dirichlet_plan(1, g, j, m, rounds)
+    nd, slots = n_test_draws(rounds), plan.slots
+    plane = g * j * m
+    tasks = g * j * plan.col_tiles
+    staged = np.full((tasks, nd * slots), -1, np.int64)
+    read = np.full((nd, plane), -1, np.int64)
+    lane = np.arange(COLS)
+    for t in range(tasks):
+        r, mt = divmod(t, plan.col_tiles)      # r = group * j + cell row
+        m0 = mt * COLS
+        live = min(COLS, m - m0)
+        cell0 = r * m + m0
+        for d in range(nd):
+            base = d * plane + cell0
+            for k in range((((base & 3) + live - 1) >> 2) + 1):
+                staged[t, d * slots + k] = (base >> 2) + k
+            x = ((d * (plane & 3) + (cell0 & 3)) & 3) + lane[:live]
+            read[d, cell0 + lane[:live]] = (
+                t * nd * slots * 4 + (d * slots + (x >> 2)) * 4 + (x & 3))
+    return staged, read
+
+
 def _launch(name, conc, valid, test_draws, out, c, g, j, m, cstrides,
             vstrides, rounds, keys, step, stream):
     nd = n_test_draws(rounds)
@@ -153,6 +232,12 @@ def _launch(name, conc, valid, test_draws, out, c, g, j, m, cstrides,
         raise ValueError("more than 2^32 Philox blocks in one stream")
     if not 0 <= rounds <= 16:
         raise ValueError(f"rounds must be in [0, 16], got {rounds}")
+    plan = dirichlet_plan(c, g, j, m, rounds)
+    if plan.dyn_smem > SMEM_MAX:
+        raise ValueError(f"{j} cells a group: beyond the kernel's shared "
+                         "memory")
+    if c * g * plan.col_tiles >= 1 << 31:
+        raise ValueError("more than 2^31 column tiles in one launch")
     draws = None
     if test_draws is not None:
         _build.check(test_draws, "test_draws", torch.float32,

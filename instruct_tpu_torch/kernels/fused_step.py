@@ -117,6 +117,73 @@ def site_pass_fits(n_pops: int, n_alleles: int) -> bool:
 # allele counts
 # ---------------------------------------------------------------------------
 
+# The counting kernel's launch shape (csrc/allele_counts.cu): 8 warps over a
+# tile of 128 loci (4 a lane) and a strip of rows.  The packed plane runs
+# the packed body (one instantiation per pop bucket), the allele codes the
+# codes body up to COUNTS_CODES_CELLS cells and the table body beyond; the
+# register bodies count in 8-bit fields and flush them every
+# COUNTS_FIELD_ROWS rows a lane; the table body's pop windows hold as many
+# pops as 48 KB of table (at least one).  Strips: a tile's are one cluster
+# (at most COUNTS_MAX_STRIPS, at least COUNTS_MIN_ROWS rows each): where the
+# chains' tiles fill at most half a wave of resident blocks (COUNTS_SMS SMs
+# times the blocks an SM of the body holds; twice that for the table body),
+# as many as fill one; up to two waves, COUNTS_MID_STRIPS (long tiles
+# balance over the SMs); beyond, one.
+COUNTS_TILE = 128
+COUNTS_POP_BUCKETS = (4, 8, 16, 32)
+COUNTS_CODES_CELLS = 8
+COUNTS_FIELD_BITS, COUNTS_FIELD_ROWS = 8, 127
+COUNTS_MIN_ROWS, COUNTS_MAX_STRIPS, COUNTS_SMS = 32, 8, 132
+COUNTS_MID_STRIPS = 2
+COUNTS_TABLE_SMEM = 48 * 1024
+
+
+class CountsPlan(NamedTuple):
+    """Launch plan of one K4 call (``csrc/allele_counts.cu:plan``): ``body``
+    ``packed``, ``codes`` or ``table``, ``bucket`` the packed body's pop
+    bucket (0 for the others), ``grid`` (locus tiles x pop windows,
+    strips: a cluster, chains), ``rows`` a strip, ``pops_per_window`` the
+    pops of a block's table, ``dyn_smem`` its bytes."""
+    body: str
+    bucket: int
+    grid: tuple
+    rows: int
+    pops_per_window: int
+    dyn_smem: int
+
+
+def counts_plan(c: int, n: int, l: int, k: int, a: int,
+                packed: bool = False) -> CountsPlan:
+    """The launch plan of K4 for C = c chains of an n x l panel at K = k
+    pops and A = a alleles, read from the packed plane (``packed``, taken
+    where A = 2 and K * A <= 64) or the allele codes.  Pure arithmetic, the
+    kernel's own: the CPU tests check it for every K and A up to 127, the
+    card against ``allele_counts_launch_plan``."""
+    tiles = -(-l // COUNTS_TILE)
+    cells = k * a
+    bucket = 0
+    if packed and a == 2 and cells <= MAX_CELLS:
+        body = "packed"
+        bucket = next(b for b in COUNTS_POP_BUCKETS if k <= b)
+        per_sm = 4 if bucket <= 4 else (3 if bucket <= 8 else 2)
+    elif cells <= COUNTS_CODES_CELLS:
+        body, per_sm = "codes", 3
+    else:
+        body, per_sm = "table", 6
+    kw = k if body != "table" else min(k, max(
+        1, COUNTS_TABLE_SMEM // (a * COUNTS_TILE * 4)))
+    windows = -(-k // kw)
+    cols = c * tiles * windows
+    wave = COUNTS_SMS * per_sm
+    strips = (wave // cols if 2 * cols <= wave
+              else COUNTS_MID_STRIPS if cols < 2 * wave else 1)
+    strips = max(1, min(strips, n // COUNTS_MIN_ROWS, COUNTS_MAX_STRIPS))
+    rows = -(-n // strips)
+    strips = -(-n // rows)
+    return CountsPlan(body, bucket, (tiles * windows, strips, c), rows, kw,
+                      kw * a * COUNTS_TILE * 4)
+
+
 def allele_counts_reference(z, geno, site_valid, *, n_pops: int,
                             max_alleles: int, bits2=None):
     """Plain PyTorch version of :func:`allele_counts` (same signature)."""
@@ -144,10 +211,10 @@ def allele_counts(z: torch.Tensor, geno: torch.Tensor,
 
     z int8[C, N, 2L] copy-major; geno int8[N, 2L] (or [C, N, 2L], one per
     chain); site_valid bool[N, L]; ``bits2`` int8[N, L] (or [C, N, L]), when
-    given (packed biallelic panel), is read in
-    place of geno and site_valid by the kernel, as long as the K * A cells of
-    a locus fit a thread's private table (<= 64); beyond that the kernel
-    reads the allele codes and adds to the counts directly.
+    given (packed biallelic panel, K * A <= 64), is read in place of geno
+    and site_valid by the kernel's packed body; otherwise it reads the
+    allele codes, into register fields up to K * A = 8 and a shared-memory
+    table beyond.  Launch plan: :func:`counts_plan`.
     """
     if z.dim() != 3:
         raise ValueError("z must be [C, N, 2L]")
