@@ -37,11 +37,12 @@ last line is ``{"ok": true, "device": {...}}``.
 tetra, kselect (development aid); the device and Philox phases always run.
 ``--parent-csrc DIR`` (another tree's ``instruct_tpu_torch/csrc``, e.g. a
 ``git archive`` of the parent commit unpacked under ``_parent/``) builds
-that tree's site pass, K3, K4, K5 and K8 beside this one's and times them on
-every timed entry point of the site pass, on the K3 to K8 entries and on
-K3's and K4's shapes of every path (``parent_ms`` in the kernels phase line
-and the ``k3_shapes`` / ``k4_shapes`` lines; null without it), and holds
-K3 bitwise to the parent's body there.
+that tree's site pass and K3 to K8 beside this one's and times them on
+every timed entry point of the site pass, on the K3 to K8 entries (K6 and
+K7 through their first bodies' launch functions where that tree has them)
+and on K3's and K4's shapes of every path (``parent_ms`` in the kernels
+phase line and the ``k3_shapes`` / ``k4_shapes`` lines; null without it),
+and holds K3 bitwise to the parent's body there.
 """
 
 from __future__ import annotations
@@ -82,6 +83,7 @@ from instruct_tpu_torch.mcmc.step import build_step_parts, use_fused
 from instruct_tpu_torch.tetra import engine as te
 from instruct_tpu_torch.tools import dirichlet_counts_variants as dcv
 from instruct_tpu_torch.tools import geno_zq_variants as gzv
+from instruct_tpu_torch.tools import profiling
 from instruct_tpu_torch.tools import site_pass_variants as spv
 
 # Headline shapes of the main path.
@@ -139,29 +141,6 @@ def time_ms(fn, reps: int = 20, warm: int = 3, inner: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
-
-
-def profiled_ms(fn, name: str, n: int = 30) -> float:
-    """Device time of one ``fn()`` in ms from ``torch.profiler``: the total
-    of the kernels whose name holds ``name`` over their count.  For kernels
-    shorter than the host's enqueue of one launch, where ``time_ms`` reads
-    the host."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total = count = 0
-    for ev in prof.key_averages():
-        if name in ev.key:
-            total += getattr(ev, "self_device_time_total", 0.0)
-            count += ev.count
-    if count == 0:
-        raise AssertionError(f"the profiler saw no kernel named {name}")
-    return total / count / 1e3
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -226,19 +205,22 @@ def phase_build() -> None:
                                          int(m.group(1)))
                 r["spills"] = r["spills"] or spill
             prev = line
+    text = log.read_text() if log.exists() else ""
     emit("build", seconds=round(seconds, 2), nvcc=_build.find_nvcc(),
          flags=" ".join(_build.NVCC_FLAGS), ptxas=regs, ptxas_wide=wide,
-         ptxas_k3_k4=k3_k4_frames(log.read_text() if log.exists() else ""))
+         ptxas_k3_k4=kernel_frames(text, "dirichlet_kernel|allele_counts"),
+         ptxas_k6_k7=kernel_frames(text, "s_delta_kernel|site_ll_kernel"))
 
 
-def k3_k4_frames(log: str) -> dict:
-    """Per instantiation of K3's and K4's kernels: registers, stack frame
-    and spills as ``ptxas -v`` printed them (a stack frame is local memory:
-    an array indexed at run time, or a library routine's slow path)."""
+def kernel_frames(log: str, names: str) -> dict:
+    """Per instantiation of the kernels whose mangled names hold one of
+    ``names`` (a regex alternation): registers, stack frame and spills as
+    ``ptxas -v`` printed them (a stack frame is local memory: an array
+    indexed at run time, or a library routine's slow path)."""
     lines, out = log.splitlines(), {}
     for i, line in enumerate(lines):
-        m = re.search(r"Function properties for (\S*(?:dirichlet_kernel|"
-                      r"allele_counts)\S*)", line)
+        m = re.search(r"Function properties for (\S*(?:" + names
+                      + r")\S*)", line)
         if m and i + 2 < len(lines):
             regs = re.search(r"Used (\d+) registers", lines[i + 2])
             out[m.group(1)] = (f"{regs.group(1) if regs else '?'} "
@@ -457,7 +439,8 @@ def check_k3_shapes() -> dict:
         p_ms, _ = parent_k3k4(run, got, f"K3 {shape}", "dirichlet_kernel")
         valid = dims[2] * dims[3] if kind == "P" else 0
         b_ms, b_by = bound(cells * 8 + valid, k3_ops(cells))
-        out[shape] = dict(device_ms=profiled_ms(run, "dirichlet_kernel"),
+        out[shape] = dict(device_ms=profiling.device_ms(run,
+                                                        "dirichlet_kernel"),
                           parent_device_ms=p_ms, ms=time_ms(run),
                           bitwise_parent=p_ms is not None,
                           knife_edge_cells=n_off, bound_ms=b_ms,
@@ -489,7 +472,8 @@ def check_k4_shapes() -> dict:
         planes = n * l2 if panel == "packed" else geno.numel() + n * l2
         n_bytes = z.numel() + planes + got.numel() * 4
         b_ms, b_by = bound(n_bytes, z.numel() * 4)
-        out[shape] = dict(device_ms=profiled_ms(run, "allele_counts"),
+        out[shape] = dict(device_ms=profiling.device_ms(run,
+                                                        "allele_counts"),
                           parent_device_ms=parent_k3k4(
                               run, got, f"K4 {shape}", "allele_counts")[0],
                           ms=time_ms(run),
@@ -817,14 +801,18 @@ def _parent_lib(key):
     return PARENT[key]
 
 
-def parent_kernel_ms(kernel, args, kw=None):
-    """The parent's K5 (``geno_choice_pass``) or K8 (``zq_sample_counts``)
+def parent_kernel_ms(kernel, args, kw=None, device_name=None):
+    """The parent's K5 (``geno_choice_pass``) to K8 (``zq_sample_counts``)
     time on these arguments of the current wrapper, or None without
-    ``--parent-csrc``."""
+    ``--parent-csrc``; with ``device_name``, the profiler's device time of
+    a call's kernels whose names hold it."""
     if "threads" not in PARENT:
         return None
     lib = _parent_lib("lib_geno_zq")
-    return time_ms(lambda: gzv.parent_call(lib, kernel, args, kw or {}))
+    run = lambda: gzv.parent_call(lib, kernel, args, kw or {})
+    if device_name is None:
+        return time_ms(run)
+    return profiling.device_ms(run, device_name, per_call=True)
 
 
 def parent_k3k4(run, want=None, tag=None, kernel=None):
@@ -838,7 +826,8 @@ def parent_k3k4(run, want=None, tag=None, kernel=None):
         return None, None
     with dcv.library(_parent_lib("lib_k3k4")):
         out = run()
-        ms = time_ms(run) if kernel is None else profiled_ms(run, kernel)
+        ms = (time_ms(run) if kernel is None
+              else profiling.device_ms(run, kernel))
     if want is not None and not torch.equal(out, want):
         raise AssertionError(f"{tag}: not bitwise equal to the parent's "
                              "body")
@@ -1023,9 +1012,9 @@ def check_s_pop_tail(x):
     iters = j * k + 1
     check_close("s_pop_floor", sp.reduction_floor(xf, iters),
                 sp.reduction_floor_reference(xf, iters), 1e-6, 0)
-    floor_ms = profiled_ms(lambda: sp.reduction_floor(xf, iters),
-                           "s_pop_floor")
-    device_ms = profiled_ms(run, "s_pop_tail")
+    floor_ms = profiling.device_ms(lambda: sp.reduction_floor(xf, iters),
+                                   "s_pop_floor")
+    device_ms = profiling.device_ms(run, "s_pop_tail")
     n_bytes = c * n * (k * 4 + 4) + c * k * 8 + c * n * (4 + 8 + 4)
     n_ops = c * (j * k + 1) * n * (2 * OPS_TRANSC + 8) + c * n * (
         3 * OPS_TRANSC + 2 * OPS_PHILOX)
@@ -1633,7 +1622,7 @@ def rates_trajectory(data, spec, n_steps: int) -> torch.Tensor:
     return torch.stack(trace)
 
 
-PROFILE_WINDOWS = 3    # profiled windows tried before the profile fails
+PROFILE_WINDOWS = profiling.WINDOWS  # windows tried before a profile fails
 
 
 def _profile_window(step, state, keys, i0: int, n_prof: int):
@@ -1733,6 +1722,9 @@ def sweep_profile(data, spec, n_steps: int = 100, n_prof: int = 30,
     site_host = sum(v for name, v in host.items()
                     if name.startswith("site_pass"))
     out.update(sweeps_observed=sweeps,
+               s_delta_launches_per_sweep=host["s_delta_pass"] / sweeps,
+               s_delta_device_launches_per_sweep=sum(
+                   r[2] for r in rows if "s_delta" in r[0]) / sweeps,
                site_pass_launches_per_sweep=site_host / sweeps,
                site_pass_device_launches_per_sweep=sum(
                    r[2] for r in rows if "site_kernel" in r[0]) / sweeps,
@@ -1783,6 +1775,19 @@ def check_one_site_launch(tag, prof, fused, counts_each_sweep=False) -> None:
         raise AssertionError(f"{tag}: the site pass made {host} calls and "
                              f"{dev} kernel launches, and the sweep "
                              f"{memsets} memsets per sweep")
+
+
+def check_one_s_delta_launch(tag, prof, subsweeps: int) -> None:
+    """A tetraploid sweep calls K6 once per S subsweep, and each call is one
+    kernel launch on the device (no second reduce kernel): in a profiled
+    window whose trace holds every sweep, as many K6 kernels as calls."""
+    if "profiler_error" in prof or not prof.get("profile_complete"):
+        return
+    host = prof["s_delta_launches_per_sweep"]
+    dev = prof["s_delta_device_launches_per_sweep"]
+    if host != subsweeps or dev != host:
+        raise AssertionError(f"{tag}: K6 made {host} calls and {dev} device "
+                             f"launches a sweep, {subsweeps} expected")
 
 
 def expected_launches(spec, data, steps, evals, attempts) -> dict:
@@ -2298,43 +2303,89 @@ def k5_agrees(tag, x, gumbel=None) -> torch.Tensor:
 
 
 def k6_agrees(tag, x):
-    """delta to rtol 1e-5 and atol 1e-6 x the sum of |terms| of its pop (f32
-    sums in another order); an MH decision may differ only within that of
-    its threshold.  Returns (delta, plain delta, atol)."""
-    got = tg.s_delta_pass(*_k6_args(x))
+    """delta through the class map (the engine's call) and through the
+    per-locus lookup rows (the JAX-shaped call), each to rtol 1e-5 and atol
+    1e-6 x the sum of |terms| of its pop (f32 sums in another order); an MH
+    decision may differ only within that of its threshold; two launches
+    bitwise equal; the launch plan's shared memory the kernel's.  Returns
+    (delta through the class map, plain delta, atol)."""
     want = tg.s_delta_pass_reference(*_k6_args(x))
     # the sum of |terms| per (chain, pop): the plain version on |tp - tc|
     mag = tg.s_delta_pass_reference(
         x["tab_cur"], x["tab_cur"] + (x["tab_prop"] - x["tab_cur"]).abs(),
         *_k6_args(x)[2:])
     atol = 1e-6 * mag
-    if bool(((got - want).abs() > 1e-5 * want.abs() + atol).any()):
-        raise AssertionError(f"{tag}: delta differs, max abs err "
-                             f"{max_err(got, want):.3e}")
     logu = want + torch.linspace(-1.0, 1.0, want.numel(),
                                  device="cuda").reshape(want.shape)
-    flip = (logu < got) != (logu < want)
-    if bool(((logu - want).abs()[flip] > atol[flip] + 1e-5 * want.abs()[flip]
-             ).any()):
-        raise AssertionError(f"{tag}: an S accept differs away from a "
-                             "knife-edge")
-    if not torch.equal(got, tg.s_delta_pass(*_k6_args(x))):
-        raise AssertionError(f"{tag}: two launches are not bitwise equal")
-    return got, want, atol
+    out = None
+    for classes in (x["tables"].class_map, None):
+        what = tag + (" (class map)" if classes is not None else "")
+        got = tg.s_delta_pass(*_k6_args(x), classes)
+        if bool(((got - want).abs() > 1e-5 * want.abs() + atol).any()):
+            raise AssertionError(f"{what}: delta differs, max abs err "
+                                 f"{max_err(got, want):.3e}")
+        flip = (logu < got) != (logu < want)
+        if bool(((logu - want).abs()[flip]
+                 > atol[flip] + 1e-5 * want.abs()[flip]).any()):
+            raise AssertionError(f"{what}: an S accept differs away from a "
+                                 "knife-edge")
+        if not torch.equal(got, tg.s_delta_pass(*_k6_args(x), classes)):
+            raise AssertionError(f"{what}: two launches are not bitwise "
+                                 "equal")
+        out = got if out is None else out
+    sums_plan_agrees(tag, x)
+    return out, want, atol
 
 
 def k7_agrees(tag, x):
-    """ll to rtol 1e-5 and atol 1e-6 x the sum of |site terms|."""
+    """ll through the class map and through the per-locus lookup rows, each
+    to rtol 1e-5 and atol 1e-6 x the sum of |site terms|, bitwise equal to
+    each other (the same site terms in the same order) and on a second
+    launch.  Returns (ll, plain ll)."""
     auto = bool(x["spec"].autopoly)
-    got = tg.site_ll_pass(*_k7_args(x), autopoly=auto)
     want = tg.site_ll_pass_reference(*_k7_args(x), autopoly=auto)
     mag = tg.site_loglik(*_k7_args(x), autopoly=auto).abs().sum(dim=2)
-    if bool(((got - want).abs() > 1e-5 * want.abs() + 1e-6 * mag).any()):
-        raise AssertionError(f"{tag}: ll differs, max abs err "
-                             f"{max_err(got, want):.3e}")
-    if not torch.equal(got, tg.site_ll_pass(*_k7_args(x), autopoly=auto)):
-        raise AssertionError(f"{tag}: two launches are not bitwise equal")
-    return got, want
+    out = None
+    for classes in (x["tables"].class_map, None):
+        what = tag + (" (class map)" if classes is not None else "")
+        got = tg.site_ll_pass(*_k7_args(x), autopoly=auto, classes=classes)
+        if bool(((got - want).abs() > 1e-5 * want.abs() + 1e-6 * mag).any()):
+            raise AssertionError(f"{what}: ll differs, max abs err "
+                                 f"{max_err(got, want):.3e}")
+        if not torch.equal(got, tg.site_ll_pass(*_k7_args(x), autopoly=auto,
+                                                classes=classes)):
+            raise AssertionError(f"{what}: two launches are not bitwise "
+                                 "equal")
+        if out is not None and not torch.equal(got, out):
+            raise AssertionError(f"{tag}: ll through the lookup rows is not "
+                                 "bitwise ll through the class map")
+        out = got if out is None else out
+    return out, want
+
+
+def sums_plan_agrees(tag, x) -> dict:
+    """K6's and K7's launch plans (``tg.sums_plan``, with and without the
+    class map) ask for the shared memory the kernels compute
+    (``*_launch_dyn_smem``).  Returns the plans with the engine's class map
+    by kernel."""
+    t, d, spec = x["tables"], x["data"], x["spec"]
+    c, k, l, g = x["tab_cur"].shape
+    v, a, auto = t.lookup_l.shape[1], d.max_alleles, bool(spec.autopoly)
+    lib = _build.library()
+    plans = {}
+    for n_cls in (0, t.class_map.lookup.shape[0]):
+        p6 = tg.sums_plan("s_delta", c, d.n_indv, l, k, g, v, n_cls)
+        p7 = tg.sums_plan("site_ll", c, d.n_indv, l, k, g, v, n_cls, a, auto)
+        got = (lib.s_delta_launch_dyn_smem(k, g, v, n_cls, int(p6.stage),
+                                           int(p6.lut_smem)),
+               lib.site_ll_launch_dyn_smem(k, a, g, v, n_cls, int(auto),
+                                           int(p7.stage), int(p7.lut_smem)))
+        if got != (p6.dyn_smem, p7.dyn_smem):
+            raise AssertionError(f"{tag}: the plans' shared memory "
+                                 f"{(p6.dyn_smem, p7.dyn_smem)}, the "
+                                 f"kernels' {got} (n_cls {n_cls})")
+        plans = dict(s_delta=p6._asdict(), site_ll=p7._asdict())
+    return plans
 
 
 def views_agree(tag, x):
@@ -2383,13 +2434,16 @@ def mixtures_used(cand_sel, nc, autopoly: bool) -> torch.Tensor:
     return total
 
 
-def tetra_work(x):
+def tetra_work(x, classes: bool = True):
     """(bytes, operations) of one call of K5, K6, K7 on these inputs: each
     operand read once, each result written once; operations counted from
-    this run's masks (same-z sites, valid candidates)."""
+    this run's masks (same-z sites, valid candidates).  K6 and K7 read the
+    class map (its class rows and a byte a locus) where ``classes``, else
+    the per-locus lookup rows (the JAX-shaped call)."""
     d, t, spec = x["data"], x["tables"], x["spec"]
     c, k, l, g = x["table"].shape
     n, a, v = d.n_indv, d.max_alleles, t.lookup_l.shape[1]
+    lut = (t.class_map.lookup.numel() * 4 + l if classes else l * v * 4)
     n_sys = 1 if spec.autopoly else 2
     zc = tg.split4(x["z"])
     same = tg.same_z(zc)
@@ -2415,10 +2469,9 @@ def tetra_work(x):
               + cand_mixed * 5 + cand_same * 1
               + (cand_same + cand_mixed) * (2 * OPS_TRANSC + OPS_PHILOX / 4
                                             + 2))
-    k6_bytes = 2 * c * k * l * g * 4 + l * v * 4 + 2 * planes + n * l \
-        + c * k * 4
+    k6_bytes = 2 * c * k * l * g * 4 + lut + 2 * planes + n * l + c * k * 4
     k6_ops = n_same * (12 + 1 + k)
-    k7_bytes = (c * k * l * g * 4 + l * v * 4 + l * g * 4
+    k7_bytes = (c * k * l * g * 4 + lut + l * g * 4
                 + n_sys * c * k * l * a * 4 + 2 * planes + n * l + c * n * 4)
     k7_ops = n_same * 12 + (n_valid - n_same) * (4 * OPS_TRANSC + 17)
     return dict(geno_choice_pass=(k5_bytes, k5_ops),
@@ -2472,7 +2525,7 @@ def check_tetra_kernels(panels) -> list:
         d6, p6, atol6 = k6_agrees(tag + " s_delta_pass", x)
         d7, p7 = k7_agrees(tag + " site_ll_pass", x)
         views_agree(tag, x)
-        work = tetra_work(x)
+        work, work_rows = tetra_work(x), tetra_work(x, classes=False)
         a5 = _k5_args(x)
         share = float(tg.same_z(tg.split4(x["z"])).float().mean())
         entries.append(_tetra_entry(
@@ -2483,27 +2536,55 @@ def check_tetra_kernels(panels) -> list:
             "choice exactly equal (Philox and injected Gumbel planes)",
             [f"same-z share {share:.3f}"],
             parent_kernel_ms("geno_choice_pass", a5, dict(autopoly=auto))))
-        a6 = _k6_args(x)
+        # K6 and K7 timed as the engine calls them (with its class map);
+        # through the per-locus lookup rows (the JAX-shaped call) beside,
+        # with that call's own bound;
+        # ms, parent_ms: the profiler's device time of a call (its events
+        # time reads the host's enqueue of the wrapper)
+        a6, cm = _k6_args(x), x["tables"].class_map
+        plans = sums_plan_agrees(tag, x)
+        run6 = lambda: tg.s_delta_pass(*a6, cm)
         e6 = _tetra_entry(
             "s_delta_pass", "s_delta_pass", x, work["s_delta_pass"],
-            max_err(d6, p6), lambda: tg.s_delta_pass(*a6),
+            max_err(d6, p6), run6,
             lambda: tg.s_delta_pass_reference(*a6),
             "delta rtol 1e-5, atol 1e-6 x sum |terms| (max "
-            f"{float(atol6.max()):.2e}); MH decisions off only within it",
-            [f"|delta| max {float(p6.abs().max()):.3e}"])
+            f"{float(atol6.max()):.2e}); MH decisions off only within it; "
+            "with and without the class map",
+            [f"|delta| max {float(p6.abs().max()):.3e}",
+             f"same-z share {share:.3f}"],
+            parent_kernel_ms("s_delta_pass", a6, device_name="s_delta"))
+        e6.update(ms_events=e6["ms"],
+                  ms=profiling.device_ms(run6, "s_delta", per_call=True),
+                  ms_lookup_rows=profiling.device_ms(
+                      lambda: tg.s_delta_pass(*a6), "s_delta", per_call=True),
+                  bound_ms_lookup_rows=bound(*work_rows["s_delta_pass"])[0],
+                  plan=plans["s_delta"])
         if auto:
             e6["name"] = "s_delta_pass(auto)"
             tetra_variants.append(e6)
         else:
             entries.append(e6)
         a7 = _k7_args(x)
-        entries.append(_tetra_entry(
+        run7 = lambda: tg.site_ll_pass(*a7, autopoly=auto, classes=cm)
+        e7 = _tetra_entry(
             "site_ll_pass", f"site_ll_pass_{mode}", x, work["site_ll_pass"],
-            max_err(d7, p7),
-            lambda: tg.site_ll_pass(*a7, autopoly=auto),
+            max_err(d7, p7), run7,
             lambda: tg.site_ll_pass_reference(*a7, autopoly=auto),
-            "ll rtol 1e-5, atol 1e-6 x sum |site terms|",
-            [f"|ll| max {float(p7.abs().max()):.3e}"]))
+            "ll rtol 1e-5, atol 1e-6 x sum |site terms|; with and without "
+            "the class map, bitwise alike",
+            [f"|ll| max {float(p7.abs().max()):.3e}",
+             f"same-z share {share:.3f}"],
+            parent_kernel_ms("site_ll_pass", a7, dict(autopoly=auto),
+                             device_name="site_ll"))
+        e7.update(ms_events=e7["ms"],
+                  ms=profiling.device_ms(run7, "site_ll", per_call=True),
+                  ms_lookup_rows=profiling.device_ms(
+                      lambda: tg.site_ll_pass(*a7, autopoly=auto), "site_ll",
+                      per_call=True),
+                  bound_ms_lookup_rows=bound(*work_rows["site_ll_pass"])[0],
+                  plan=plans["site_ll"])
+        entries.append(e7)
         del x
         torch.cuda.empty_cache()
     tetra_edge_shapes()
@@ -2541,14 +2622,38 @@ def k5_edge_rows(tag, x) -> None:
                                      "candidate")
 
 
+def k67_edge_rows(tag, x) -> None:
+    """K6 and K7 on the same inputs with every site of the first half of
+    the rows same-z and every site of the second half mixed (where K > 1),
+    and every site of the first row invalid: within their tolerances, two
+    launches bitwise equal (``k6_agrees``, ``k7_agrees``)."""
+    z, l = x["z"], x["data"].n_loci
+    n, k = z.shape[1], x["spec"].n_pops
+    zs = z.clone()
+    zs[:, : (n + 1) // 2] = z[:, : (n + 1) // 2, :l].repeat(1, 1, 4)
+    if k > 1:
+        zs[:, (n + 1) // 2:, l:2 * l] = (z[:, (n + 1) // 2:, :l] + 1) % k
+    sv = x["data"].site_valid.clone()
+    sv[0] = False
+    xx = dict(x, z=zs.contiguous(),
+              data=x["data"]._replace(site_valid=sv))
+    k6_agrees(tag + " same-z / mixed rows, row 0 invalid", xx)
+    k7_agrees(tag + " same-z / mixed rows, row 0 invalid", xx)
+
+
 def tetra_edge_shapes() -> None:
     """K5-K7 and the view launches at small ragged shapes: N = 1, L not a
     multiple of the block, missing sites, K = 1..5, A = 2, 3, auto and
     allo; wide class tables (A = 8: K * G = 1320 auto, 5184 allo) and
-    K = 10 (two pop groups of K6), which only the unfused sweep runs."""
+    K = 10, which only the unfused sweep runs; for K6 and K7: L at each
+    residue of the 4-locus word (1, 3, 5, 7, 9, 5001), N off the 32-row
+    block step, C = 1, K = 1, 9 and 33, rows all same-z, rows all mixed and
+    a row with every site invalid (``k67_edge_rows``)."""
     cases = [(1, 1, 37, 2, 2), (2, 33, 258, 3, 3), (1, 7, 1, 1, 2),
              (2, 50, 301, 5, 3), (3, 19, 130, 4, 2), (2, 9, 40, 4, 8),
-             (2, 11, 70, 10, 3)]
+             (2, 11, 70, 10, 3), (2, 45, 3, 3, 4), (1, 70, 5, 2, 3),
+             (2, 35, 7, 9, 2), (1, 20, 9, 33, 2), (2, 3, 5001, 3, 4),
+             (1, 97, 64, 1, 4)]
     for c, n, l, k, a in cases:
         for auto in (True, False):
             panel = tetra_panel(auto, n=n, l=l, k=k, a=a, missing=0.15,
@@ -2560,6 +2665,7 @@ def tetra_edge_shapes() -> None:
             k7_agrees(tag, x)
             views_agree(tag, x)
             k5_edge_rows(tag, x)
+            k67_edge_rows(tag, x)
     emit("tetra_edge_shapes", cases=[dict(C=c, N=n, L=l, K=k, A=a)
                                      for c, n, l, k, a in cases],
          all_match=True)
@@ -2750,6 +2856,7 @@ def drive_tetra(tag, panel, spec, n_iter, smi, profile_sweeps=100,
         emit("sweep_profile", path=tag, card=smi, **prof)
         check_one_site_launch(tag, prof, te.tetra_use_fused(spec, data),
                               counts_each_sweep=True)
+        check_one_s_delta_launch(tag, prof, max(1, spec.s_subsweeps))
     emit("tetra", path=tag, card=smi,
          panel=dict(N=n, L=l, A=a, K=k, autopoly=bool(spec.autopoly)),
          sweep="fused" if te.tetra_use_fused(spec, data) else "unfused",

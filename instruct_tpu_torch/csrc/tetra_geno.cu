@@ -18,14 +18,17 @@
 // Layouts (chains leading): table, tab_cur, tab_prop f32[C, K, L, G]
 // (G-minor: the classes one site reads lie in one row of G floats);
 // z, geno i8[C, N, 4L] and dist i8[N, 4L] copy-major (slot m of locus l at
-// column m * L + l); lookup i32[L, V] (packed code -> class, per locus),
-// log_mult f32[L, G]; freq, freq2 f32[C, K, L, A]; the candidate planes sel
-// u8, cls i16, mult u8 [n_cand, N, L] and nc u8[N, L] are data-only.
+// column m * L + l); lookup i32[L, V] (packed code -> class, per locus) or
+// the class map: cls_of u8[L] (the class of each locus) with the class rows
+// i32[n_cls, V] that lookup repeats; log_mult f32[L, G]; freq, freq2
+// f32[C, K, L, A]; the candidate planes sel u8, cls i16, mult u8
+// [n_cand, N, L] and nc u8[N, L] are data-only.
 //
 // What bounds them: per site a handful of bytes of planes against a few to a
 // few dozen float operations (logs included) -- bytes and operations are of
-// one order; the table and frequency reads are gathers that stay in L2 (a
-// chain's table is 6 MB at L = 5000, G = 100, K = 3).
+// one order; the table and frequency reads are gathers (a chain's table is
+// 6 MB at L = 5000, G = 100, K = 3: the two of s_delta at 4 chains, 48 MB,
+// do not stay in the 50 MB L2 beside the streaming planes).
 // Design: the TPU kernels run K-way and V-way select chains, because a TPU
 // has no fast gather; here every lookup is one indexed load.
 //   * geno_choice: its first body took a block per (row, chain): every
@@ -48,14 +51,34 @@
 //     site * bps + cand / 4); only the blocks of the site's valid
 //     candidates are drawn.  The first maximum of w + gumbel wins (strict
 //     >), in candidate order.
-//   * s_delta, site_ll: real-valued sums in a fixed order, no float atomics:
-//     each thread adds its loci in order, a warp butterfly, the block's 8
-//     warp partials in order; s_delta's per-row partials are then added over
-//     the rows in order by a second small kernel.  Two runs are bitwise
-//     equal.  An s_delta block keeps the sums of a group of up to 8 pops
-//     (grid z: the groups), so any K runs.  A block of either owns one row
-//     (chain, individual); its threads walk the row's loci with stride 256,
-//     so the byte planes are read coalesced along L.
+//   * s_delta, site_ll: their first bodies took a block per (row, chain)
+//     whose threads walked the row's loci with stride 256, one byte load a
+//     plane behind each test: about five dependent round trips a locus
+//     (valid, z, the genotype, the class lookup, the table), latency and
+//     not bytes.  Now a block owns one chain x a tile of 32 loci x a strip
+//     of rows (the plan kernels/tetra_geno.py:sums_plan); a lane takes 4
+//     loci of a row, and loads its 9 words (4 z planes, 4 genotype planes,
+//     valid) for the next row before it works on the current one.  The
+//     same-z and valid tests run on whole words (a byte-wise zero test, no
+//     carry across bytes).  The class of a genotype comes from the
+//     per-class lookup rows staged in shared memory where the caller gives
+//     the class map (the engine does), else from the per-locus rows.  The
+//     block stages what its sites read from tables -- s_delta the tile's
+//     tab_prop - tab_cur (the same difference of the same floats as at a
+//     site), site_ll the tile's class table, log multiplicities and the
+//     slog of its frequencies -- where it fits the plan's share of shared
+//     memory, and gathers it from device memory otherwise.  Sums run in a
+//     fixed order, no float atomics, so two runs are bitwise equal:
+//     s_delta adds a thread's sites into the thread's own column of a
+//     per-pop table in shared memory, the block's columns in warp and
+//     lane order, the blocks' partials of a chain in block order by the
+//     last block of the chain behind a ticket; site_ll adds a lane's 4
+//     loci in order, the 8 lanes of a row by a butterfly, the tiles'
+//     partials of a row in tile order by the last tile block of the strip.
+//     A mixed-z site_ll term is log mult + its 4 slot logs in slot order,
+//     the same floats as the first body's.  One launch a call; the
+//     scratch (partials, tickets) is the wrapper's, kept per shape, and
+//     every call leaves the tickets zero.
 // The source is compiled without FMA contraction, so the mixtures and the
 // weights round as in the plain PyTorch versions (kernels/tetra_geno.py).
 #include "philox.cuh"
@@ -65,7 +88,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxPops = 127;  // z is int8
-constexpr int kPopGroup = 8;  // pops per s_delta block
 constexpr int kMaxCand = 12;
 constexpr float kEps = 1e-30f;
 constexpr float kNeg = -1e30f;
@@ -80,18 +102,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __device__ __forceinline__ float pick4(const float (&v)[4], int j) {
   return j == 0 ? v[0] : (j == 1 ? v[1] : (j == 2 ? v[2] : v[3]));
-}
-
-// The block's total of one float per thread: warps in order.
-__device__ __forceinline__ float block_sum(float v, float* wpart) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) wpart[warp] = v;
-  __syncthreads();
-  float s = wpart[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) s = s + wpart[w];
-  return s;
 }
 
 // ---------------------------------------------------------------------------
@@ -262,131 +272,431 @@ __global__ void __launch_bounds__(kThreads, GENO_MIN_BLOCKS)
 }
 
 // ---------------------------------------------------------------------------
-// s_delta
+// s_delta and site_ll: the tile skeleton
 // ---------------------------------------------------------------------------
 
-struct SDeltaArgs {
-  const float* tab_cur;    // [C, K, L, G]
-  const float* tab_prop;   // [C, K, L, G]
-  const int* lookup;       // [L, V]
+// Loci a block (kernels/tetra_geno.py:SUM_TILE; a power of two, 8 to
+// 128: tools/tetra_sums_variants.py also builds 16 and 64).
+#ifndef SUMS_TILE
+#define SUMS_TILE 32
+#endif
+constexpr int kSumTile = SUMS_TILE;
+constexpr int kRowLanes = kSumTile / 4;          // lanes a row (4 loci each)
+constexpr int kStepRows = kThreads / kRowLanes;  // rows a block step
+// Blocks an SM holds by registers (65536 / (256 * n)): 4, 64 registers, as
+// many as the bodies take unspilled (tools/tetra_sums_variants.py: 3 let
+// site_ll take 70 and ran 9-18% slower at the auto panel).
+#ifndef SUMS_MIN_BLOCKS
+#define SUMS_MIN_BLOCKS 4
+#endif
+
+struct SumArgs {
+  const float* tab;        // K6: tab_cur; K7: table   [C, K, L, G]
+  const float* tab_prop;   // K6: tab_prop             [C, K, L, G]
+  const int* lut;          // [L, V] per locus, or [n_cls, V] with cls_of
+  const uint8_t* cls_of;   // [L] the class row of each locus, or null
+  const float* log_mult;   // K7: [L, G]
+  const float* freq;       // K7: [C, K, L, A]
+  const float* freq2;      // K7: [C, K, L, A]
   const int8_t* z;         // [C, N, 4L]
   const int8_t* geno;      // [C, N, 4L]
   const int8_t* valid;     // [N, L] bool
-  float* part;             // [C, N, K] per-row partials
-  int N, L, K, G, V, n_max;
+  float* part;             // K6: [C, B, K] block partials; K7: [C, T, N]
+  int* tickets;            // K6: [C]; K7: [C, S] -- zero between calls
+  float* out;              // K6: delta [C, K]; K7: ll [C, N]
+  int N, L, K, A, G, V, n_max, n_cls;
+  int strips, rows, tiles;
+  int lut_smem;            // the class rows staged in shared memory
 };
 
-__global__ void __launch_bounds__(kThreads) s_delta_kernel(
-    const SDeltaArgs a) {
-  const int n = blockIdx.x, c = blockIdx.y, k0 = blockIdx.z * kPopGroup;
-  const int N = a.N, L = a.L, K = a.K, G = a.G, nm = a.n_max;
-  __shared__ float wpart[kPopGroup][kWarps];
-  const long long row = ((long long)c * N + n) * 4 * L;
-  const int8_t* zrow = a.z + row;
-  const int8_t* grow = a.geno + row;
-  const int8_t* vrow = a.valid + (long long)n * L;
-  float acc[kPopGroup];
+// The 4 bytes of a plane row at loci l0..l0+3 as one word (bytes past L are
+// 0): one 32-bit load when `vec` (L % 4 == 0: every slot's row starts on a
+// word, m * L), else byte loads.
+__device__ __forceinline__ uint32_t quad_word(const int8_t* row, int l0,
+                                              int L, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const uint32_t*>(row + l0));
+  uint32_t w = 0u;
 #pragma unroll
-  for (int k = 0; k < kPopGroup; ++k) acc[k] = 0.0f;
-  for (int l = threadIdx.x; l < L; l += kThreads) {
-    if (!vrow[l]) continue;
-    const int z0 = zrow[l], rel = z0 - k0;  // rel: the pop within the group
-    if ((unsigned)rel >= (unsigned)kPopGroup) continue;
-    if (zrow[L + l] != z0 || zrow[2 * L + l] != z0 || zrow[3 * L + l] != z0)
-      continue;
-    const int packed =
-        ((grow[l] * nm + grow[L + l]) * nm + grow[2 * L + l]) * nm +
-        grow[3 * L + l];
-    const int cls = __ldg(a.lookup + (long long)l * a.V + packed);
-    const long long off = (((long long)c * K + z0) * L + l) * G + cls;
-    const float d = __ldg(a.tab_prop + off) - __ldg(a.tab_cur + off);
-#pragma unroll
-    for (int k = 0; k < kPopGroup; ++k) acc[k] = acc[k] + (rel == k ? d : 0.0f);
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int kn = min(kPopGroup, K - k0);
-#pragma unroll
-  for (int k = 0; k < kPopGroup; ++k) {
-    if (k >= kn) break;
-    const float s = warp_sum(acc[k]);
-    if (lane == 0) wpart[k][warp] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < kn) {
-    const int k = threadIdx.x;
-    float s = wpart[k][0];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) s = s + wpart[k][w];
-    a.part[((long long)c * N + n) * K + k0 + k] = s;
-  }
+  for (int j = 0; j < 4; ++j)
+    if (l0 + j < L) w |= (uint32_t)(uint8_t)__ldg(row + l0 + j) << (8 * j);
+  return w;
 }
 
-// delta[c, k] = the rows' partials added in order.
-__global__ void s_delta_reduce_kernel(const float* __restrict__ part,
-                                      float* __restrict__ delta, int C, int N,
-                                      int K) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C * K) return;
-  const int c = i / K, k = i - c * K;
-  float s = 0.0f;
-  for (int n = 0; n < N; ++n) s = s + part[((long long)c * N + n) * K + k];
-  delta[i] = s;
+__device__ __forceinline__ int sbyte(uint32_t w, int j) {
+  return (int)(int8_t)(uint8_t)(w >> (8 * j));
+}
+
+// 0x80 in each byte of x that is zero (no carry crosses a byte).
+__device__ __forceinline__ uint32_t zero_bytes(uint32_t x) {
+  return ~(((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) & 0x80808080u;
+}
+
+// A lane's 4 loci of one row: the z and genotype words of the 4 slots and
+// the valid word; all zero off the panel (no valid site).
+struct SiteWords {
+  uint32_t z[4], g[4], v;
+
+  __device__ __forceinline__ void load(const SumArgs& a, int c, int n,
+                                       int l0, bool live, bool vec) {
+    if (!live) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) z[m] = g[m] = 0u;
+      v = 0u;
+      return;
+    }
+    const int L = a.L;
+    const long long row = ((long long)c * a.N + n) * 4 * L;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      z[m] = quad_word(a.z + row + (long long)m * L, l0, L, vec);
+      g[m] = quad_word(a.geno + row + (long long)m * L, l0, L, vec);
+    }
+    v = quad_word(a.valid + (long long)n * L, l0, L, vec);
+  }
+
+  // 0x80 in the bytes of valid sites / of sites whose 4 copies share a pop
+  __device__ __forceinline__ uint32_t valid_bytes() const {
+    return ~zero_bytes(v) & 0x80808080u;
+  }
+  __device__ __forceinline__ uint32_t same_bytes() const {
+    return zero_bytes((z[0] ^ z[1]) | (z[0] ^ z[2]) | (z[0] ^ z[3]));
+  }
+  // the base-n_max packed genotype of locus j of the word
+  __device__ __forceinline__ int packed(int j, int nm) const {
+    return ((sbyte(g[0], j) * nm + sbyte(g[1], j)) * nm + sbyte(g[2], j)) *
+               nm + sbyte(g[3], j);
+  }
+};
+
+// The lookup rows of a lane's 4 loci (ll0.. of the tile, l0.. of the
+// panel), as offsets: of the staged class rows, or of a row in device
+// memory (the class's row with the class map, else the locus's own).
+__device__ __forceinline__ void lookup_rows(const SumArgs& a,
+                                            const uint8_t* s_cls, int ll0,
+                                            int l0, int (&row)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    row[j] = (a.cls_of != nullptr ? (int)s_cls[ll0 + j] : l0 + j) * a.V;
+}
+
+// The class of a packed genotype on lookup row offset `row`.
+__device__ __forceinline__ int class_at(const SumArgs& a,
+                                        const int16_t* s_lut, int row,
+                                        int packed) {
+  if (a.lut_smem) return s_lut[row + packed];
+  return __ldg(a.lut + (long long)row + packed);
+}
+
+// Block-wide staging of one run of n floats: dst[e] = src[e], slog(src[e])
+// or src[e] - sub[e]; 16-byte loads where the sources allow (dst is
+// 16-byte aligned), four of them in flight a thread.
+enum class Run { kCopy, kLog, kDiff };
+
+template <Run kRun>
+__device__ __forceinline__ float run_op(float x, float y) {
+  return kRun == Run::kCopy ? x : (kRun == Run::kLog ? slog(x) : x - y);
+}
+
+template <Run kRun>
+__device__ __forceinline__ void stage_run(float* dst, const float* src,
+                                          const float* sub, int n) {
+  const int tid = threadIdx.x;
+  int e0 = 0;
+  const uintptr_t al = reinterpret_cast<uintptr_t>(src) |
+                       (kRun == Run::kDiff ? reinterpret_cast<uintptr_t>(sub)
+                                           : 0);
+  if ((al & 15) == 0) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    const float4* u4 = reinterpret_cast<const float4*>(sub);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    const int n4 = n >> 2;
+#pragma unroll 4
+    for (int e = tid; e < n4; e += kThreads) {
+      const float4 x = __ldg(s4 + e);
+      const float4 y = kRun == Run::kDiff ? __ldg(u4 + e) : x;
+      d4[e] = make_float4(run_op<kRun>(x.x, y.x), run_op<kRun>(x.y, y.y),
+                          run_op<kRun>(x.z, y.z), run_op<kRun>(x.w, y.w));
+    }
+    e0 = n4 << 2;
+  }
+#pragma unroll 4
+  for (int e = e0 + tid; e < n; e += kThreads)
+    dst[e] = run_op<kRun>(__ldg(src + e),
+                          kRun == Run::kDiff ? __ldg(sub + e) : 0.0f);
+}
+
+// The block's class map: the tile's class rows of the loci and, where the
+// plan stages them, the class lookup rows as int16.
+__device__ __forceinline__ void stage_classes(const SumArgs& a,
+                                              int16_t* s_lut, uint8_t* s_cls,
+                                              int lt0, int lt) {
+  const int tid = threadIdx.x;
+  if (a.cls_of != nullptr && tid < kSumTile)
+    s_cls[tid] = tid < lt ? a.cls_of[lt0 + tid] : (uint8_t)0;
+  if (a.lut_smem)
+    for (int i = tid; i < a.n_cls * a.V; i += kThreads)
+      s_lut[i] = (int16_t)__ldg(a.lut + i);
+}
+
+// Bytes of a block's dynamic shared memory: the per-pop thread columns
+// (s_delta), the staged tables (stage), the class rows (lut_smem) and the
+// tile's class map.
+__host__ __device__ inline size_t s_delta_smem(int K, int G, int V, int n_cls,
+                                               int stage, int lut_smem) {
+  return (size_t)4 * K * kThreads +
+         (stage ? (size_t)4 * K * kSumTile * G : 0) +
+         (lut_smem ? (size_t)2 * n_cls * V : 0) + kSumTile;
+}
+
+__host__ __device__ inline size_t site_ll_smem(int K, int A, int G, int V,
+                                               int n_cls, int autopoly,
+                                               int stage, int lut_smem) {
+  return (stage ? (size_t)4 * ((autopoly ? 1 : 2) * K * kSumTile * A +
+                               (size_t)(K + 1) * kSumTile * G)
+                : 0) +
+         (lut_smem ? (size_t)2 * n_cls * V : 0) + kSumTile;
+}
+
+// The last block of a group (its ticket counts the group's blocks) returns
+// true, once every other block's partials are visible; it resets the
+// ticket for the next call.
+__device__ __forceinline__ bool last_of(int* ticket, int blocks) {
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(ticket, 1) == blocks - 1;
+    if (last) *ticket = 0;
+  }
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// s_delta
+// ---------------------------------------------------------------------------
+
+// Grid (strips, tiles, C).  kStage: the tile's tab_prop - tab_cur in shared
+// memory, [K][kSumTile][G]; else both tables gathered at each site.
+template <bool kStage>
+__global__ void __launch_bounds__(kThreads, SUMS_MIN_BLOCKS)
+    s_delta_kernel(const SumArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int strip = blockIdx.x, tile = blockIdx.y, c = blockIdx.z;
+  const int K = a.K, L = a.L, G = a.G, tid = threadIdx.x;
+  float* acc = reinterpret_cast<float*>(smem);       // [K][kThreads]
+  float* diff = acc + K * kThreads;
+  int16_t* s_lut =
+      reinterpret_cast<int16_t*>(diff + (kStage ? K * kSumTile * G : 0));
+  uint8_t* s_cls =
+      reinterpret_cast<uint8_t*>(s_lut + (a.lut_smem ? a.n_cls * a.V : 0));
+  const int lt0 = tile * kSumTile, lt = min(kSumTile, L - lt0);
+  const int lane = tid & 31, warp = tid >> 5;
+  const int ll0 = (lane & (kRowLanes - 1)) * 4, l0 = lt0 + ll0;
+  const bool vec = (L & 3) == 0, on = l0 < L;
+  const int n_end = min(a.N, (strip + 1) * a.rows);
+  const int nm = a.n_max;
+  int n = strip * a.rows + warp * (32 / kRowLanes) + lane / kRowLanes;
+  SiteWords cur, nxt;
+  // the first row's words are in flight while the block stages
+  cur.load(a, c, n, l0, on && n < n_end, vec);
+  for (int i = tid; i < K * kThreads; i += kThreads) acc[i] = 0.0f;
+  stage_classes(a, s_lut, s_cls, lt0, lt);
+  if (kStage) {
+    // a pop's cells of the tile are one run of lt * G floats
+    for (int k = 0; k < K; ++k) {
+      const long long base = (((long long)c * K + k) * L + lt0) * G;
+      stage_run<Run::kDiff>(diff + k * kSumTile * G, a.tab_prop + base,
+                            a.tab + base, lt * G);
+    }
+  }
+  __syncthreads();
+  int row[4];
+  lookup_rows(a, s_cls, ll0, l0, row);
+  for (; n < n_end; n += kStepRows) {
+    if (n + kStepRows < n_end) nxt.load(a, c, n + kStepRows, l0, on, vec);
+    const uint32_t m = cur.same_bytes() & cur.valid_bytes();
+    if (m != 0u) {
+      // the word's sites first, then every table read, then the sums
+      int zz[4];
+      long long off[4];
+      bool ok[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        zz[j] = sbyte(cur.z[0], j);
+        ok[j] = ((m >> (8 * j + 7)) & 1u) && (unsigned)zz[j] < (unsigned)K;
+        off[j] = 0;
+        if (ok[j]) {
+          const int cls = class_at(a, s_lut, row[j], cur.packed(j, nm));
+          off[j] = kStage
+                       ? (long long)(zz[j] * kSumTile + ll0 + j) * G + cls
+                       : (((long long)c * K + zz[j]) * L + l0 + j) * G + cls;
+        }
+      }
+      float d[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        d[j] = !ok[j] ? 0.0f
+               : kStage ? diff[off[j]]
+                        : __ldg(a.tab_prop + off[j]) - __ldg(a.tab + off[j]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (ok[j]) acc[zz[j] * kThreads + tid] += d[j];
+    }
+    cur = nxt;
+  }
+  __syncthreads();
+
+  // the block's partial of pop k: its thread columns in warp, lane order
+  const int B = a.strips * a.tiles, b = tile * a.strips + strip;
+  for (int k = warp; k < K; k += kWarps) {
+    float s = acc[k * kThreads + lane];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) s = s + acc[k * kThreads + w * 32 + lane];
+    s = warp_sum(s);
+    if (lane == 0) a.part[((long long)c * B + b) * K + k] = s;
+  }
+  if (!last_of(a.tickets + c, B)) return;
+  // delta[c, k]: the chain's block partials, lane-strided in block order,
+  // then a butterfly
+  for (int k = warp; k < K; k += kWarps) {
+    float s = 0.0f;
+    for (int bb = lane; bb < B; bb += 32)
+      s = s + __ldcg(a.part + ((long long)c * B + bb) * K + k);
+    s = warp_sum(s);
+    if (lane == 0) a.out[(long long)c * K + k] = s;
+  }
 }
 
 // ---------------------------------------------------------------------------
 // site_ll
 // ---------------------------------------------------------------------------
 
-struct SiteLlArgs {
-  const float* table;      // [C, K, L, G]
-  const int* lookup;       // [L, V]
-  const float* log_mult;   // [L, G]
-  const float* freq;       // [C, K, L, A]
-  const float* freq2;      // [C, K, L, A]
-  const int8_t* z;         // [C, N, 4L]
-  const int8_t* geno;      // [C, N, 4L]
-  const int8_t* valid;     // [N, L] bool
-  float* ll;               // [C, N] out
-  int N, L, K, A, G, V, n_max, autopoly;
-};
+// slog of slot m's frequency of allele g in pop z at tile locus ll: from the
+// block's staged logs, [S][K][kSumTile][A] (system 2: slots 2-3 of allo).
+template <bool kAuto>
+__device__ __forceinline__ float slot_log(const SumArgs& a, const float* logs,
+                                          int m, int z, int ll, int g) {
+  const int sys = (kAuto || m < 2) ? 0 : 1;
+  return logs[((sys * a.K + z) * kSumTile + ll) * a.A + g];
+}
 
-__global__ void __launch_bounds__(kThreads) site_ll_kernel(
-    const SiteLlArgs a) {
-  const int n = blockIdx.x, c = blockIdx.y;
-  const int N = a.N, L = a.L, K = a.K, A = a.A, G = a.G, nm = a.n_max;
-  __shared__ float wpart[kWarps];
-  const long long row = ((long long)c * N + n) * 4 * L;
-  const int8_t* zrow = a.z + row;
-  const int8_t* grow = a.geno + row;
-  const int8_t* vrow = a.valid + (long long)n * L;
+// Grid (strips, tiles, C).  kStage: the tile's class table, log
+// multiplicities and slog(freq) (and slog(freq2), allo) in shared memory;
+// else gathered and taken at each site.
+template <bool kAuto, bool kStage>
+__global__ void __launch_bounds__(kThreads, SUMS_MIN_BLOCKS)
+    site_ll_kernel(const SumArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int strip = blockIdx.x, tile = blockIdx.y, c = blockIdx.z;
+  const int K = a.K, L = a.L, A = a.A, G = a.G, N = a.N, tid = threadIdx.x;
+  constexpr int S = kAuto ? 1 : 2;
+  float* logs = reinterpret_cast<float*>(smem);      // [S][K][kSumTile][A]
+  float* tab_s = logs + (kStage ? S * K * kSumTile * A : 0);  // [K][T][G]
+  float* lm_s = tab_s + (kStage ? K * kSumTile * G : 0);      // [T][G]
+  int16_t* s_lut =
+      reinterpret_cast<int16_t*>(lm_s + (kStage ? kSumTile * G : 0));
+  uint8_t* s_cls =
+      reinterpret_cast<uint8_t*>(s_lut + (a.lut_smem ? a.n_cls * a.V : 0));
+  const int lt0 = tile * kSumTile, lt = min(kSumTile, L - lt0);
+  const int lane = tid & 31, warp = tid >> 5;
+  const int ll0 = (lane & (kRowLanes - 1)) * 4, l0 = lt0 + ll0;
+  const bool vec = (L & 3) == 0, on = l0 < L;
+  const int n0 = strip * a.rows, n_end = min(N, n0 + a.rows);
+  const int nm = a.n_max;
+  const int first = warp * (32 / kRowLanes) + lane / kRowLanes;
+  const int steps = (n_end - n0 + kStepRows - 1) / kStepRows;  // uniform
   const float* f1 = a.freq + (long long)c * K * L * A;
   const float* f2 = a.freq2 + (long long)c * K * L * A;
-  float acc = 0.0f;
-  for (int l = threadIdx.x; l < L; l += kThreads) {
-    if (!vrow[l]) continue;
-    int zs[4], gs[4];
+  SiteWords cur, nxt;
+  // the first row's words are in flight while the block stages
+  cur.load(a, c, n0 + first, l0, on && n0 + first < n_end, vec);
+  stage_classes(a, s_lut, s_cls, lt0, lt);
+  if (kStage) {
+    // the slot logs: a pop's frequencies of the tile are one run of lt * A
+    for (int s = 0; s < S; ++s)
+      for (int k = 0; k < K; ++k)
+        stage_run<Run::kLog>(logs + (s * K + k) * kSumTile * A,
+                             (s == 0 ? f1 : f2) + ((long long)k * L + lt0) * A,
+                             nullptr, lt * A);
+  }
+  if (kStage) {
+    // the class table and the log multiplicities: runs of lt * G
+    for (int k = 0; k < K; ++k)
+      stage_run<Run::kCopy>(tab_s + k * kSumTile * G,
+                            a.tab + (((long long)c * K + k) * L + lt0) * G,
+                            nullptr, lt * G);
+    stage_run<Run::kCopy>(lm_s, a.log_mult + (long long)lt0 * G, nullptr,
+                          lt * G);
+  }
+  __syncthreads();
+  int row[4];
+  lookup_rows(a, s_cls, ll0, l0, row);
+  for (int i = 0; i < steps; ++i) {
+    const int n = n0 + first + i * kStepRows;
+    if (i + 1 < steps)
+      nxt.load(a, c, n + kStepRows, l0, on && n + kStepRows < n_end, vec);
+    const uint32_t hv = cur.valid_bytes(), same = cur.same_bytes();
+    float acc = 0.0f;
+    if (hv != 0u) {
+      // the word's classes first, then every table read, then the terms
+      int cls[4];
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      zs[m] = zrow[m * L + l];
-      gs[m] = grow[m * L + l];
-    }
-    const int packed = ((gs[0] * nm + gs[1]) * nm + gs[2]) * nm + gs[3];
-    const int cls = __ldg(a.lookup + (long long)l * a.V + packed);
-    float s;
-    if (zs[0] == zs[1] && zs[1] == zs[2] && zs[2] == zs[3]) {
-      s = __ldg(a.table + (((long long)c * K + zs[0]) * L + l) * G + cls);
-    } else {
-      s = __ldg(a.log_mult + (long long)l * G + cls);
+      for (int j = 0; j < 4; ++j)
+        cls[j] = ((hv >> (8 * j + 7)) & 1u)
+                     ? class_at(a, s_lut, row[j], cur.packed(j, nm))
+                     : 0;
+      float base[4];
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const float* f = (a.autopoly || m < 2) ? f1 : f2;
-        s = s + slog(__ldg(f + ((long long)zs[m] * L + l) * A + gs[m]));
+      for (int j = 0; j < 4; ++j) {
+        const bool sj = (same >> (8 * j + 7)) & 1u;
+        const int z0 = sbyte(cur.z[0], j), l = l0 + j, ll = ll0 + j;
+        base[j] = !((hv >> (8 * j + 7)) & 1u) ? 0.0f
+                  : sj ? (kStage ? tab_s[(z0 * kSumTile + ll) * G + cls[j]]
+                                 : __ldg(a.tab + (((long long)c * K + z0) * L +
+                                                  l) * G + cls[j]))
+                       : (kStage ? lm_s[ll * G + cls[j]]
+                                 : __ldg(a.log_mult + (long long)l * G +
+                                         cls[j]));
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (!((hv >> (8 * j + 7)) & 1u)) continue;
+        float s = base[j];
+        if (!((same >> (8 * j + 7)) & 1u)) {
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const int zm = sbyte(cur.z[m], j), gm = sbyte(cur.g[m], j);
+            if (kStage) {
+              s = s + slot_log<kAuto>(a, logs, m, zm, ll0 + j, gm);
+            } else {
+              const float* f = (kAuto || m < 2) ? f1 : f2;
+              s = s + slog(__ldg(f + ((long long)zm * L + l0 + j) * A + gm));
+            }
+          }
+        }
+        acc = acc + s;
       }
     }
-    acc = acc + s;
+    // the row's tile partial: its 8 lanes by a butterfly
+#pragma unroll
+    for (int o = kRowLanes / 2; o >= 1; o >>= 1)
+      acc = acc + __shfl_xor_sync(0xffffffffu, acc, o);
+    if ((lane & (kRowLanes - 1)) == 0 && n < n_end)
+      a.part[((long long)c * a.tiles + tile) * N + n] = acc;
+    cur = nxt;
   }
-  const float total = block_sum(acc, wpart);
-  if (threadIdx.x == 0) a.ll[(long long)c * N + n] = total;
+  if (!last_of(a.tickets + (long long)c * a.strips + strip, a.tiles)) return;
+  // ll[c, n] of the strip's rows: the tiles' partials in tile order
+  for (int n = n0 + tid; n < n_end; n += kThreads) {
+    const float* src = a.part + (long long)c * a.tiles * N + n;
+    float s = __ldcg(src);
+#pragma unroll 8
+    for (int t = 1; t < a.tiles; ++t) s = s + __ldcg(src + (long long)t * N);
+    a.out[(long long)c * N + n] = s;
+  }
 }
 
 }  // namespace
@@ -438,64 +748,133 @@ extern "C" int geno_choice_launch(
   return (int)cudaGetLastError();
 }
 
-extern "C" int s_delta_launch(const void* tab_cur, const void* tab_prop,
-                              const void* lookup, const void* z,
-                              const void* geno, const void* valid, void* part,
-                              void* delta, int C, int N, int L, int K, int G,
-                              int V, int n_max, void* stream) {
-  if (K < 1 || K > kMaxPops || C > 65535) return (int)cudaErrorInvalidValue;
-  if (C == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (N > 0) {
-    SDeltaArgs a;
-    a.tab_cur = (const float*)tab_cur;
-    a.tab_prop = (const float*)tab_prop;
-    a.lookup = (const int*)lookup;
-    a.z = (const int8_t*)z;
-    a.geno = (const int8_t*)geno;
-    a.valid = (const int8_t*)valid;
-    a.part = (float*)part;
-    a.N = N;
-    a.L = L;
-    a.K = K;
-    a.G = G;
-    a.V = V;
-    a.n_max = n_max;
-    s_delta_kernel<<<dim3(N, C, (K + kPopGroup - 1) / kPopGroup), kThreads, 0,
-                     s>>>(a);
-  }
-  const int threads = 64;
-  s_delta_reduce_kernel<<<(C * K + threads - 1) / threads, threads, 0, s>>>(
-      (const float*)part, (float*)delta, C, N, K);
-  return (int)cudaGetLastError();
+// The dynamic shared memory of an s_delta / site_ll launch with the plan's
+// flags (kernels/tetra_geno.py:sums_plan computes the same).
+extern "C" int s_delta_launch_dyn_smem(int K, int G, int V, int n_cls,
+                                       int stage, int lut_smem) {
+  return (int)s_delta_smem(K, G, V, n_cls, stage, lut_smem);
 }
 
-extern "C" int site_ll_launch(const void* table, const void* lookup,
-                              const void* log_mult, const void* freq,
-                              const void* freq2, const void* z,
-                              const void* geno, const void* valid, void* ll,
-                              int C, int N, int L, int K, int A, int G, int V,
-                              int n_max, int autopoly, void* stream) {
-  if (K < 1 || C > 65535) return (int)cudaErrorInvalidValue;
-  if (C == 0 || N == 0) return 0;
-  SiteLlArgs a;
-  a.table = (const float*)table;
-  a.lookup = (const int*)lookup;
-  a.log_mult = (const float*)log_mult;
-  a.freq = (const float*)freq;
-  a.freq2 = (const float*)(freq2 != nullptr ? freq2 : freq);
+extern "C" int site_ll_launch_dyn_smem(int K, int A, int G, int V, int n_cls,
+                                       int autopoly, int stage,
+                                       int lut_smem) {
+  return (int)site_ll_smem(K, A, G, V, n_cls, autopoly, stage, lut_smem);
+}
+
+namespace {
+
+// The plan's launch of an s_delta / site_ll body: grid (strips, tiles, C),
+// its dynamic shared memory opted in beyond 48 KB.
+template <class Kernel>
+cudaError_t launch_sums(Kernel kernel, const SumArgs& a, int C, size_t smem,
+                        cudaStream_t s) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<dim3(a.strips, a.tiles, C), kThreads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+// Fills the arguments the two share and checks the plan: every row in a
+// strip, every locus in a tile, the grid and the class rows' width.
+bool sums_args(SumArgs& a, const void* lut, const void* cls_of,
+               const void* z, const void* geno, const void* valid,
+               void* part, void* tickets, void* out, int C, int N, int L,
+               int K, int G, int V, int n_max, int n_cls, int strips,
+               int rows, int lut_smem) {
+  a.lut = (const int*)lut;
+  a.cls_of = (const uint8_t*)cls_of;
   a.z = (const int8_t*)z;
   a.geno = (const int8_t*)geno;
   a.valid = (const int8_t*)valid;
-  a.ll = (float*)ll;
+  a.part = (float*)part;
+  a.tickets = (int*)tickets;
+  a.out = (float*)out;
   a.N = N;
   a.L = L;
   a.K = K;
-  a.A = A;
   a.G = G;
   a.V = V;
   a.n_max = n_max;
-  a.autopoly = autopoly;
-  site_ll_kernel<<<dim3(N, C), kThreads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  a.n_cls = n_cls;
+  a.strips = strips;
+  a.rows = rows;
+  a.tiles = (L + kSumTile - 1) / kSumTile;
+  a.lut_smem = lut_smem;
+  return K >= 1 && K <= kMaxPops && C <= 65535 && a.tiles <= 65535 &&
+         strips >= 1 && rows >= 1 && (long long)strips * rows >= N &&
+         (long long)(strips - 1) * rows < N &&
+         (cls_of != nullptr || !lut_smem) && (!lut_smem || G <= 32767);
+}
+
+}  // namespace
+
+// s_delta and site_ll take their launch plan from the wrappers (strips,
+// rows, stage, lut_smem: kernels/tetra_geno.py:sums_plan).  lookup is
+// lookup_l [L, V], or with cls_of [L] the class rows [n_cls, V]; part and
+// tickets are the wrapper's scratch (tickets zero between calls).
+
+extern "C" int s_delta_launch(const void* tab_cur, const void* tab_prop,
+                              const void* lookup, const void* cls_of,
+                              const void* z, const void* geno,
+                              const void* valid, void* part, void* tickets,
+                              void* delta, int C, int N, int L, int K, int G,
+                              int V, int n_max, int n_cls, int strips,
+                              int rows, int stage, int lut_smem,
+                              void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (K < 1 || K > kMaxPops || C > 65535) return (int)cudaErrorInvalidValue;
+  if (C == 0) return 0;
+  if (N == 0 || L == 0) {
+    cudaMemsetAsync(delta, 0, sizeof(float) * (size_t)C * K, s);
+    return (int)cudaGetLastError();
+  }
+  SumArgs a = {};
+  if (!sums_args(a, lookup, cls_of, z, geno, valid, part, tickets, delta, C,
+                 N, L, K, G, V, n_max, n_cls, strips, rows, lut_smem))
+    return (int)cudaErrorInvalidValue;
+  a.tab = (const float*)tab_cur;
+  a.tab_prop = (const float*)tab_prop;
+  const size_t smem = s_delta_smem(K, G, V, n_cls, stage, lut_smem);
+  return (int)(stage ? launch_sums(s_delta_kernel<true>, a, C, smem, s)
+                     : launch_sums(s_delta_kernel<false>, a, C, smem, s));
+}
+
+extern "C" int site_ll_launch(const void* table, const void* lookup,
+                              const void* cls_of, const void* log_mult,
+                              const void* freq, const void* freq2,
+                              const void* z, const void* geno,
+                              const void* valid, void* part, void* tickets,
+                              void* ll, int C, int N, int L, int K, int A,
+                              int G, int V, int n_max, int n_cls,
+                              int autopoly, int strips, int rows, int stage,
+                              int lut_smem, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (K < 1 || K > kMaxPops || C > 65535) return (int)cudaErrorInvalidValue;
+  if (C == 0 || N == 0) return 0;
+  if (L == 0) {
+    cudaMemsetAsync(ll, 0, sizeof(float) * (size_t)C * N, s);
+    return (int)cudaGetLastError();
+  }
+  SumArgs a = {};
+  if (!sums_args(a, lookup, cls_of, z, geno, valid, part, tickets, ll, C, N,
+                 L, K, G, V, n_max, n_cls, strips, rows, lut_smem))
+    return (int)cudaErrorInvalidValue;
+  a.tab = (const float*)table;
+  a.log_mult = (const float*)log_mult;
+  a.freq = (const float*)freq;
+  a.freq2 = (const float*)(freq2 != nullptr ? freq2 : freq);
+  a.A = A;
+  const size_t smem =
+      site_ll_smem(K, A, G, V, n_cls, autopoly, stage, lut_smem);
+  cudaError_t e;
+  if (autopoly)
+    e = stage ? launch_sums(site_ll_kernel<true, true>, a, C, smem, s)
+              : launch_sums(site_ll_kernel<true, false>, a, C, smem, s);
+  else
+    e = stage ? launch_sums(site_ll_kernel<false, true>, a, C, smem, s)
+              : launch_sums(site_ll_kernel<false, false>, a, C, smem, s);
+  return (int)e;
 }

@@ -90,12 +90,18 @@ _SIGNATURES = {
     # gumbel, choice, C, N, L, K, A, G, n_cand, autopoly, k0, k1, chain_key,
     # step, stream
     "geno_choice_launch": [_P] * 12 + [_I] * 8 + [_U, _U, _P, _U, _P],
-    # tab_cur, tab_prop, lookup, z, geno, valid, part, delta, C, N, L, K, G,
-    # V, n_max, stream
-    "s_delta_launch": [_P] * 8 + [_I] * 7 + [_P],
-    # table, lookup, log_mult, freq, freq2, z, geno, valid, ll, C, N, L, K,
-    # A, G, V, n_max, autopoly, stream
-    "site_ll_launch": [_P] * 9 + [_I] * 9 + [_P],
+    # tab_cur, tab_prop, lookup, cls_of, z, geno, valid, part, tickets,
+    # delta, C, N, L, K, G, V, n_max, n_cls, strips, rows, stage, lut_smem,
+    # stream
+    "s_delta_launch": [_P] * 10 + [_I] * 12 + [_P],
+    # table, lookup, cls_of, log_mult, freq, freq2, z, geno, valid, part,
+    # tickets, ll, C, N, L, K, A, G, V, n_max, n_cls, autopoly, strips, rows,
+    # stage, lut_smem, stream
+    "site_ll_launch": [_P] * 12 + [_I] * 14 + [_P],
+    # (K, G, V, n_cls, stage, lut_smem) / (K, A, G, V, n_cls, autopoly,
+    # stage, lut_smem) -> dynamic shared-memory bytes of a K6 / K7 launch
+    "s_delta_launch_dyn_smem": [_I] * 6,
+    "site_ll_launch_dyn_smem": [_I] * 8,
     # L -> locus tiles per row of the site pass; N -> its row strips (not
     # launches)
     "site_pass_tiles": [_I],

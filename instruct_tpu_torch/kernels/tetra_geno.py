@@ -17,7 +17,11 @@ Counterpart of ``instruct_tpu/kernels/tetra_geno_pallas.py``:
 
 Chains are a written-out leading axis.  On CUDA tensors the wrappers launch
 ``csrc/tetra_geno.cu``; on CPU tensors they run the plain versions
-(``*_reference``, same signature) below.  The engine (``tetra/engine.py``)
+(``*_reference``, same signature) below.  K6 and K7 take an optional
+:class:`ClassMap` (the engine passes it): the few per-class rows that
+``lookup_l`` repeats, with each locus's class, which their kernels stage in
+shared memory; the results are the same with or without it.  Their launch
+plan is :func:`sums_plan`.  The engine (``tetra/engine.py``)
 calls the wrappers on both of its sweeps; it uses the lookups here only to
 build its data-only tables.  Every lookup is a gather on a flat index
 (``table_at``, ``site_class``): the JAX package's select chains exist for the
@@ -34,7 +38,7 @@ f32[C, n_cand, N, L] injects the noise instead.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -43,6 +47,41 @@ from instruct_tpu_torch.kernels import philox as px
 
 MAX_POPS = 127     # z is int8
 MAX_CAND = 12      # candidate orderings per site (allotetraploid)
+
+# The launch plan of K6 and K7 (csrc/tetra_geno.cu: kThreads, kSumTile): a
+# block of SUM_THREADS threads owns a tile of SUM_TILE loci of one chain and
+# a strip of rows, 4 loci a lane, SUM_THREADS / (SUM_TILE / 4) rows a step.
+# ``sums_plan`` takes these four as its defaults.
+SUM_THREADS, SUM_TILE = 256, 32
+# blocks a launch aims at: two waves of 132 SMs x 4 blocks
+SUMS_BLOCKS_TARGET = 1056
+# shared memory a block may take to stage its tables (3 blocks an SM), and
+# to stage the class rows
+STAGE_SMEM = 72 * 1024
+LUT_SMEM = 16 * 1024
+SMEM_MAX = 232_448
+GRID_MAX = 65_535
+
+
+class ClassMap(NamedTuple):
+    """The class map of a panel: ``lookup`` i32[n_cls, V] the packed code
+    -> class rows of its allele-count classes, ``of_locus`` u8[L] the class
+    row of each locus, so that ``lookup_l == lookup[of_locus]``."""
+    of_locus: torch.Tensor
+    lookup: torch.Tensor
+
+
+class SumsPlan(NamedTuple):
+    """Launch plan of one K6 or K7 call: ``stage`` the tile's tables in
+    shared memory (else gathered at each site), ``lut_smem`` the class rows
+    in shared memory, the grid (strips, tiles, C) with ``rows`` rows a
+    strip, and the dynamic shared memory of a block."""
+    stage: bool
+    lut_smem: bool
+    strips: int
+    rows: int
+    tiles: int
+    dyn_smem: int
 _EPS = 1e-30
 _NEG = -1e30
 
@@ -68,15 +107,20 @@ def same_z(zc) -> torch.Tensor:
     return (zc[0] == zc[1]) & (zc[1] == zc[2]) & (zc[2] == zc[3])
 
 
-def site_class(lookup_l: torch.Tensor, geno: torch.Tensor) -> torch.Tensor:
+def site_class(lookup_l: torch.Tensor, geno: torch.Tensor,
+               classes: Optional[ClassMap] = None) -> torch.Tensor:
     """Class index int64[..., L] of the ordered genotypes ``geno``
     [..., 4L]: the per-locus lookup ``lookup_l`` i32[L, V] (V = n_max^4) at
     the base-n_max packed code (get_index_auto/allo,
-    poly_geno.c:1289-1311, 1374-1394)."""
+    poly_geno.c:1289-1311, 1374-1394); with ``classes``, the class row of
+    each locus instead (the same values)."""
     l, v = lookup_l.shape
     nm = round(v ** 0.25)
     g0, g1, g2, g3 = split4(geno)
     packed = ((g0 * nm + g1) * nm + g2) * nm + g3
+    if classes is not None:
+        rows = classes.of_locus.to(torch.int64)
+        return torch.take(classes.lookup, rows * v + packed).to(torch.int64)
     loc = torch.arange(l, device=geno.device)
     return torch.take(lookup_l, loc * v + packed).to(torch.int64)
 
@@ -124,12 +168,13 @@ def mix_per_allele(freq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 
 def site_loglik(table, lookup_l, log_mult_l, freq, freq2, z, geno,
-                site_valid, *, autopoly: bool) -> torch.Tensor:
+                site_valid, *, autopoly: bool,
+                classes: Optional[ClassMap] = None) -> torch.Tensor:
     """Per-site log-lik f32[C, N, L] (cal_lkd via calc_genofq,
     poly_geno.c:715-735, 1235-1286): ``table[z0, l, cls]`` at same-z sites,
     ``log_mult[l, cls] + sum_m log freq_sys(m)[z_m, l, g_m]`` (slot order)
     elsewhere, 0 at invalid sites."""
-    cls = site_class(lookup_l, geno)
+    cls = site_class(lookup_l, geno, classes)
     zc, gc = split4(z), split4(geno)
     ll_same = table_at(table, zc[0], cls)
     ll_mix = at_locus(log_mult_l, cls)
@@ -253,14 +298,96 @@ def geno_choice_pass(keys: px.RngKeys, step: int, table: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# K6 and K7: the launch plan and the scratch
+# ---------------------------------------------------------------------------
+
+def sums_plan(kind: str, c: int, n: int, l: int, k: int, g: int, v: int,
+              n_cls: int = 0, a: int = 1, autopoly: bool = True, *,
+              tile: int = SUM_TILE, stage_smem: int = STAGE_SMEM,
+              lut_smem_max: int = LUT_SMEM,
+              blocks_target: int = SUMS_BLOCKS_TARGET) -> SumsPlan:
+    """The launch plan of K6 (``kind="s_delta"``) or K7 (``"site_ll"``) for
+    C = c chains of an n x l panel at K = k pops, G = g classes, V = v
+    packed codes and A = a alleles, with a class map of ``n_cls`` rows (0:
+    none), as ``csrc/tetra_geno.cu`` takes it.  Pure arithmetic: the CPU
+    tests check that it fits the card and covers every locus and row; the
+    card checks its shared memory against the kernels'
+    ``*_launch_dyn_smem``.
+
+    The class rows are staged where they take at most ``lut_smem_max``
+    bytes as int16; the tile's tables where the block's shared memory stays
+    within ``stage_smem``.  Strips: as many as bring the grid nearest to
+    ``blocks_target`` blocks, at least a block step of rows each.  ``tile``
+    must be the ``kSumTile`` the kernels were built with."""
+    tiles = max(1, -(-l // tile))
+    lut_smem = 0 < n_cls and 2 * n_cls * v <= lut_smem_max and g <= 32767
+    lut = 2 * n_cls * v if lut_smem else 0
+    if kind == "s_delta":
+        def smem(stage):
+            return 4 * k * SUM_THREADS + (4 * k * tile * g if stage
+                                          else 0) + lut + tile
+    elif kind == "site_ll":
+        def smem(stage):
+            sys = 1 if autopoly else 2
+            return (4 * (sys * k * tile * a + (k + 1) * tile * g)
+                    if stage else 0) + lut + tile
+    else:
+        raise ValueError(f"sums_plan: kind {kind!r}")
+    stage = smem(True) <= stage_smem
+    step_rows = SUM_THREADS // (tile // 4)
+    strips = max(1, min(round(blocks_target / (c * tiles)),
+                        -(-n // step_rows)))
+    rows = max(1, -(-n // strips))
+    strips = max(1, -(-n // rows))
+    return SumsPlan(stage, lut_smem, strips, rows, tiles, smem(stage))
+
+
+_SCRATCH: dict = {}
+
+
+def _sums_scratch(dev, kind: str, c: int, n: int, k: int, plan: SumsPlan):
+    """(part, tickets) of a K6 or K7 call: K6's block partials f32[C, B, K]
+    (B = tiles x strips) and a ticket a chain, K7's tile partials
+    f32[C, T, N] and a ticket a (chain, strip).  Allocated once per device,
+    kernel and shape and kept: the tickets are zeroed once and every call
+    leaves them zero.  Calls that share them run in stream order."""
+    key = (dev, kind, c, n, k, plan.strips, plan.tiles)
+    hit = _SCRATCH.get(key)
+    if hit is None:
+        if kind == "s_delta":
+            part = torch.empty((c, plan.tiles * plan.strips, k),
+                               dtype=torch.float32, device=dev)
+            tickets = torch.zeros(c, dtype=torch.int32, device=dev)
+        else:
+            part = torch.empty((c, plan.tiles, n), dtype=torch.float32,
+                               device=dev)
+            tickets = torch.zeros(c * plan.strips, dtype=torch.int32,
+                                  device=dev)
+        hit = _SCRATCH[key] = (part, tickets)
+    return hit
+
+
+def _class_args(lookup_l: torch.Tensor, classes: Optional[ClassMap]):
+    """(lookup, cls_of, n_cls) of a launch: the class rows and the map, or
+    the per-locus rows."""
+    l, v = lookup_l.shape
+    if classes is None:
+        return lookup_l, None, 0
+    n_cls = classes.lookup.shape[0]
+    _build.check(classes.lookup, "classes.lookup", torch.int32, (n_cls, v))
+    _build.check(classes.of_locus, "classes.of_locus", torch.uint8, (l,))
+    return classes.lookup, classes.of_locus, n_cls
+
+
+# ---------------------------------------------------------------------------
 # K6: the S update's per-pop log-ratio
 # ---------------------------------------------------------------------------
 
 def s_delta_pass_reference(tab_cur, tab_prop, lookup_l, z, geno,
-                           site_valid):
+                           site_valid, classes=None):
     """Plain PyTorch version of :func:`s_delta_pass` (same signature)."""
     k = tab_cur.shape[1]
-    cls = site_class(lookup_l, geno)
+    cls = site_class(lookup_l, geno, classes)
     zc = split4(z)
     mask = same_z(zc) & site_valid[None]
     d = table_at(tab_prop, zc[0], cls) - table_at(tab_cur, zc[0], cls)
@@ -271,14 +398,18 @@ def s_delta_pass_reference(tab_cur, tab_prop, lookup_l, z, geno,
 
 def s_delta_pass(tab_cur: torch.Tensor, tab_prop: torch.Tensor,
                  lookup_l: torch.Tensor, z: torch.Tensor, geno: torch.Tensor,
-                 site_valid: torch.Tensor) -> torch.Tensor:
+                 site_valid: torch.Tensor,
+                 classes: Optional[ClassMap] = None, *,
+                 plan: Optional[SumsPlan] = None) -> torch.Tensor:
     """delta f32[C, K]: per chain and pop, the sum over the valid sites whose
     four copies sit in pop k of ``tab_prop - tab_cur`` at (k, l,
     class(geno)).  tab_* f32[C, K, L, G]; lookup_l i32[L, V] (packed code ->
-    class per locus); z, geno i8[C, N, 4L]; site_valid bool[N, L]."""
+    class per locus); z, geno i8[C, N, 4L]; site_valid bool[N, L];
+    ``classes`` optionally the class map of ``lookup_l``; ``plan`` the
+    launch plan (default :func:`sums_plan`'s)."""
     if not z.is_cuda:
         return s_delta_pass_reference(tab_cur, tab_prop, lookup_l, z, geno,
-                                      site_valid)
+                                      site_valid, classes)
     c, k, l, g = tab_cur.shape
     n = site_valid.shape[0]
     v = lookup_l.shape[1]
@@ -291,12 +422,17 @@ def s_delta_pass(tab_cur: torch.Tensor, tab_prop: torch.Tensor,
     chk(z, "z", torch.int8, (c, n, 4 * l))
     chk(geno, "geno", torch.int8, (c, n, 4 * l))
     chk(site_valid, "site_valid", torch.bool, (n, l))
-    part = torch.empty((c, n, k), dtype=torch.float32, device=z.device)
+    lut, cls_of, n_cls = _class_args(lookup_l, classes)
+    if plan is None:
+        plan = sums_plan("s_delta", c, n, l, k, g, v, n_cls)
+    part, tickets = _sums_scratch(z.device, "s_delta", c, n, k, plan)
     delta = torch.empty((c, k), dtype=torch.float32, device=z.device)
     p = _build.ptr
     _build.launch("s_delta_pass", "s_delta_launch", p(tab_cur), p(tab_prop),
-                  p(lookup_l), p(z), p(geno), p(site_valid), p(part),
-                  p(delta), c, n, l, k, g, v, round(v ** 0.25))
+                  p(lut), p(cls_of), p(z), p(geno), p(site_valid), p(part),
+                  p(tickets), p(delta), c, n, l, k, g, v, round(v ** 0.25),
+                  n_cls, plan.strips, plan.rows, int(plan.stage),
+                  int(plan.lut_smem))
     return delta
 
 
@@ -305,31 +441,38 @@ def s_delta_pass(tab_cur: torch.Tensor, tab_prop: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def site_ll_pass_reference(table, lookup_l, log_mult_l, freq, freq2, z, geno,
-                           site_valid, *, autopoly: bool):
+                           site_valid, *, autopoly: bool, classes=None):
     """Plain PyTorch version of :func:`site_ll_pass` (same signature)."""
     return site_loglik(table, lookup_l, log_mult_l, freq, freq2, z, geno,
-                       site_valid, autopoly=autopoly).sum(dim=2)
+                       site_valid, autopoly=autopoly,
+                       classes=classes).sum(dim=2)
 
 
 def site_ll_pass(table: torch.Tensor, lookup_l: torch.Tensor,
                  log_mult_l: torch.Tensor, freq: torch.Tensor,
                  freq2: Optional[torch.Tensor], z: torch.Tensor,
                  geno: torch.Tensor, site_valid: torch.Tensor, *,
-                 autopoly: bool) -> torch.Tensor:
+                 autopoly: bool,
+                 classes: Optional[ClassMap] = None,
+                 plan: Optional[SumsPlan] = None) -> torch.Tensor:
     """Per-individual log-lik f32[C, N]: :func:`site_loglik` summed over
     loci.  table f32[C, K, L, G]; lookup_l i32[L, V]; log_mult_l f32[L, G]
     (the log multiplicity of each class at each locus); freq, freq2
     f32[C, K, L, A] (freq2 ignored, may be None, when ``autopoly``); z, geno
-    i8[C, N, 4L]; site_valid bool[N, L]."""
+    i8[C, N, 4L]; site_valid bool[N, L]; ``classes`` optionally the class
+    map of ``lookup_l``; ``plan`` the launch plan (default
+    :func:`sums_plan`'s)."""
     if freq2 is None or autopoly:
         freq2 = freq
     if not z.is_cuda:
         return site_ll_pass_reference(table, lookup_l, log_mult_l, freq,
                                       freq2, z, geno, site_valid,
-                                      autopoly=autopoly)
+                                      autopoly=autopoly, classes=classes)
     c, k, l, g = table.shape
     n = site_valid.shape[0]
     a, v = freq.shape[3], lookup_l.shape[1]
+    if not 1 <= k <= MAX_POPS:
+        raise ValueError(f"site_ll_pass: K = {k}, at most {MAX_POPS}")
     chk = _build.check
     chk(table, "table", torch.float32, (c, k, l, g))
     chk(lookup_l, "lookup_l", torch.int32, (l, v))
@@ -339,10 +482,16 @@ def site_ll_pass(table: torch.Tensor, lookup_l: torch.Tensor,
     chk(z, "z", torch.int8, (c, n, 4 * l))
     chk(geno, "geno", torch.int8, (c, n, 4 * l))
     chk(site_valid, "site_valid", torch.bool, (n, l))
+    lut, cls_of, n_cls = _class_args(lookup_l, classes)
+    if plan is None:
+        plan = sums_plan("site_ll", c, n, l, k, g, v, n_cls, a, autopoly)
+    part, tickets = _sums_scratch(z.device, "site_ll", c, n, k, plan)
     ll = torch.empty((c, n), dtype=torch.float32, device=z.device)
     p = _build.ptr
     _build.launch("site_ll_pass_" + ("auto" if autopoly else "allo"),
-                  "site_ll_launch", p(table), p(lookup_l), p(log_mult_l),
-                  p(freq), p(freq2), p(z), p(geno), p(site_valid), p(ll), c,
-                  n, l, k, a, g, v, round(v ** 0.25), int(autopoly))
+                  "site_ll_launch", p(table), p(lut), p(cls_of),
+                  p(log_mult_l), p(freq), p(freq2), p(z), p(geno),
+                  p(site_valid), p(part), p(tickets), p(ll), c, n, l, k, a,
+                  g, v, round(v ** 0.25), n_cls, int(autopoly), plan.strips,
+                  plan.rows, int(plan.stage), int(plan.lut_smem))
     return ll

@@ -108,6 +108,9 @@ class TetraTables(NamedTuple):
     #   ordering multiplicity
     cand_nc: Optional[torch.Tensor] = None    # u8[N, L] valid candidates
     dist8: Optional[torch.Tensor] = None      # i8[N, 4L] Dataset.distinct
+    # the class rows that lookup_l repeats and each locus's row (K6 and K7
+    # stage the rows in shared memory)
+    class_map: Optional[tg.ClassMap] = None
 
     @property
     def n_cand(self) -> int:
@@ -145,7 +148,9 @@ def build_tables(spec: ModelSpec, data: Dataset,
         lookup_l=dev_t(ct.lookup[cls], torch.int32),
         log_mult_l=dev_t(ct.log_mult[cls], torch.float32),
         digits_l=dev_t(ct.digits[cls], torch.int64),
-        gvalid_l=dev_t(ct.valid[cls], torch.bool))
+        gvalid_l=dev_t(ct.valid[cls], torch.bool),
+        class_map=tg.ClassMap(dev_t(cls, torch.uint8),
+                              dev_t(ct.lookup, torch.int32)))
     if not with_candidates:
         return tab
     if data.distinct is None or data.n_distinct is None:
@@ -257,7 +262,8 @@ def site_indv_loglik(tables: TetraTables, spec: ModelSpec, data: Dataset,
     loci): the ``site_ll_pass`` kernel (K7)."""
     return tg.site_ll_pass(table, tables.lookup_l, tables.log_mult_l, freq,
                            freq2, z, geno, data.site_valid,
-                           autopoly=bool(spec.autopoly))
+                           autopoly=bool(spec.autopoly),
+                           classes=tables.class_map)
 
 
 # ---------------------------------------------------------------------------
@@ -505,7 +511,8 @@ def build_tetra_step(spec: ModelSpec, data: Dataset,
                                                      fresh[:, j], rates, ais)
             tab_prop = selfing_equilibrium(tables, log_hwe, prop)
             delta = tg.s_delta_pass(tab_cur, tab_prop, tables.lookup_l,
-                                    state.z, state.geno, data.site_valid)
+                                    state.z, state.geno, data.site_valid,
+                                    tables.class_map)
             accept = torch.log(u_acc[:, j]) < delta + log_hast
             rates = torch.where(accept, prop, rates)
             ais = torch.where(accept, prop_states, ais)

@@ -47,6 +47,7 @@ from instruct_tpu_torch.kernels import fused_step as fs
 from instruct_tpu_torch.kernels import philox as px
 from instruct_tpu_torch.tetra import engine as te
 from instruct_tpu_torch.tools import geno_zq_variants as gzv
+from instruct_tpu_torch.tools import profiling
 from instruct_tpu_torch.tools import site_pass_variants as spv
 
 K3_SOURCE, K4_SOURCE = "dirichlet.cu", "allele_counts.cu"
@@ -248,23 +249,6 @@ def k4_plain(shape: str):
     return fs.allele_counts_reference(z, geno, valid, **kw)
 
 
-def device_ms(run, name: str, n: int = 30) -> float:
-    """Device time of one ``run()`` in ms from ``torch.profiler``: the
-    kernels whose name holds ``name``, over their count."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            run()
-        torch.cuda.synchronize()
-    rows = [ev for ev in prof.key_averages() if name in ev.key]
-    count = sum(ev.count for ev in rows)
-    total = sum(getattr(ev, "self_device_time_total", 0.0) for ev in rows)
-    return total / count / 1e3 if count else float("nan")
-
-
 def k3_matches(got, want, margin) -> bool:
     """Every cell within rtol 1e-4, atol 1e-6 of the plain version, apart
     from groups with an accept test within f32 rounding of its threshold
@@ -326,7 +310,7 @@ def main(argv=None) -> int:
                 with library(lib):
                     out = run()
                     ms = spv.time_ms(run)
-                    dev = device_ms(run, KERNEL_NAMES[src])
+                    dev = profiling.device_ms(run, KERNEL_NAMES[src])
                 # the plain versions draw their uniforms through the
                 # package's own library
                 if tag != "base":

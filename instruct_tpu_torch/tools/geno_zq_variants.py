@@ -25,7 +25,9 @@ One line per variant and shape; nothing is written to the package.  A
 tuning aid: it shows which part of a kernel a change would have to attack.
 
 :func:`build_library` and :func:`parent_call` are also how ``chip_smoke.py
---parent-csrc`` times the parent's K5 and K8 beside the current ones.
+--parent-csrc`` times the parent's K5 to K8 beside the current ones (K6 and
+K7 through the launch functions of their first bodies where the library has
+them).
 """
 
 from __future__ import annotations
@@ -62,6 +64,10 @@ HEADERS = ("philox.cuh", "quad.cuh")
 _P, _I, _L, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_uint)
 FIRST_ZQ_SIGNATURE = [_P] * 7 + [_I] * 6 + [_L, _U, _U, _P, _U, _P]
+# The first K6 and K7 bodies' launch functions: a block per row, K6 with a
+# per-row partial buffer [C, N, K] and a second reduce kernel.
+FIRST_S_DELTA_SIGNATURE = [_P] * 8 + [_I] * 7 + [_P]
+FIRST_SITE_LL_SIGNATURE = [_P] * 9 + [_I] * 9 + [_P]
 
 _CHEAP_PHILOX = ("r = Philox4{(uint32_t)site * 2654435761u, chain, a.step, "
                  "(uint32_t)cc}; if (a.k0 == 12345u && a.k1 == 54321u) "
@@ -156,10 +162,16 @@ def finish_build(build: dict):
     """The library of a started build, with the first K8 body's launch
     signature where its source has no ``zq_sample_launch_dyn_smem``."""
     lib, ptxas = spv.finish_build(build)
-    fn = getattr(lib, "zq_sample_launch", None)
-    if fn is not None and getattr(lib, "zq_sample_launch_dyn_smem",
-                                  None) is None:
-        fn.argtypes = FIRST_ZQ_SIGNATURE
+    for name, probe, first in (
+            ("zq_sample_launch", "zq_sample_launch_dyn_smem",
+             FIRST_ZQ_SIGNATURE),
+            ("s_delta_launch", "s_delta_launch_dyn_smem",
+             FIRST_S_DELTA_SIGNATURE),
+            ("site_ll_launch", "site_ll_launch_dyn_smem",
+             FIRST_SITE_LL_SIGNATURE)):
+        fn = getattr(lib, name, None)
+        if fn is not None and getattr(lib, probe, None) is None:
+            fn.argtypes = first
     return lib, ptxas
 
 
@@ -210,14 +222,50 @@ def zq_call(lib, keys, step, q, freq, geno, site_valid, plan=None):
     return z, qqnum
 
 
+def first_sums_call(lib, kernel: str, args: tuple, kw: dict):
+    """K6 (``s_delta_pass``) or K7 (``site_ll_pass``) through a library of
+    their first bodies, launched as their first wrappers launched them (the
+    per-locus lookup rows; K6 with a fresh [C, N, K] row buffer)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    p = _build.ptr
+    if kernel == "s_delta_pass":
+        tab_cur, tab_prop, lookup_l, z, geno, site_valid = args[:6]
+        c, k, l, g = tab_cur.shape
+        n, v = site_valid.shape[0], lookup_l.shape[1]
+        part = torch.empty((c, n, k), dtype=torch.float32, device=z.device)
+        out = torch.empty((c, k), dtype=torch.float32, device=z.device)
+        rc = lib.s_delta_launch(p(tab_cur), p(tab_prop), p(lookup_l), p(z),
+                                p(geno), p(site_valid), p(part), p(out), c,
+                                n, l, k, g, v, round(v ** 0.25), stream)
+    else:
+        table, lookup_l, log_mult_l, freq, freq2, z, geno, site_valid = \
+            args[:8]
+        auto = bool(kw["autopoly"])
+        freq2 = freq if (freq2 is None or auto) else freq2
+        c, k, l, g = table.shape
+        n, a, v = site_valid.shape[0], freq.shape[3], lookup_l.shape[1]
+        out = torch.empty((c, n), dtype=torch.float32, device=z.device)
+        rc = lib.site_ll_launch(p(table), p(lookup_l), p(log_mult_l),
+                                p(freq), p(freq2), p(z), p(geno),
+                                p(site_valid), p(out), c, n, l, k, a, g, v,
+                                round(v ** 0.25), int(auto), stream)
+    if rc:
+        raise RuntimeError(f"the first {kernel} body failed to launch ({rc})")
+    return out
+
+
 def parent_call(lib, kernel: str, args: tuple, kw: dict, plan=None):
-    """One call of K5 (``geno_choice_pass``) or K8 (``zq_sample_counts``)
-    through another tree's library ``lib``, with the current wrapper's
-    arguments (and K8's plan constants ``plan``)."""
+    """One call of K5 (``geno_choice_pass``), K6 (``s_delta_pass``), K7
+    (``site_ll_pass``) or K8 (``zq_sample_counts``) through another tree's
+    library ``lib``, with the current wrapper's arguments (and K8's plan
+    constants ``plan``)."""
     if kernel == "zq_sample_counts":
         return zq_call(lib, *args, plan=plan)
+    if kernel in ("s_delta_pass", "site_ll_pass") and getattr(
+            lib, "s_delta_launch_dyn_smem", None) is None:
+        return first_sums_call(lib, kernel, args, kw)
     with library(lib):
-        return tg.geno_choice_pass(*args, **kw)
+        return getattr(tg, kernel)(*args, **kw)
 
 
 @functools.lru_cache(maxsize=None)

@@ -29,6 +29,7 @@ import torch
 
 from instruct_tpu_torch.kernels import _build
 from instruct_tpu_torch.kernels import philox as px
+from instruct_tpu_torch.tools import profiling
 
 C, N, K, J = 4, 1000, 3, 12
 
@@ -46,26 +47,6 @@ VARIANTS = {
     "no G proposal": [("      if (m < items) gen_proposal(",
                        "      if (m < 0) gen_proposal(")],
 }
-
-
-def device_ms(fn, name: str, n: int = 30):
-    """Device time of one ``fn()`` in ms: the profiler's total for kernels
-    whose name holds ``name``, over their count (None where the profiler
-    recorded none)."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total = count = 0
-    for ev in prof.key_averages():
-        if name in ev.key:
-            total += getattr(ev, "self_device_time_total", 0.0)
-            count += ev.count
-    return total / count / 1e3 if count else None
 
 
 def build(work: pathlib.Path, tag: str, text: str):
@@ -135,10 +116,10 @@ def main() -> int:
                 if rc:
                     raise RuntimeError(f"launch refused: {rc}")
 
-            print(json.dumps(dict(variant=tag,
-                                  tail_ms=device_ms(tail, "s_pop_tail"),
-                                  floor_ms=device_ms(floor, "s_pop_floor"))),
-                  flush=True)
+            tail_ms = profiling.device_ms(tail, "s_pop_tail")
+            floor_ms = profiling.device_ms(floor, "s_pop_floor")
+            print(json.dumps(dict(variant=tag, tail_ms=tail_ms,
+                                  floor_ms=floor_ms)), flush=True)
     return 0
 
 
