@@ -24,7 +24,12 @@ adaptive-independence proposal; the tetraploid engine, auto and allo, and
 its four-subsweep S update, adaptive proposal, unfused sweep and a panel of
 wide class tables (A = 8, K * G = 1320) -- and checks that each
 went through its kernels, that its output is sane and that two runs from one
-seed are bitwise equal.
+seed are bitwise equal.  Phase ``cli`` runs the command line a user runs:
+the headline panel written as a genotype file and parsed back by the native
+tokenizer, the mode-2 ``cli.main`` run with checkpoints, progress, the JSONL
+log and the ``-cf`` dump, its resume from the first checkpoint to a
+byte-identical report, ``python -m instruct_tpu_torch`` in a process of its
+own, ``-ik 1`` over K = 1..10 and ``-p 4`` on the tetraploid panel.
 Every phase prints one JSON line; any failure raises, so the exit code is
 non-zero.  There is no CPU path: without a CUDA device the script exits with
 code 1 and prints no result.
@@ -34,7 +39,7 @@ prints them; the line before that is the ``{"kernels": [...]}`` summary; the
 last line is ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset of build, kernels, main_path, modes, unfused,
-tetra, kselect (development aid); the device and Philox phases always run.
+tetra, kselect, cli (development aid); the device and Philox phases always run.
 ``--parent-csrc DIR`` (another tree's ``instruct_tpu_torch/csrc``, e.g. a
 ``git archive`` of the parent commit unpacked under ``_parent/``) builds
 that tree's site pass and K3 to K8 beside this one's and times them on
@@ -49,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import ctypes
 import json
 import pathlib
@@ -57,6 +63,7 @@ import statistics
 import subprocess
 import sys
 import shutil
+import tempfile
 import threading
 import time
 
@@ -69,7 +76,9 @@ from instruct_tpu_torch import (ModelSpec, Priors, Schedule, infer_k,
                                 run_mcmc,
                                 synthetic_panel)
 from instruct_tpu_torch.config import PriorFamily
-from instruct_tpu_torch.data.dataset import Dataset, packed_dataset
+from instruct_tpu_torch.data import loader
+from instruct_tpu_torch.data.dataset import (Dataset, make_dataset,
+                                             packed_dataset)
 from instruct_tpu_torch.kernels import _build
 from instruct_tpu_torch.kernels import dirichlet as dk
 from instruct_tpu_torch.kernels import fused_step as fs
@@ -2918,11 +2927,297 @@ def phase_tetra(panels, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the command line, from a genotype file to the report
+# ---------------------------------------------------------------------------
+
+# the mode-2 report's section headers, in the order the report writes them
+# (printinfo, InStruct.c:450-531; chain_stat, result_analysis.c:34-414)
+CLI_HEADERS = (
+    "Run parameters:", "    Chain Number=4", "    MCMC Iterations Number=200",
+    "    Population size=1000", "    Number of loci=10000",
+    "    Population number assumed=3",
+    "    Mode = Make inference of population structure and the selfing "
+    "rates for subpopulations.",
+    "Chain#1:", "The log Likelihood:", "    Posterior Mean =",
+    "The Deviance information criterion of this model is",
+    "    Effective number of parameters pD =",
+    "The Posterior distribution of Selfing Rates:",
+    "The Posterior distribution of Generations:",
+    "Inferred ancestry of individuals:",
+    "The index and name of pre-defined populations:",
+    "Proportion of membership of each pre-defined population",
+    "Estimated allele frequencies:", "Chain#4:",
+    "The Gelman-Rubin statistics for the convergence of log-likelihood is",
+    "Effective sample size of the log-likelihood trace per chain:")
+
+
+def first_appearance_recode(panel):
+    """The panel as ``read_data`` gives it back from ``write_panel``'s file:
+    each biallelic locus's codes renumbered by first appearance in file
+    order (individual by individual, copy 0 then copy 1; transform_data,
+    data_interface.c:510-547), missing sites 0.  Computed here from the
+    panel's own arrays, apart from the loader."""
+    g = panel.data.geno3.astype(np.int64)                  # [N, L, 2]
+    valid = panel.data.site_valid.cpu().numpy()
+    flat = g.transpose(1, 0, 2).reshape(g.shape[1], -1)     # [L, 2N]
+    vflat = np.repeat(valid.T, 2, axis=1)
+    first = flat[np.arange(flat.shape[0]), vflat.argmax(axis=1)]
+    recoded = np.where(first[None, :, None] == 1, 1 - g, g)
+    return make_dataset(recoded, ~valid, np.full(g.shape[1], 2))
+
+
+def run_cli(argv, capture: bool = True):
+    """``instruct_tpu_torch.cli.main(argv)`` in this process with the launch
+    counts set to 0 just before and read just after: (exit code, wall
+    seconds, launches, captured stdout)."""
+    import io
+    from instruct_tpu_torch import cli
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.time()
+    with (contextlib.redirect_stdout(out) if capture
+          else contextlib.nullcontext()):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    return rc, wall, dict(_build.launches), out.getvalue()
+
+
+def cli_expected(spec, data, start, stop, seg, attempts, resumed):
+    """Launches the CLI's segmented ``run_mcmc`` predicts for sweeps
+    ``start`` to ``stop - 1``: a stored-step log-lik at every stored step
+    and every segment end; on a resume one more K4 (the recount of the
+    restored z)."""
+    burnin, thin = 100, 10
+    evals = sum(1 for i in range(start, stop)
+                if (i >= burnin and (i + 1 - burnin) % thin == 0)
+                or (i + 1) % seg == 0 or i == stop - 1)
+    want = expected_launches(spec, data, (stop - start) * attempts,
+                             evals * attempts, attempts)
+    if resumed:
+        want["allele_counts"] += 1
+    return want
+
+
+@contextlib.contextmanager
+def cli_timers(timing: dict):
+    """Times every call of the command line's parse, run, report and
+    checkpoint functions (host clock around a synchronised call), in ms,
+    under ``timing[key]``."""
+    from instruct_tpu_torch import checkpoint as ckpt
+    from instruct_tpu_torch import report
+    from instruct_tpu_torch.mcmc import driver
+    targets = (("parse_ms", loader, "read_data"),
+               ("run_ms", driver, "run_mcmc"),
+               ("report_ms", report, "write_report"),
+               ("save_ms", ckpt, "save_checkpoint"),
+               ("restore_ms", ckpt, "restore_checkpoint"))
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.time()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timing.setdefault(key, []).append(
+                round(1e3 * (time.time() - t), 3))
+            return out
+        return wrapper
+
+    real = [(mod, name, getattr(mod, name)) for _, mod, name in targets]
+    for key, mod, name in targets:
+        setattr(mod, name, timed(getattr(mod, name), key))
+    try:
+        yield timing
+    finally:
+        for mod, name, fn in real:
+            setattr(mod, name, fn)
+
+
+def phase_cli(panel, smi: str) -> dict:
+    """The command line a user runs, through this package's entry points:
+    the headline panel written with ``write_panel`` and parsed back by the
+    native tokenizer; the mode-2 run of ``cli.main`` at full width with
+    checkpoints, progress, the JSONL log and the ``-cf`` dump (K1-K4 on the
+    card, launches as the segmented schedule predicts); a resume after the
+    last checkpoint is deleted, to a byte-identical report and ``-cf``
+    file (K4 recounting the restored z); ``python -m instruct_tpu_torch``
+    in its own process, with a ``torch.profiler`` trace
+    (``--profile-dir``); ``-ik 1`` over K = 1..10 (the run-time-K body and
+    K3); ``-p 4`` on the tetraploid panel (K5-K7).  Returns the launches
+    by kernel, the main run's for its kernels."""
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        work = pathlib.Path(tmp)
+        data_file = work / "panel.txt"
+        t0 = time.time()
+        loader.write_panel(panel, str(data_file), data_fmt=0)
+        write_s = time.time() - t0
+        t0 = time.time()
+        parsed = loader.read_data(str(data_file), ploid=2, data_fmt=0)
+        parse_s = time.time() - t0
+        if loader.last_parse != "native":
+            raise AssertionError(f"cli: the parse took the "
+                                 f"{loader.last_parse} path, not the native "
+                                 "tokenizer")
+        want = first_appearance_recode(panel)
+        for name in ("geno", "site_valid", "bits2"):
+            a, b = getattr(parsed.data, name), getattr(want, name)
+            if a is None or not torch.equal(a, b):
+                raise AssertionError(f"cli: parsed {name} differs from the "
+                                     "panel's")
+        emit("cli_parse", card=smi, N=parsed.n_indv, L=parsed.n_loci,
+             file_bytes=data_file.stat().st_size,
+             write_seconds=round(write_s, 3), parse_seconds=round(parse_s, 3),
+             path=loader.last_parse)
+
+        # the main path through the command line
+        out, cvg = work / "out.txt", work / "cvg.txt"
+        ck, log = work / "ck", work / "run.jsonl"
+        argv = ["-d", str(data_file), "-o", str(out), "-v", "2", "-K", "3",
+                "-c", str(N_CHAINS), "--s-subsweeps", str(SUBSWEEPS),
+                "-u", "200", "-b", "100", "-t", "10", "-r", "5", "-j", "5",
+                "-s", "1", "2", "3", "-pf", "1", "--checkpoint-dir", str(ck),
+                "--checkpoint-every", "100", "--jsonl-log", str(log),
+                "-cf", str(cvg)]
+        spec = ModelSpec(mode=2, n_pops=N_POPS, s_subsweeps=SUBSWEEPS)
+        data = parsed.data.to("cuda")
+        seg = max(1, 200 // 100)            # -pi 1: every 1% of -u
+        with cli_timers({}) as timing:
+            rc, wall, got, text = run_cli(argv)
+        if rc != 0 or "THE JOB IS SUCCESSFULLY FINISHED" not in text:
+            raise AssertionError(f"cli: exit code {rc}: {text[-2000:]}")
+        attempts = 1 + text.count("] retrying ")
+        want_l = cli_expected(spec, data, 0, 200, seg, attempts, False)
+        if got != want_l:
+            raise AssertionError(f"cli: launches {got}, the schedule "
+                                 f"predicts {want_l}")
+        report = out.read_text()
+        pos = [report.find(h) for h in CLI_HEADERS]
+        if min(pos) < 0 or pos != sorted(pos):
+            raise AssertionError("cli: report headers missing or out of "
+                                 "order: " + str(dict(zip(CLI_HEADERS,
+                                                          pos))))
+        records = [json.loads(x) for x in log.read_text().splitlines()]
+        if ([r["step"] for r in records] != list(range(seg, 201, seg))
+                or any(np.asarray(r["rates"]).shape != (N_CHAINS, N_POPS)
+                       or len(r["loglik"]) != N_CHAINS for r in records)):
+            raise AssertionError("cli: the JSONL log is not one record a "
+                                 "segment with every chain's rates")
+        blocks = text.count("\nStep=")
+        if blocks != N_CHAINS * 200 // seg:
+            raise AssertionError(f"cli: {blocks} progress blocks")
+        if sorted(p.name for p in ck.iterdir()) != [
+                f"step_{s:012d}{x}" for s in (100, 200)
+                for x in ("", ".meta.json")]:
+            raise AssertionError("cli: checkpoints " + str(sorted(
+                p.name for p in ck.iterdir())))
+        first_report, first_cvg = out.read_bytes(), cvg.read_bytes()
+        main_launches = got
+
+        # resume: the final checkpoint is lost
+        shutil.rmtree(ck / "step_000000000200")
+        (ck / "step_000000000200.meta.json").unlink()
+        with cli_timers({}) as timing_resume:
+            rc, wall_resume, got, text2 = run_cli(argv)
+        if rc != 0:
+            raise AssertionError(f"cli resume: exit code {rc}")
+        want_r = cli_expected(spec, data, 100, 200, seg,
+                              1 + text2.count("] retrying "), True)
+        if got != want_r or got.get("allele_counts", 0) < 2:
+            raise AssertionError(f"cli resume: launches {got}, the schedule "
+                                 f"predicts {want_r}")
+        if "\nStep=100\t" in text2 or "\nStep=102\t" not in text2:
+            raise AssertionError("cli resume: did not start at step 100")
+        if out.read_bytes() != first_report or cvg.read_bytes() != first_cvg:
+            raise AssertionError("cli resume: report or -cf file differs "
+                                 "from the uninterrupted run's")
+        emit("cli_main", card=smi, path="cli: mode 2, headline panel, "
+             "-pf 1, checkpoints, JSONL log, -cf", chains=N_CHAINS,
+             steps=200, segments=200 // seg, attempts=attempts,
+             wall_seconds=round(wall, 3),
+             chain_steps_per_second=round(N_CHAINS * 200 / wall, 1),
+             resume_wall_seconds=round(wall_resume, 3),
+             # where the command's wall goes (ms): parse, run_mcmc (init,
+             # sweeps, segment-end reads, checkpoints, plug-in), report
+             breakdown_ms=timing, resume_breakdown_ms=timing_resume,
+             checkpoint_bytes=sum(f.stat().st_size
+                                  for f in (ck / "step_000000000100")
+                                  .iterdir()),
+             report_bytes=len(first_report), launches=main_launches,
+             resume_launches=got, resume_byte_identical=True)
+
+        # the real entry point, in its own process
+        t0 = time.time()
+        r = subprocess.run(
+            [sys.executable, "-m", "instruct_tpu_torch", "-d",
+             str(data_file), "-o", str(work / "sub.txt"), "-v", "2", "-K",
+             "3", "-c", str(N_CHAINS), "-u", "40", "-b", "20", "-t", "2",
+             "-r", "5", "-j", "5", "-s", "1", "2", "3", "--profile-dir",
+             str(work / "prof")],
+            capture_output=True, text=True, timeout=600,
+            cwd=str(pathlib.Path(__file__).resolve().parent))
+        sub_s = time.time() - t0
+        if (r.returncode != 0
+                or "THE JOB IS SUCCESSFULLY FINISHED" not in r.stdout
+                or not (work / "prof" / "trace.json").stat().st_size):
+            raise AssertionError(f"cli: python -m instruct_tpu_torch exit "
+                                 f"code {r.returncode}: {r.stderr[-2000:]}")
+
+        # K selection through the command line
+        kout = work / "ksel.txt"
+        rc, kwall, kgot, ktext = run_cli(
+            ["-d", str(data_file), "-o", str(kout), "-ik", "1", "-kv", "1",
+             str(KSEL_MAX), "-v", "2", "-c", str(N_CHAINS), "-u", "40",
+             "-b", "20", "-t", "2", "-r", "10", "-j", "10"])
+        wide = {n: v for n, v in kgot.items() if n.endswith("_wide")}
+        if (rc != 0 or "The optimal K is" not in ktext
+                or f"The current K is {KSEL_MAX}" not in kout.read_text()
+                or not wide.get("site_pass_gendiff_wide")
+                or not wide.get("site_pass_loglik_wide")
+                or not kgot.get("dirichlet_kla")
+                or not kgot.get("dirichlet_nk")):
+            raise AssertionError(f"cli -ik 1: exit code {rc}, launches "
+                                 f"{kgot}")
+        best = re.search(r"The optimal K is (\d+)", ktext)[1]
+
+        # the tetraploid engine through the command line (the loaders read
+        # a ploidy-4 file one individual a line, -af 1)
+        tfile = work / "tetra.txt"
+        loader.write_panel(tetra_panel(True), str(tfile), data_fmt=1)
+        tout = work / "tetra_out.txt"
+        rc, twall, tgot, ttext = run_cli(
+            ["-d", str(tfile), "-o", str(tout), "-p", "4", "-af", "1", "-K",
+             "3", "-c", str(N_CHAINS), "-u", "100", "-b", "50", "-t", "10",
+             "-r", "5", "-j", "5"])
+        if (rc != 0 or "Selfing Rates" not in tout.read_text()
+                or not all(tgot.get(k) for k in (
+                    "geno_choice_pass_auto", "s_delta_pass",
+                    "site_ll_pass_auto"))):
+            raise AssertionError(f"cli -p 4: exit code {rc}, launches "
+                                 f"{tgot}")
+        emit("cli_paths", card=smi,
+             subprocess=dict(seconds=round(sub_s, 3), exit_code=0),
+             kselect=dict(wall_seconds=round(kwall, 3), best_k=int(best),
+                          replicas=N_CHAINS * KSEL_MAX, sweeps=40,
+                          launches=kgot),
+             tetra=dict(wall_seconds=round(twall, 3), sweeps=100,
+                        launches=tgot))
+        launches.update({k: v for k, v in tgot.items()
+                         if k.startswith(("geno_choice", "s_delta",
+                                          "site_ll"))})
+        launches.update(wide)
+        launches.update(main_launches)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,main_path,modes,unfused,tetra,"
-                            "kselect")
+                            "kselect,cli")
     ap.add_argument("--parent-csrc", default=None,
                     help="another tree's instruct_tpu_torch/csrc: its site "
                          "pass, K5 and K8 are built and timed beside this "
@@ -2971,8 +3266,11 @@ def main(argv=None) -> int:
     if "kselect" in phases:
         # the K grid's site passes: this slice's main path counts them
         launches.update(phase_kselect(panel, smi))
+    if "cli" in phases:
+        # the command line is this slice's main path: its run's counts
+        launches.update(phase_cli(panel, smi))
     full = {"kernels", "main_path", "modes", "unfused", "tetra",
-            "kselect"} <= phases
+            "kselect", "cli"} <= phases
     if full:
         keys = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -13,8 +13,12 @@ uniform and normal prior, back-reflection and adaptive-independence
 proposal, any number of pops and alleles) on packed biallelic and on
 multi-allelic panels, end to end through :func:`run_mcmc`, as a fused and an
 unfused sweep (``mcmc/step.py``); the tetraploid engine, auto- and
-allotetraploid (``tetra/engine.py``); and the selection of K,
-:func:`infer_k`, as one padded (chain x K) grid (``kselect.py``).
+allotetraploid (``tetra/engine.py``); the selection of K,
+:func:`infer_k`, as one padded (chain x K) grid (``kselect.py``); and the
+command line, ``python -m instruct_tpu_torch -d panel.txt -o out.txt ...``
+(``cli.py``), from a genotype file (:func:`read_data`) to the InStruct
+report (:func:`write_report`), with checkpoint/resume, progress and a JSONL
+log.
 Sub-packages and functions keep the names of their counterparts in
 ``instruct_tpu``.  Entry points run on ``device="cuda"`` unless the caller
 asks for the CPU, where the kernels' plain PyTorch versions run instead.
@@ -22,9 +26,11 @@ asks for the CPU, where the kernels' plain PyTorch versions run instead.
 
 from instruct_tpu_torch.config import ModelSpec, Schedule, Priors
 from instruct_tpu_torch.data.dataset import Dataset, Panel
+from instruct_tpu_torch.data.loader import read_data, write_panel
 from instruct_tpu_torch.data.synthetic import synthetic_panel
 from instruct_tpu_torch.mcmc.driver import run_mcmc, RunResult
 from instruct_tpu_torch.kselect import infer_k, KSelectResult
+from instruct_tpu_torch.report import write_report
 
 __version__ = "0.1.0"
 
@@ -39,5 +45,8 @@ __all__ = [
     "RunResult",
     "infer_k",
     "KSelectResult",
+    "read_data",
+    "write_panel",
+    "write_report",
     "__version__",
 ]

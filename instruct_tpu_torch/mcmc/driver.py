@@ -15,20 +15,34 @@ by the empty-cluster guard or by a non-finite log-lik is rerun with a fresh
 chain key, mirroring the ``chn--`` retry (InStruct.c:185-190); unflagged
 chains replay their own keys, so the retry is deterministic.
 
-Still to be ported: device meshes, checkpoint/resume, progress and JSONL
-reporting.
+With ``checkpoint_dir``, ``progress_every`` or ``jsonl_log`` the run is
+segmented (JAX ``driver.py:500-646``): segments end at multiples of
+``min(checkpoint_every, progress_every, n_iter)``, and only there does the
+host read device values -- to print the progress block, append the JSONL
+record and save the (states, accums, chain keys) payload
+(``checkpoint.py``) at every multiple of ``checkpoint_every`` and at the
+end.  A fresh call with the same arguments resumes from the latest
+checkpoint bitwise: Philox draws are keyed on (seed, chain key, step), and
+the carried ``zcounts`` are recounted from the restored z by K4.  A retry
+of a checkpointed run saves under its own ``retry-<n>`` namespace.
+
+Still to be ported: device meshes (``mesh``, ``mesh_mode``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
+from instruct_tpu_torch import checkpoint as ckpt
 from instruct_tpu_torch.config import ModelSpec, Schedule
 from instruct_tpu_torch.data.dataset import Dataset
+from instruct_tpu_torch.kernels import fused_step as fs
 from instruct_tpu_torch.kernels import philox as px
 from instruct_tpu_torch.mcmc import updates as up
 from instruct_tpu_torch.mcmc.accumulators import (ChainAccum, accum_update,
@@ -142,40 +156,83 @@ def unhealthy_flags(state: McmcState, accum: ChainAccum) -> np.ndarray:
     return _np(bad)
 
 
-def _run_chains(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
-                chain_key, init_rates, track_freq: bool, device,
-                tetra_tables=None, active=None):
-    """One attempt: initialise all chains and run the whole schedule."""
-    n_chains = sched.n_chains
-    keys = px.make_keys(seed, n_chains, device, chain_key=chain_key)
-    state = init_state(seed, spec, data, n_chains, init_rates, device,
-                       chain_key=chain_key, tetra_tables=tetra_tables,
-                       active=active)
-    accum = init_accum(spec, sched, data, track_freq, n_chains, device)
+def _chain_runner(data: Dataset, spec: ModelSpec, sched: Schedule,
+                  track_freq: bool, tetra_tables=None):
+    """``run_segment(state, accum, keys, start, stop)``: sweeps ``start`` to
+    ``stop - 1`` of all chains, the unit of both the single-shot and the
+    segmented run.  The log-lik is evaluated on stored steps and at the
+    segment's last step (JAX ``driver.py:225-233``): it is an observable,
+    so where segments end changes no draw and no moment."""
     step_core, add_loglik = build_step_parts(spec, data, tetra_tables)
     add_marg = build_marg_loglik(spec, data, tetra_tables)
     # diploid mode 0 has no Q to run empty: the guard never latches
     # (mcmc.c:111-115); the tetraploid engine always has one
     check_at = (-1 if (spec.mode == 0 and spec.ploid == 2)
                 else sched.nstep_check_empty_cluster)
-    last = sched.n_iter - 1
-    for i in range(sched.n_iter):
-        state = step_core(state, keys, i)
-        stored = (i >= sched.burnin
-                  and (i + 1 - sched.burnin) % sched.thinning == 0)
-        # cal_lkh only when the draw is consumed (stored) or reported
-        # (run end): it is an observable, no update conditions on it
-        if stored or i == last:
-            state = add_loglik(state)
-        if stored:
-            nth = (i + 1 - sched.burnin) // sched.thinning - 1
-            if nth % sched.dic_every == 0:
-                state = add_marg(state)
-            stats = extract_stats(spec, state, track_freq)
-            accum = accum_update(accum, stats, 1,
-                                 up.empty_cluster_flag(stats.q, state.active),
-                                 check_at)
-    return state, accum
+
+    def run_segment(state, accum, keys, start: int, stop: int):
+        for i in range(start, stop):
+            state = step_core(state, keys, i)
+            stored = (i >= sched.burnin
+                      and (i + 1 - sched.burnin) % sched.thinning == 0)
+            # cal_lkh only when the draw is consumed (stored) or reported
+            # (segment end)
+            if stored or i == stop - 1:
+                state = add_loglik(state)
+            if stored:
+                nth = (i + 1 - sched.burnin) // sched.thinning - 1
+                if nth % sched.dic_every == 0:
+                    state = add_marg(state)
+                stats = extract_stats(spec, state, track_freq)
+                accum = accum_update(
+                    accum, stats, 1,
+                    up.empty_cluster_flag(stats.q, state.active), check_at)
+        return state, accum
+
+    return run_segment
+
+
+def recount_zcounts(spec: ModelSpec, data: Dataset,
+                    state: McmcState) -> McmcState:
+    """The carried allele-pop counts recounted from the state's z by K4
+    (``kernels/fused_step.py:allele_counts``).  ``zcounts`` is derived
+    state: a resumed run recomputes it rather than trusting the saved value
+    (JAX ``driver.py:573-600``).  A state without carried counts (mode 0,
+    the tetraploid engine) is returned as it is."""
+    if state.zcounts is None or state.z.numel() == 0:
+        return state
+    return state._replace(zcounts=fs.allele_counts(
+        state.z, data.geno, data.site_valid, n_pops=spec.n_pops,
+        max_alleles=data.max_alleles, bits2=data.bits2))
+
+
+def progress_lines(spec: ModelSpec, step: int, loglik: np.ndarray,
+                   rates: np.ndarray, ais_state: Optional[np.ndarray]) -> str:
+    """print_info's block (mcmc.c:1267-1316) for all chains, as the JAX
+    driver prints it (``driver.py:510-560``): per chain a ``Step=`` line and
+    a line of its S (``s_i=``) or F (``f_i=``) values, with the adaptive
+    sampler's ``st_i=`` states under ``back_refl=0`` where S/F is per pop
+    (``ais_state`` given), at most 512 values and a summary of the rest."""
+    prefix = "f" if (spec.ploid == 2 and spec.mode in (4, 5)) else "s"
+    lines = []
+    for ci in range(loglik.shape[0]):
+        lines.append(f"\nStep={step}\tchain={ci}"
+                     f"\tlog_likelihood={loglik[ci]:f}")
+        if rates.size:
+            shown = min(rates.shape[-1], 512)
+            parts = []
+            for i, v in enumerate(rates[ci][:shown]):
+                parts.append(f"{prefix}_{i}={v:f}")
+                if ais_state is not None:
+                    parts.append(f"st_{i}={int(ais_state[ci, i])}")
+            if shown < rates.shape[-1]:
+                row = rates[ci]
+                parts.append(
+                    f"... [{rates.shape[-1] - shown} more; "
+                    f"min={row.min():f} mean={row.mean():f} "
+                    f"max={row.max():f}; full values in the JSONL log]")
+            lines.append(" ".join(parts))
+    return "\n".join(lines)
 
 
 def active_mask(active_pops, spec: ModelSpec, n_chains: int,
@@ -204,7 +261,10 @@ def active_mask(active_pops, spec: ModelSpec, n_chains: int,
 def run_mcmc(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
              init_rates=None, track_freq: bool = False,
              max_retries: int = 10, device="cuda",
-             active_pops=None) -> RunResult:
+             active_pops=None, checkpoint_dir: Optional[str] = None,
+             checkpoint_every: int = 100_000,
+             progress_every: Optional[int] = None, progress_fn=None,
+             jsonl_log: Optional[str] = None) -> RunResult:
     """Run ``sched.n_chains`` chains on ``device`` and return streaming
     posterior moments.
 
@@ -222,6 +282,13 @@ def run_mcmc(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
     chains as replicas of ONE run at K_max shapes, each Gibbs-sampling only
     its active slots (q and z put exactly zero mass on the others).
     Diploid modes 0-5.
+
+    ``checkpoint_dir`` saves the run every ``checkpoint_every`` sweeps and
+    at its end, and resumes from the latest checkpoint there (bitwise the
+    uninterrupted run).  ``progress_every`` prints the progress block (or
+    calls ``progress_fn(step, states, accums)``) every that many sweeps;
+    ``jsonl_log`` appends one JSON record a segment (step, per-chain
+    log-lik, the full rates matrix, stored count).
     """
     check_supported(spec, data)
     dev = torch.device(device)
@@ -234,19 +301,80 @@ def run_mcmc(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
 
     # the tetraploid engine's data-only tables, built once per run
     tables = te.build_tables(spec, data) if spec.ploid == 4 else None
+    run_segment = _chain_runner(data, spec, sched, track_freq, tables)
+    segmented = (checkpoint_dir is not None or progress_every is not None
+                 or jsonl_log is not None)
+    seg_len = (min(x for x in (checkpoint_every, progress_every, sched.n_iter)
+                   if x is not None) if segmented else sched.n_iter)
+
+    def report(step, state, accum):
+        ll = _np(state.loglik_total)
+        rates = _np(state.rates)
+        if progress_fn is not None:
+            progress_fn(step, state, accum)
+        elif progress_every is not None:
+            show_st = (spec.back_refl == 0
+                       and (spec.rates_are_per_pop or spec.ploid == 4))
+            print(progress_lines(spec, step, ll, rates,
+                                 _np(state.ais_state) if show_st else None),
+                  flush=True)
+        if jsonl_log:
+            with open(jsonl_log, "a") as fh:
+                fh.write(json.dumps({
+                    "step": int(step),
+                    "loglik": ll.tolist(),
+                    "rates": rates.tolist() if rates.size else None,
+                    "stored": int(_np(accum.count)[0]),
+                }) + "\n")
+
+    def attempt(chain_key, ckpt_dir):
+        """One attempt: initialise all chains (or resume them from
+        ``ckpt_dir``) and run the rest of the schedule."""
+        state = init_state(seed, spec, data, n_chains, init_rates, dev,
+                           chain_key=chain_key, tetra_tables=tables,
+                           active=active)
+        accum = init_accum(spec, sched, data, track_freq, n_chains, dev)
+        start = 0
+        latest = None if ckpt_dir is None else ckpt.latest_step(ckpt_dir)
+        if latest is not None and 0 < latest <= sched.n_iter:
+            got = ckpt.restore_checkpoint(
+                ckpt_dir, latest, {"states": state, "accums": accum,
+                                   "chain_key": list(chain_key)})
+            state = recount_zcounts(spec, data, got["states"])
+            accum, chain_key = got["accums"], got["chain_key"]
+            start = latest
+        keys = px.make_keys(seed, n_chains, dev, chain_key=chain_key)
+        while start < sched.n_iter:
+            stop = min(start + seg_len, sched.n_iter)
+            state, accum = run_segment(state, accum, keys, start, stop)
+            start = stop
+            if ckpt_dir is not None and (start % checkpoint_every == 0
+                                         or start == sched.n_iter):
+                ckpt.save_checkpoint(ckpt_dir, start,
+                                     {"states": state, "accums": accum,
+                                      "chain_key": list(chain_key)})
+            if progress_every is not None or jsonl_log:
+                report(start, state, accum)
+        return state, accum
+
     chain_key = list(range(n_chains))
-    state, accum = _run_chains(data, spec, sched, seed, chain_key,
-                               init_rates, track_freq, dev, tables, active)
+    state, accum = attempt(chain_key, checkpoint_dir)
     retries = 0
     flags = unhealthy_flags(state, accum)
     while flags.any() and retries < max_retries:
         retries += 1
+        if checkpoint_dir is not None:
+            # a retry gets its own checkpoint namespace: the main run has
+            # saved its final step, so resuming from it would skip the rerun
+            print(f"[instruct_tpu_torch] retrying {int(flags.sum())} "
+                  f"unhealthy chain(s) (attempt {retries}/{max_retries})",
+                  flush=True)
         # flagged chains get a fresh key; the others replay theirs
         chain_key = [10_000 * retries + c if flags[c] else chain_key[c]
                      for c in range(n_chains)]
-        state, accum = _run_chains(data, spec, sched, seed, chain_key,
-                                   init_rates, track_freq, dev, tables,
-                                   active)
+        state, accum = attempt(
+            chain_key, None if checkpoint_dir is None else
+            os.path.join(checkpoint_dir, f"retry-{retries}"))
         flags = unhealthy_flags(state, accum)
     if flags.any():
         print(f"[instruct_tpu_torch] WARNING: {int(flags.sum())} chain(s) "

@@ -44,7 +44,11 @@ SCHED = dict(n_iter=60, burnin=30, thinning=3, n_chains=2, ckrep=5,
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = ("import sys, instruct_tpu_torch, instruct_tpu_torch.convert, "
             "instruct_tpu_torch.diagnostics, "
-            "instruct_tpu_torch.kernels.fused_step; "
+            "instruct_tpu_torch.kernels.fused_step, instruct_tpu_torch.cli, "
+            "instruct_tpu_torch.report, instruct_tpu_torch.checkpoint, "
+            "instruct_tpu_torch.memory, instruct_tpu_torch.data.loader, "
+            "instruct_tpu_torch.native; "
+            "from instruct_tpu_torch.cli import main; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'instruct_tpu' or "
             "m.startswith('instruct_tpu.')]; "
@@ -58,6 +62,7 @@ def test_exports_and_defaults():
     assert set(itt.__all__) == {"ModelSpec", "Schedule", "Priors", "Dataset",
                                 "Panel", "synthetic_panel", "run_mcmc",
                                 "RunResult", "infer_k", "KSelectResult",
+                                "read_data", "write_panel", "write_report",
                                 "__version__"}
     for fn in (run_mcmc, init_state, itt.infer_k):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -339,7 +344,7 @@ def test_the_step_loop_has_no_host_synchronisation():
     code: stored/due are arithmetic on the step index, accepts and the
     latch are torch.where."""
     sources = [inspect.getsource(f) for f in (
-        driver._run_chains, step_mod.build_step_parts,
+        driver._chain_runner, step_mod.build_step_parts,
         step_mod._build_fused_parts, step_mod._build_unfused_parts,
         step_mod._tail_draws, step_mod._hyper_update,
         updates.update_freq, updates.update_zq, updates.update_z_noadmix,
