@@ -30,6 +30,14 @@ tokenizer, the mode-2 ``cli.main`` run with checkpoints, progress, the JSONL
 log and the ``-cf`` dump, its resume from the first checkpoint to a
 byte-identical report, ``python -m instruct_tpu_torch`` in a process of its
 own, ``-ik 1`` over K = 1..10 and ``-p 4`` on the tetraploid panel.
+Phase ``dpm`` runs the DPM prior and ``marginalize_g``: the sequential CRP
+seating kernel bitwise against its plain version (three variants, N = 1,
+2, 1000, 5000), the grid curve and the G curve against their dense forms
+in full float32, ``run_mcmc`` at full width in modes 3 and 5 under
+``-f 1``, ``--dp-trunc 32``, mode 2 ``--marginalize-g``, mode 3
+``--marginalize-g -f 1`` and the unfused mode 3 ``-f 1``, a two-group
+recovery run, and the command line ``-v 3 -f 1`` with a resumed run's
+report byte-identical, and by ``python -m instruct_tpu_torch``.
 Every phase prints one JSON line; any failure raises, so the exit code is
 non-zero.  There is no CPU path: without a CUDA device the script exits with
 code 1 and prints no result.
@@ -39,7 +47,8 @@ prints them; the line before that is the ``{"kernels": [...]}`` summary; the
 last line is ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset of build, kernels, main_path, modes, unfused,
-tetra, kselect, cli (development aid); the device and Philox phases always run.
+tetra, kselect, cli, dpm (development aid); the device and Philox phases
+always run.
 ``--parent-csrc DIR`` (another tree's ``instruct_tpu_torch/csrc``, e.g. a
 ``git archive`` of the parent commit unpacked under ``_parent/``) builds
 that tree's site pass and K3 to K8 beside this one's and times them on
@@ -80,6 +89,7 @@ from instruct_tpu_torch.data import loader
 from instruct_tpu_torch.data.dataset import (Dataset, make_dataset,
                                              packed_dataset)
 from instruct_tpu_torch.kernels import _build
+from instruct_tpu_torch.kernels import crp
 from instruct_tpu_torch.kernels import dirichlet as dk
 from instruct_tpu_torch.kernels import fused_step as fs
 from instruct_tpu_torch.kernels import philox as px
@@ -87,6 +97,8 @@ from instruct_tpu_torch.kernels import s_pop as sp
 from instruct_tpu_torch.kernels import zq as zqk
 from instruct_tpu_torch.data.synthetic import synthetic_tetra_panel
 from instruct_tpu_torch.kernels import tetra_geno as tg
+from instruct_tpu_torch.mcmc import dpm
+from instruct_tpu_torch.mcmc import marg_g as mg
 from instruct_tpu_torch.mcmc.state import init_state
 from instruct_tpu_torch.mcmc.step import build_step_parts, use_fused
 from instruct_tpu_torch.tetra import engine as te
@@ -1712,7 +1724,8 @@ def sweep_profile(data, spec, n_steps: int = 100, n_prof: int = 30,
             return out
         if not rows:
             return out
-        anchor_host = host["dirichlet_kla"] + host["dirichlet_nk"]
+        anchor_host = (host["dirichlet_kla"] + host["dirichlet_nk"]
+                       + host["dirichlet_rows"])
         anchor = sum(r[2] for r in rows if "dirichlet_kernel" in r[0])
         # K4's kernels in the trace, against its wrappers' launches
         k4_host = host["allele_counts"] + host["allele_counts_wide"]
@@ -1805,23 +1818,45 @@ def expected_launches(spec, data, steps, evals, attempts) -> dict:
     states."""
     mode, fused = spec.mode, use_fused(spec, data)
     adaptive = spec.back_refl != 1 and mode in (2, 4)
+    marg = spec.marginalize_g
+    with_dpm = dpm.uses_dpm(spec)
+    stick = with_dpm and spec.priors.dp_truncation > 0
     counts = ("allele_counts" if spec.n_pops * data.max_alleles <= 64
               else "allele_counts_wide")
     # one fill for the alpha step's words; one for the uniforms of the
     # S/F/G updates that are plain tensor code (or mode 0's z draw)
     # mode 2's S tail is the K2 kernel under back-reflection at K <= 8
-    # (the JAX gate), else plain tensor code
-    s_kernel = mode == 2 and not adaptive and spec.n_pops <= sp.MAX_POPS
+    # (the JAX gate) and without marginalize_g, else plain tensor code
+    s_kernel = (mode == 2 and not adaptive and spec.n_pops <= sp.MAX_POPS
+                and not marg)
     if fused:
         tail = mode in (3, 4, 5) or (mode == 2 and not s_kernel)
     else:
         tail = mode != 1
+    # the DPM sweep sets S or F without the tail's uniforms under
+    # marginalize_g and on mode 5's fused sweep
+    tail = tail and not (with_dpm and (marg or (fused and mode == 5)))
+    # one fill a sweep for each Gumbel plane drawn outside the seating
+    # kernel: marginalize_g's G draw, mode 5's new grid values (CRP) or the
+    # stick-breaking reseat (and mode 5's component values)
+    gumbel = int(marg) + int(with_dpm and mode == 5) + int(stick)
     want = {"dirichlet_kla": steps,
-            "philox_words": steps * (int(mode != 0) + int(tail))}
+            "philox_words": steps * (int(mode != 0) + int(tail) + gumbel)
+            + attempts * int(with_dpm)}
     if mode != 0:
         want["dirichlet_nk"] = steps
+    if with_dpm:
+        # the CRP prior draws the initial table; the CRP sweep is one
+        # seating launch; Beta draws go through K3's dirichlet_rows
+        want["crp_sweep"] = attempts + (0 if stick else steps)
+        betas = (int(mode == 3 and not stick) + int(stick)
+                 + int(stick and mode == 3))
+        if betas:
+            want["dirichlet_rows"] = steps * betas
     if fused:
         sampling, stored = MODE_PASSES[mode]
+        if marg:
+            sampling = MODE_PASSES[1][0]
         k = spec.n_pops
         want.update({fs.site_counter(sampling, data, k): steps,
                      fs.site_counter(stored, data, k): evals,
@@ -3213,11 +3248,357 @@ def phase_cli(panel, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase dpm: the DPM prior (-f 1) and marginalize_g
+# ---------------------------------------------------------------------------
+
+# the seating kernel is held against its plain version at these N (5000:
+# above the JAX package's seat-noise plane gate and above the kernel's
+# shared-memory table)
+CRP_SIZES = (1, 2, 1000, 5000)
+DPM_TRUNC = 32                 # the --dp-trunc path's components
+DPM_PRIOR = Priors(family=PriorFamily.DPM)
+RECOVERY_RATES = (0.1, 0.8)
+
+
+def crp_case(variant: int, n: int, seed: int = 5, alpha: float = 10.0):
+    """(args, kwargs) of one seating sweep of ``N_CHAINS`` chains at N = n
+    from a seed with DP concentration ``alpha``: a table of up to 40
+    occupied slots, selfing generations 1..11 or grid curves peaked at an F
+    of each individual's own (the shape of ``dpm.f_loglik_grid``'s curves),
+    the new-table scores and values the DPM module computes from them."""
+    c, dev = N_CHAINS, "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed + 7 * n + variant)
+    keys = px.make_keys(RUN_SEED, c, dev)
+    log_alpha = float(np.float32(np.log(np.float32(alpha))))
+    kw = {}
+    if variant == crp.PRIOR:
+        table = (None, None, None)
+        log_new = torch.full((c, n), log_alpha, device=dev)
+        new_val = torch.rand((c, n), generator=g, device=dev)
+    else:
+        assign = torch.randint(0, min(n, 40), (c, n), generator=g,
+                               device=dev, dtype=torch.int32)
+        counts = torch.zeros((c, n), dtype=torch.int32, device=dev)
+        counts.scatter_add_(1, assign.long(), torch.ones_like(assign))
+        values = torch.rand((c, n), generator=g, device=dev) * (counts > 0)
+        table = (values, counts, assign)
+        if variant == crp.SELFING:
+            gen = torch.randint(1, 12, (c, n), generator=g, device=dev,
+                                dtype=torch.int32)
+            gf = gen.float()
+            log_new = (log_alpha - torch.log(gf)) - torch.log(gf + 1.0)
+            new_val = torch.rand((c, n), generator=g, device=dev)
+            kw["gen"] = gen
+        else:
+            grid = dpm.grid_points(dpm.GRID_M, dev)
+            f0 = torch.rand((c, n, 1), generator=g, device=dev)
+            ll = (-400.0 * (grid - f0) ** 2
+                  - 7000.0 * torch.rand((c, n, 1), generator=g, device=dev))
+            new_idx = torch.argmax(ll + px.gumbel(torch.randint(
+                0, 1 << 31, ll.shape, generator=g, device=dev)), -1)
+            log_new = log_alpha + (torch.logsumexp(ll, -1)
+                                   - np.log(dpm.GRID_M))
+            new_val = grid[new_idx]
+            kw.update(ll_grid=ll.contiguous(),
+                      new_idx=new_idx.to(torch.int32))
+    return (keys, 3, variant, *table, log_new.contiguous(),
+            new_val.contiguous()), kw
+
+
+def crp_agrees(tag, args, kw):
+    """Raise unless the kernel's (values, counts, assign) are bitwise the
+    plain version's; where they are not, name the first individual whose
+    seat differs and the gap between its two best noisy scores.  Returns
+    the plain version's occupied tables per individual (the work the data
+    needs)."""
+    got = crp.crp_sweep(*args, **kw)
+    margins, occupied = [], []
+    want = crp.crp_sweep_reference(*args, **kw, margins=margins,
+                                   occupied=occupied)
+    torch.cuda.synchronize()
+    if all(torch.equal(a, b) for a, b in zip(got, want)):
+        return torch.stack(occupied)
+    off = (got[2] != want[2]).any(dim=0).nonzero()
+    j = int(off[0]) if off.numel() else -1
+    gap = ([float(x) for x in margins[j]] if j >= 0 else None)
+    raise AssertionError(f"{tag}: the seating kernel differs from its plain "
+                         f"version; first individual {j}, gap between its "
+                         f"two best scores per chain {gap}; values equal "
+                         f"{torch.equal(got[0], want[0])}, counts equal "
+                         f"{torch.equal(got[1], want[1])}")
+
+
+def crp_work(variant, n, c, occupied, m=dpm.GRID_M):
+    """(bytes, operations) one seating sweep must move and do: the table
+    in and out, the per-individual inputs (and mode 5's curves) read once;
+    for the new table and each occupied table of each individual (what
+    this data needs; an empty table's score is _NEG whatever its noise) a
+    Philox word (a quarter of a block), the two logs of its Gumbel noise,
+    the score's adds and the compare of the argmax."""
+    per_indv = {crp.PRIOR: 8, crp.SELFING: 12,
+                crp.INBREEDING: 12 + 4 * m}[variant]
+    table_in = 0 if variant == crp.PRIOR else 12
+    n_bytes = c * n * (table_in + per_indv + 12)
+    scored = float((occupied.double() + 1.0).sum())
+    n_ops = scored * (OPS_PHILOX / 4 + 2 * OPS_TRANSC + 4)
+    return n_bytes, n_ops
+
+
+def check_crp(smi: str) -> dict:
+    """The seating kernel against its plain version on the card, bitwise,
+    in its three variants at C = 4 and every N of ``CRP_SIZES``; its time
+    at N = 1000 beside the plain version's, its bound and its latency floor
+    (N dependent block reductions of the S tail's kind, timed here: the
+    kernel's one combined argmax / first-empty reduction an individual).
+    Returns the kernels-line entry."""
+    results = {}
+    for variant, name in crp.VARIANTS.items():
+        for n in CRP_SIZES:
+            args, kw = crp_case(variant, n)
+            occ = crp_agrees(f"crp {name} N={n}", args, kw)
+            if n != 1000:
+                continue
+            # alpha = 10^4: hundreds of tables, so threads own several
+            # occupied slots and the scan bound grows past the block
+            many = crp_case(variant, n, alpha=1e4)
+            crowded = crp_agrees(f"crp {name} N={n}, alpha 1e4", *many)
+            results[f"{name}, alpha 1e4"] = dict(
+                occupied_max=int(crowded.max()))
+            ms = time_ms(lambda: crp.crp_sweep(*args, **kw))
+            plain = time_ms(lambda: crp.crp_sweep_reference(*args, **kw),
+                            reps=3, warm=1, inner=1)
+            b_ms, b_by = bound(*crp_work(variant, n, N_CHAINS, occ))
+            results[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
+                                 bound_by=b_by,
+                                 occupied_mean=float(occ.float().mean()))
+    x = torch.rand((N_CHAINS, 1000), device="cuda")
+    floor = profiling.device_ms(lambda: sp.reduction_floor(x, 1000),
+                                "s_pop_floor", n=10)
+    emit("crp", card=smi, sizes=list(CRP_SIZES), chains=N_CHAINS,
+         bitwise=True, n_1000=results, latency_floor_ms=floor,
+         floor_reductions=1000,
+         smem_slots=crp.SMEM_SLOTS)
+    e = results["selfing"]
+    return {"crp_sweep": dict(
+        name="crp_sweep", route="cuda",
+        source="instruct_tpu_torch/csrc/crp.cu",
+        replaces="instruct_tpu/mcmc/dpm.py:120", max_abs_err=0.0,
+        ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
+        bound_by=e["bound_by"],
+        # no single PyTorch call computes a sequential seating
+        library_ms=None)}
+
+
+def check_grid_products(panel, smi: str) -> None:
+    """``f_loglik_grid`` and ``selfing_gtable`` against their dense forms
+    on the card, one chain at the headline size, within rtol 1e-5 of the
+    curve's magnitude, with the global float32 matmul setting at "high"
+    (TF32 allowed): the products must still run in full float32.  Then the
+    plain-torch costs of the two at 4 chains and of mode 2's G-marginal S
+    scan (K * J sequential pops)."""
+    x = kernel_inputs(panel)
+    data = x["data"]
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        one = (x["freq"][:1], x["z"][:1])
+        grid = dpm.f_loglik_grid(data, *one)
+        gtab = mg.selfing_gtable(data, *one, 50)
+        if torch.get_float32_matmul_precision() != "high":
+            raise AssertionError("the grid products left the global "
+                                 "float32 matmul setting changed")
+    finally:
+        torch.set_float32_matmul_precision(before)
+    errs = {}
+    for name, got, want in (
+            ("f_loglik_grid", grid, dpm.f_loglik_grid_dense(data, *one)),
+            ("selfing_gtable", gtab,
+             mg.selfing_gtable_dense(data, *one, 50))):
+        scale = float(want.abs().max())
+        check_close(name, got, want, 1e-5, 1e-5 * scale)
+        errs[name] = dict(max_abs_err=max_err(got, want), scale=scale)
+    spec = ModelSpec(mode=2, n_pops=N_POPS, marginalize_g=True)
+    gt4 = mg.selfing_gtable(data, x["freq"], x["z"], spec.gen_cap)
+    u = torch.rand((2, N_CHAINS, SUBSWEEPS, N_POPS), device="cuda")
+    ais = torch.ones((N_CHAINS, N_POPS), dtype=torch.int32, device="cuda")
+    costs = dict(
+        f_loglik_grid=time_ms(lambda: dpm.f_loglik_grid(
+            data, x["freq"], x["z"]), reps=5, warm=1, inner=2),
+        selfing_gtable=time_ms(lambda: mg.selfing_gtable(
+            data, x["freq"], x["z"], spec.gen_cap), reps=5, warm=1,
+            inner=2),
+        s_pop_marginal_scan=time_ms(lambda: mg.update_s_pop_marginal(
+            u[0], u[1], spec, x["q"], gt4, x["rates"], ais), reps=5,
+            warm=1, inner=2))
+    emit("grid_products", card=smi, chains_checked=1, full_float32=True,
+         rtol=1e-5, agreement=errs, plain_torch_ms_4_chains=costs,
+         s_scan=dict(pops=N_POPS, subsweeps=SUBSWEEPS))
+
+
+def check_recovery(smi: str) -> dict:
+    """Mode 3 under the DPM prior on a panel of 1000 individuals whose
+    selfing rates are 0.1 or 0.8 by their (near-unadmixed) population,
+    4 chains of ``N_ITER`` sweeps: the posterior mean rates of the two
+    groups each on its own side of 0.45 and more than 0.2 apart.  S_i sees
+    the data only through one G_i, so the group means shrink towards each
+    other (the JAX package's run too: 0.32 and 0.61 for 60 individuals,
+    ``tests/test_torch_dpm.py``); the line prints them."""
+    pnl = synthetic_panel(N_INDV, 2000, n_pops=2, n_alleles=2,
+                          selfing_rates=np.array(RECOVERY_RATES),
+                          admixture_alpha=0.02, seed=PANEL_SEED + 1)
+    truth = np.asarray(RECOVERY_RATES)[pnl.pop_index]
+    spec = ModelSpec(mode=3, n_pops=2, priors=DPM_PRIOR)
+    stored = N_ITER // 2 // 10
+    res = run_mcmc(pnl.data, spec, Schedule(
+        n_iter=N_ITER, burnin=N_ITER // 2, thinning=10, n_chains=N_CHAINS,
+        ckrep=stored, nstep_check_empty_cluster=stored), RUN_SEED,
+        device="cuda")
+    got = res.accum.mean.rates.mean(0).cpu().numpy()
+    lo, hi = (float(got[truth == r].mean()) for r in RECOVERY_RATES)
+    tables = (res.final_state.dpm_counts > 0).sum(-1).tolist()
+    ok = lo < 0.45 < hi and hi - lo > 0.2
+    emit("dpm_recovery", card=smi, N=N_INDV, L=2000, truth=RECOVERY_RATES,
+         group_means=[lo, hi], tables_per_chain=tables, separated=ok)
+    if not ok:
+        raise AssertionError(f"dpm recovery: group means {lo}, {hi}; truth "
+                             f"{RECOVERY_RATES}")
+    return dict(group_means=[lo, hi])
+
+
+def echo_line(report: bytes) -> str:
+    """The report's line that echoes the process's own command line
+    (``sys.argv``), the one line in which a ``python -m`` run and a call of
+    ``cli.main`` in this process may differ."""
+    lines = report.split(b"\n")
+    return lines[lines.index(b"Command line arguments:") + 1].decode()
+
+
+def check_dpm_cli(panel, smi: str) -> None:
+    """The command line under ``-v 3 -f 1`` on a genotype file of the
+    headline individuals (2000 loci), with checkpoints: ``cli.main`` in this
+    process writes the report with the DPM prior's line; the final
+    checkpoint deleted, the run resumed by ``cli.main`` writes the same
+    report byte for byte, launching the seating kernel once for the
+    initial state and once a resumed sweep; ``python -m
+    instruct_tpu_torch`` with the same arguments writes the same report,
+    but for the line that echoes the process's command line
+    (:func:`echo_line`; both lines printed)."""
+    small = synthetic_panel(N_INDV, 2000, n_pops=N_POPS, n_alleles=2,
+                            selfing_rates=np.array([0.1, 0.4, 0.8]),
+                            admixture_alpha=0.1, seed=PANEL_SEED)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dpm_") as tmp:
+        work = pathlib.Path(tmp)
+        data_file = work / "panel.txt"
+        loader.write_panel(small, str(data_file), data_fmt=0)
+
+        def argv(out, ck):
+            return ["-d", str(data_file), "-o", str(out), "-v", "3", "-f",
+                    "1", "-K", str(N_POPS), "-c", str(N_CHAINS), "-u",
+                    "100", "-b", "50", "-t", "10", "-r", "5", "-j", "5",
+                    "-s", "1", "2", "3", "--checkpoint-dir", str(ck),
+                    "--checkpoint-every", "50"]
+        out, ck = work / "out.txt", work / "ck"
+        # python -m first: the report names its output file, so every run
+        # writes to the same one
+        t0 = time.time()
+        r = subprocess.run([sys.executable, "-m", "instruct_tpu_torch",
+                            *argv(out, work / "ck_m")],
+                           capture_output=True, text=True, timeout=600,
+                           cwd=str(pathlib.Path(__file__).resolve().parent))
+        sub_s = time.time() - t0
+        sub = out.read_bytes() if out.exists() else b""
+        if (r.returncode != 0
+                or "THE JOB IS SUCCESSFULLY FINISHED" not in r.stdout
+                or b"The Dirichlet Process prior is used" not in sub):
+            raise AssertionError(f"dpm cli: python -m exit code "
+                                 f"{r.returncode}: {r.stderr[-2000:]}")
+        rc, wall, got, text = run_cli(argv(out, ck))
+        report = out.read_bytes()
+        if (rc != 0 or "THE JOB IS SUCCESSFULLY FINISHED" not in text
+                or b"The Dirichlet Process prior is used" not in report):
+            raise AssertionError(f"dpm cli: exit code {rc}: {text[-2000:]}")
+        shutil.rmtree(ck / "step_000000000100")
+        (ck / "step_000000000100.meta.json").unlink()
+        rc, resume_wall, resumed, _ = run_cli(argv(out, ck))
+        if rc != 0 or out.read_bytes() != report:
+            raise AssertionError(f"dpm cli resume: exit code {rc}; report "
+                                 "differs from the uninterrupted run's")
+        # the initial state's prior draw, then the 50 sweeps after step 50
+        if got.get("crp_sweep") != 101 or resumed.get("crp_sweep") != 51:
+            raise AssertionError(f"dpm cli: launches {got}, resumed "
+                                 f"{resumed}")
+        echoes = [echo_line(sub), echo_line(report)]
+        if (sub.replace(echoes[0].encode(), b"")
+                != report.replace(echoes[1].encode(), b"")):
+            raise AssertionError("dpm cli: python -m wrote another report "
+                                 "than cli.main beyond the echoed command "
+                                 "line")
+        emit("dpm_cli", card=smi, N=N_INDV, L=2000, sweeps=100,
+             wall_seconds=round(wall, 3), launches=got,
+             resume_wall_seconds=round(resume_wall, 3),
+             resume_launches=resumed, report_bytes=len(report),
+             resume_byte_identical=True,
+             python_m_seconds=round(sub_s, 3),
+             python_m_echo_differs=echoes[0] != echoes[1],
+             echo_lines=echoes)
+
+
+def phase_dpm(panel, smi: str):
+    """The DPM prior and ``marginalize_g``: the seating kernel against its
+    plain version, the grid products against their dense forms, then
+    ``run_mcmc`` at full width in mode 3 and mode 5 under ``-f 1`` (the
+    CRP sweep, one seating launch a sweep), mode 3 with ``--dp-trunc``,
+    mode 2 under ``--marginalize-g``, mode 3 under both, and mode 3
+    ``-f 1`` on the unfused sweep (shorter); the recovery of two groups'
+    rates; the command line with a byte-identical resume.  Returns (the
+    launches by kernel, the kernels-line entries)."""
+    seconds = {}
+    t0 = time.time()
+    entries = check_crp(smi)
+    seconds["crp"] = time.time() - t0
+    t0 = time.time()
+    check_grid_products(panel, smi)
+    seconds["grid_products"] = time.time() - t0
+    launches = {}
+    paths = (
+        ("dpm: mode 3 -f 1", dict(mode=3, priors=DPM_PRIOR), N_ITER),
+        ("dpm: mode 5 -f 1", dict(mode=5, priors=DPM_PRIOR), N_ITER),
+        (f"dpm: mode 3 --dp-trunc {DPM_TRUNC}", dict(mode=3, priors=Priors(
+            family=PriorFamily.DPM, dp_truncation=DPM_TRUNC)), N_ITER),
+        ("dpm: mode 2 --marginalize-g", dict(mode=2, marginalize_g=True),
+         N_ITER),
+        ("dpm: mode 3 --marginalize-g -f 1",
+         dict(mode=3, marginalize_g=True, priors=DPM_PRIOR), N_ITER),
+        ("dpm: mode 3 -f 1, use_pallas=False",
+         dict(mode=3, priors=DPM_PRIOR, use_pallas=False), UNFUSED_ITER))
+    for tag, kw, n_iter in paths:
+        t0 = time.time()
+        spec = ModelSpec(n_pops=N_POPS, s_subsweeps=SUBSWEEPS, **kw)
+        short = n_iter < N_ITER
+        got = drive_path(tag, panel, spec, n_iter, smi,
+                         profile_sweeps=40 if short else 100,
+                         n_prof=10 if short else 30)
+        launches.setdefault("crp_sweep", got.get("crp_sweep", 0))
+        torch.cuda.empty_cache()
+        seconds[tag] = time.time() - t0
+    t0 = time.time()
+    check_recovery(smi)
+    seconds["recovery"] = time.time() - t0
+    t0 = time.time()
+    check_dpm_cli(panel, smi)
+    seconds["cli"] = time.time() - t0
+    emit("dpm_phase", card=smi,
+         seconds={k: round(v, 2) for k, v in seconds.items()},
+         total_seconds=round(sum(seconds.values()), 2))
+    return launches, entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,main_path,modes,unfused,tetra,"
-                            "kselect,cli")
+                            "kselect,cli,dpm")
     ap.add_argument("--parent-csrc", default=None,
                     help="another tree's instruct_tpu_torch/csrc: its site "
                          "pass, K5 and K8 are built and timed beside this "
@@ -3267,10 +3648,16 @@ def main(argv=None) -> int:
         # the K grid's site passes: this slice's main path counts them
         launches.update(phase_kselect(panel, smi))
     if "cli" in phases:
-        # the command line is this slice's main path: its run's counts
+        # the command line is the previous slice's main path: its counts
         launches.update(phase_cli(panel, smi))
+    if "dpm" in phases:
+        # this slice's main path: the seating kernel's count comes from the
+        # mode 3 -f 1 run
+        dpm_launches, dpm_entries = phase_dpm(panel, smi)
+        launches.update(dpm_launches)
+        entries.update(dpm_entries)
     full = {"kernels", "main_path", "modes", "unfused", "tetra",
-            "kselect", "cli"} <= phases
+            "kselect", "cli", "dpm"} <= phases
     if full:
         keys = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

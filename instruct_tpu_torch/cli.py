@@ -10,8 +10,7 @@ unless ``--platform cpu`` is given; it never moves to the CPU on its own.
 What the port does not run yet is refused by name, exit code 2 and the
 ``ROADMAP.md`` item that ports it: ``--sampler`` other than ``gibbs``,
 ``--chain-shards``, ``--data-shards``, ``--mesh-mode`` other than ``auto``,
-``--coordinator``, ``--num-processes`` and ``--process-id``, the DPM prior
-(``-f 1``) and ``--marginalize-g``.
+``--coordinator``, ``--num-processes`` and ``--process-id``.
 """
 
 from __future__ import annotations
@@ -183,11 +182,7 @@ def main(argv=None) -> int:
                       dp_truncation=args.dp_truncation),
         autopoly=bool(args.autopoly), s_subsweeps=args.s_subsweeps,
         marginalize_g=args.marginalize_g)
-    try:
-        check_supported(spec, panel.data)
-    except NotImplementedError as e:
-        print(str(e), file=sys.stderr)
-        return 2
+    check_supported(spec, panel.data)
     sched = Schedule(
         n_iter=args.update, burnin=args.burnin, thinning=args.thinning,
         n_chains=args.chainnum, ckrep=args.ckrep,

@@ -60,3 +60,4 @@ __device__ __forceinline__ float u01_open(uint32_t bits) {
 #define STREAM_S_LOGU 5u
 #define STREAM_Z 6u
 #define STREAM_GENO 16u
+#define STREAM_DPM_SEAT 18u

@@ -102,6 +102,10 @@ _SIGNATURES = {
     # stage, lut_smem) -> dynamic shared-memory bytes of a K6 / K7 launch
     "s_delta_launch_dyn_smem": [_I] * 6,
     "site_ll_launch_dyn_smem": [_I] * 8,
+    # values, counts, assign, log_new, new_val, new_idx, gen, ll_grid,
+    # out values, counts, assign, scratch, C, N, M, variant, k0, k1,
+    # chain_key, step, stream
+    "crp_sweep_launch": [_P] * 12 + [_I] * 4 + [_U, _U, _P, _U, _P],
     # L -> locus tiles per row of the site pass; N -> its row strips (not
     # launches)
     "site_pass_tiles": [_I],

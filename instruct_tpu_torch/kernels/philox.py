@@ -50,8 +50,24 @@ STREAM_ZZ = 15      # mode 0: one z per individual
 STREAM_GENO = 16    # tetraploid latent-genotype move: the Gumbel noise
 STREAM_P2 = 17      # tetraploid (allo): Dirichlet draw of the second
 #                     subgenome's allele frequencies
-# The initial state of the tetraploid engine draws at step INIT_STEP, a step
-# index no sweep reaches, from the streams of the sweep's same draws
+# The DPM prior (mcmc/dpm.py) and the G-marginal updates (mcmc/marg_g.py):
+STREAM_DPM_SEAT = 18  # Gumbel noise of the seat choices: element
+#                       j * (N + 1) + t of the CRP sweep (individual j,
+#                       choice t; kernels/crp.py), j * T + t of the
+#                       stick-breaking sweep's reseat over T components
+STREAM_DPM_NEW = 19  # the CRP sweep's new-table values: U(0, 1) (the prior
+#                      draw), Beta(g_j, 2) through the Dirichlet kernel
+#                      (mode 3), or the Gumbel noise of the grid index,
+#                      element j * M + m (mode 5)
+STREAM_DPM_STICK = 20  # stick-breaking: the Beta draws of the sticks
+STREAM_DPM_THETA = 21  # stick-breaking: the components' values, Beta
+#                        through the Dirichlet kernel (mode 3) or the
+#                        Gumbel noise of the grid index, t * M + m (mode 5)
+STREAM_MARG_GEN = 22  # marginalize_g: Gumbel noise of the exact G draw,
+#                       element i * gen_cap + g
+# The initial state of the tetraploid engine and the DPM prior's initial
+# table draw at step INIT_STEP, a step index no sweep reaches, from the
+# streams of the sweep's same draws
 INIT_STEP = 0xFFFFFFFF
 
 
@@ -171,3 +187,24 @@ def u01_open(bits: torch.Tensor) -> torch.Tensor:
     """U(0, 1) strictly inside the interval — every other draw
     (``instruct_tpu/kernels/s_pop_pallas.py:42-43``)."""
     return ((bits & 0x7FFFFF).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
+
+
+def gumbel(bits: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel noise -log(-log u), u = :func:`u01_open` -- the
+    noise of every Gumbel-argmax draw (``jax.random.categorical``)."""
+    return -torch.log(-torch.log(u01_open(bits)))
+
+
+def element_words(keys: RngKeys, step: int, stream: int,
+                  elements: torch.Tensor) -> torch.Tensor:
+    """int64[C, E] words of the given element indices (int64[E]) of one
+    stream: word ``e % 4`` of the block with counter (``e // 4``, stream,
+    step, chain key) -- the same words as :func:`random_words` at those
+    positions, for an index range that need not start a block."""
+    c3 = keys.chain_key.to(torch.int64)[:, None]
+    words = philox4x32_10(elements >> 2, stream, step, c3, keys.k0, keys.k1)
+    lane = (elements & 3)[None]
+    out = words[3]
+    for i in (2, 1, 0):
+        out = torch.where(lane == i, words[i], out)
+    return out

@@ -37,9 +37,9 @@ class McmcState(NamedTuple):
     #   i32[C, 0] otherwise)
     loglik_indv: torch.Tensor  # f32[C, N] cal_lkh per-individual log-lik
     loglik_total: torch.Tensor  # f32[C]
-    dpm_values: torch.Tensor   # f32[C, 0] (DPM prior; not ported)
-    dpm_counts: torch.Tensor   # i32[C, 0]
-    dpm_assign: torch.Tensor   # i32[C, 0]
+    dpm_values: torch.Tensor   # f32[C, N] the DPM prior's table
+    dpm_counts: torch.Tensor   # i32[C, N]   (mcmc/dpm.py; f32/i32[C, 0]
+    dpm_assign: torch.Tensor   # i32[C, N]   where the prior is not DPM)
     prior_mu: torch.Tensor     # f32[C] normal prior's mean (modes 3/5)
     prior_sigma2: torch.Tensor  # f32[C] and variance
     freq2: Optional[torch.Tensor] = None   # allotetraploid only
@@ -113,11 +113,18 @@ def init_state(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
     ``active`` f32[C, K] (the K grid's mask, active slots leading) draws
     each chain's initial z over its active slots as ``floor(u * n_active)``
     and its Q over them (JAX ``state.py:108-120``), and is carried.
+    Under the DPM prior (modes 3/5, ``mcmc/dpm.py``) the rates come from
+    the CRP prior's table, one launch of the seating kernel for all
+    chains at step ``INIT_STEP`` of the chain keys' Philox streams
+    (``init_rates`` is then not read, as in JAX ``state.py:138-145``), and
+    mode 3's G starts from them.
     Ploidy 4 runs the tetraploid engine's initialisation
     (``tetra/engine.py:init_tetra_state``, with the run's ``tetra_tables``
     when given).
     """
+    from instruct_tpu_torch.kernels import philox as px
     from instruct_tpu_torch.kernels.fused_step import allele_counts
+    from instruct_tpu_torch.mcmc import dpm
     from instruct_tpu_torch.mcmc import updates as up
 
     if spec.ploid == 4:
@@ -159,6 +166,11 @@ def init_state(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
              else torch.as_tensor(init_rates, **f32).reshape(c, r))
     if active is not None:
         active = torch.as_tensor(active, **f32).reshape(c, k)
+    table = None
+    if dpm.uses_dpm(spec):
+        keys = px.make_keys(seed, c, dev, chain_key=chain_key)
+        table = dpm.init_dpm(keys, px.INIT_STEP, spec.priors.alpha_dpm, n)
+        given = torch.gather(table.values, 1, table.assign.to(torch.int64))
 
     def uniform_pops(ci, g, shape, dtype):
         """Initial labels uniform over chain ci's active slots."""
@@ -203,12 +215,15 @@ def init_state(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
                                 max_alleles=a, bits2=data.bits2)
     zero = lambda *shape, dtype=torch.float32: torch.zeros(  # noqa: E731
         shape, dtype=dtype, device=dev)
+    if table is None:
+        table = dpm.DpmTable(zero(c, 0), zero(c, 0, dtype=torch.int32),
+                             zero(c, 0, dtype=torch.int32))
     return McmcState(
         freq=freq, z=z, zz=zz, q=q, alpha=alpha,
         rates=rates, ais_state=_dt_stat(rates), gen=gen,
         loglik_indv=zero(c, n), loglik_total=zero(c),
-        dpm_values=zero(c, 0), dpm_counts=zero(c, 0, dtype=torch.int32),
-        dpm_assign=zero(c, 0, dtype=torch.int32),
+        dpm_values=table.values, dpm_counts=table.counts,
+        dpm_assign=table.assign,
         prior_mu=torch.full((c,), spec.priors.normal_mu0, **f32),
         prior_sigma2=torch.full((c,), spec.priors.normal_sigmasqr0, **f32),
         zcounts=zcounts, loglik_marg=zero(c, n), active=active)

@@ -20,6 +20,14 @@ z in one pass over the sites ("Z, then G | z" / "Z, then F | z"):
                  or at K > 8, as in JAX)
                  mode 3: J elementwise MH subsweeps + G proposal
                  modes 4/5: the F proposal           mcmc/updates.py
+                 DPM prior (modes 3/5): the CRP or
+                 stick-breaking sweep sets S or F    mcmc/dpm.py,
+                 (mode 5: the F pass then runs with  kernels/crp.py
+                 the identity pair, a no-op accept)
+                 marginalize_g (modes 2/3): the G    mcmc/marg_g.py
+                 curves, S on the G-marginal target
+                 (or the DPM sweep), the exact G draw;
+                 then the sampling-only site pass
     Z, G|z, F|z  site pass: z draw, counts, MH ratio kernels/fused_step.py
     Q | Z        Dirichlet(qqnum + alpha)            kernels/dirichlet.py
     alpha        MH                                  mcmc/updates.py
@@ -31,9 +39,11 @@ The **unfused** sweep (everything else: mode 0, K*A > 64, or
     mode 0: P, Z
     mode 1: P, ZQ, alpha
     mode 2: P, S_pop, G, ZQ, alpha
-    mode 3: P, S_ind, G, ZQ, alpha
+    mode 3: P, S_ind | DPM, G, ZQ, alpha
     mode 4: P, F_pop, ZQ, alpha
-    mode 5: P, F_ind, ZQ, alpha
+    mode 5: P, F_ind | DPM, ZQ, alpha
+    (marginalize_g: P, the G curves, S | DPM on the G-marginal target, the
+    exact G draw, ZQ, alpha)
 
     P | Z        counts, then Dirichlet(counts + 1)  kernels/fused_step.py
                                                      (allele_counts),
@@ -69,6 +79,8 @@ from instruct_tpu_torch.kernels import dirichlet as dk
 from instruct_tpu_torch.kernels import fused_step as fs
 from instruct_tpu_torch.kernels import philox as px
 from instruct_tpu_torch.kernels import s_pop as sp
+from instruct_tpu_torch.mcmc import dpm
+from instruct_tpu_torch.mcmc import marg_g as mg
 from instruct_tpu_torch.mcmc import updates as up
 from instruct_tpu_torch.mcmc.state import McmcState
 from instruct_tpu_torch.model import likelihood as lk
@@ -100,6 +112,14 @@ class StepDraws(NamedTuple):
     #   the allotetraploid second system's P draw
     geno: Optional[torch.Tensor] = None   # f32[C, n_cand, N, L] Gumbel noise
     #   of the latent-genotype move
+    # the DPM prior (modes 3/5, mcmc/dpm.py): the CRP sweep's (seat noise
+    # f32[C, N, N+1], new values f32[C, N] (mode 3) or new grid indices
+    # i32[C, N] (mode 5)); the stick-breaking sweep's (sticks f32[C, T],
+    # values f32[C, T] (mode 3) or their grid noise f32[C, T, M] (mode 5),
+    # seat noise f32[C, N, T])
+    dpm: Optional[tuple] = None
+    marg: Optional[torch.Tensor] = None   # f32[C, N, gen_cap] Gumbel noise
+    #   of the exact G draw under marginalize_g (its S update reads s)
 
 
 class _Tail(NamedTuple):
@@ -115,32 +135,37 @@ class _Tail(NamedTuple):
 
 
 def check_supported(spec: ModelSpec, data: Dataset) -> None:
-    """Raise ``NotImplementedError`` (naming the ROADMAP item) for every
-    model the port does not run yet -- never a silent other path."""
-    def no(what, item):
-        raise NotImplementedError(
-            f"instruct_tpu_torch: {what} is still to be ported "
-            f"(ROADMAP: {item})")
+    """Raise the JAX package's ``ValueError`` for a model it does not run
+    either (``instruct_tpu/mcmc/step.py:386-407``, ``mcmc/dpm.py:395-402``).
+    Where JAX ignores an option -- the DPM prior outside diploid modes 3/5
+    -- the port ignores it too."""
     if spec.ploid not in (2, 4):
         raise ValueError(f"ploidy {spec.ploid}: the models are diploid or "
                          "tetraploid")
     if spec.mode not in (0, 1, 2, 3, 4, 5):
         raise ValueError(f"unknown mode {spec.mode}")
-    if spec.priors.family == PriorFamily.DPM:
-        no("the dpm prior", "the DPM prior")
-    if spec.ploid == 4:
-        # the tetraploid engine has per-pop selfing rates in every mode
-        # (JAX mcmc/step.py:390-398)
-        if spec.marginalize_g:
-            raise ValueError("marginalize_g applies to the diploid selfing "
-                             "modes 2/3 (the only modes with generation "
-                             "latents)")
-        if data.distinct is None or data.n_distinct is None:
-            raise ValueError("the tetraploid engine needs Dataset.distinct "
-                             "/ n_distinct (build the panel with ploid 4)")
-        return
-    if spec.marginalize_g:
-        no("marginalize_g", "marg_g")
+    if spec.marginalize_g and (spec.mode not in (2, 3) or spec.ploid != 2):
+        raise ValueError("marginalize_g applies to the diploid selfing "
+                         "modes 2/3 (the only modes with generation "
+                         "latents)")
+    if spec.marginalize_g and spec.type_freq != 1:
+        raise ValueError(
+            "marginalize_g requires the structure-way genotype formulation "
+            "(type_freq=1): the expectation way's Q-mixture probability "
+            "does not factorize through the (pop, allele) one-hot the "
+            "curve tables need")
+    if dpm.uses_dpm(spec):
+        dpm.check_truncation(spec.priors.dp_truncation, data.n_indv)
+    if spec.ploid == 4 and (data.distinct is None
+                            or data.n_distinct is None):
+        raise ValueError("the tetraploid engine needs Dataset.distinct / "
+                         "n_distinct (build the panel with ploid 4)")
+
+
+def _is_marg(spec: ModelSpec) -> bool:
+    """``marginalize_g`` (diploid modes 2/3; check_supported refuses it
+    elsewhere)."""
+    return spec.marginalize_g and spec.mode in (2, 3)
 
 
 def use_fused(spec: ModelSpec, data: Dataset) -> bool:
@@ -217,14 +242,56 @@ def _hyper_update(spec: ModelSpec, state: McmcState, tail: _Tail, rates):
     return changed
 
 
+def _dpm_fields(state: McmcState) -> dict:
+    """The fields the DPM sweep sets: the rates and the table."""
+    return dict(rates=state.rates, dpm_values=state.dpm_values,
+                dpm_counts=state.dpm_counts, dpm_assign=state.dpm_assign)
+
+
+def _marg_s_and_gen(spec: ModelSpec, data: Dataset, state: McmcState,
+                    keys, step_idx: int, d: StepDraws, dpm_update) -> dict:
+    """The ``marginalize_g`` tail of modes 2/3, both sweeps (JAX
+    ``step.py:69-99``): the G curves at the state's freq and z, S on the
+    G-marginal target (mode 2 per pop, mode 3 per individual or the DPM
+    sweep), then the exact G draw.  Returns the changed fields."""
+    n = data.n_indv
+    gtable = mg.selfing_gtable(data, state.freq, state.z, spec.gen_cap)
+    if dpm_update is not None:
+        changed = _dpm_fields(dpm_update(state, keys, step_idx, d.dpm))
+        sbar = changed["rates"]
+    else:
+        tail = _tail_draws(spec, keys, step_idx, d, n)
+        if spec.mode == 2:
+            rates, ais = mg.update_s_pop_marginal(
+                tail.u_prop, tail.u_acc, spec, state.q, gtable, state.rates,
+                state.ais_state, tail.fresh)
+            changed = dict(rates=rates, ais_state=ais)
+            sbar = up.mix_rates(state.q, rates)
+        else:
+            rates = mg.update_s_ind_marginal(
+                tail.u_prop, tail.u_acc, spec, gtable, state.rates,
+                *_prior_args(spec, state))
+            changed = _hyper_update(spec, state, tail, rates)
+            sbar = rates
+    noise = (d.marg if d.marg is not None
+             else mg.gen_noise(keys, step_idx, n, spec.gen_cap))
+    changed["gen"] = mg.sample_gen_marginal(noise, gtable, sbar,
+                                            spec.gen_cap)
+    return changed
+
+
 def _build_fused_parts(spec: ModelSpec, data: Dataset):
     """``(step_core, add_loglik)`` of the fused sweep."""
     n = data.n_indv
     structure = spec.type_freq == 1
+    marg = _is_marg(spec)
     # mode 2's S tail as one kernel: back-reflection and K <= 8, the JAX
-    # gate (instruct_tpu/mcmc/step.py:146-150); else the plain updates
+    # gate (instruct_tpu/mcmc/step.py:146-150), and not under
+    # marginalize_g; else the plain updates
     s_tail_kernel = (spec.mode == 2 and spec.back_refl == 1
-                     and spec.n_pops <= sp.MAX_POPS)
+                     and spec.n_pops <= sp.MAX_POPS and not marg)
+    dpm_update = (dpm.build_dpm_update(spec, data) if dpm.uses_dpm(spec)
+                  else None)
 
     def finish(state, keys, step_idx, d, z, qqnum, zcounts, **changed):
         """Q | Z ~ Dirichlet(counts + alpha), one draw per (chain,
@@ -253,6 +320,11 @@ def _build_fused_parts(spec: ModelSpec, data: Dataset):
                                          state.ais_state, tail.fresh)
             changed = dict(rates=rates, ais_state=ais)
             sbar = up.mix_rates(state.q, rates)
+        elif dpm_update is not None:
+            # the CRP / stick sweep conditions on gen only (JAX
+            # step.py:203-207)
+            changed = _dpm_fields(dpm_update(state, keys, step_idx, d.dpm))
+            sbar = changed["rates"]
         else:
             rates = up.update_s_ind(tail.u_prop, tail.u_acc, spec, state.gen,
                                     state.rates, *_prior_args(spec, state))
@@ -266,7 +338,19 @@ def _build_fused_parts(spec: ModelSpec, data: Dataset):
     def f_sweep(state, keys, step_idx, d, freq):
         """Modes 4/5: the F proposal, the fused Z-Gibbs + F-MH pass, the
         accept (mcmc_POP_inbreedcoff / mcmc_INDV_inbreedcoff,
-        mcmc.c:242-293, 386-468)."""
+        mcmc.c:242-293, 386-468).  Under the DPM prior the sweep on the
+        fresh P and the carried z sets F, and the pass runs with the
+        identity pair (JAX ``_f_tail``, :284-299): its accept is a no-op,
+        so none is drawn."""
+        if dpm_update is not None:
+            changed = _dpm_fields(dpm_update(state._replace(freq=freq), keys,
+                                             step_idx, d.dpm))
+            f = changed["rates"]
+            z, qqnum, _, zcounts = fs.zq_f_pass(
+                keys, step_idx, state.q, freq, data,
+                torch.stack([f, f], dim=-1), pop=False, u=d.z)
+            return finish(state, keys, step_idx, d, z, qqnum, zcounts,
+                          freq=freq, **changed)
         tail = _tail_draws(spec, keys, step_idx, d, n)
         if _is_adaptive(spec):
             prop, prop_states, log_hast = up.propose_adaptive_independence(
@@ -306,6 +390,15 @@ def _build_fused_parts(spec: ModelSpec, data: Dataset):
                                 data.allele_valid, test_draws=d.p)
         if spec.mode in (4, 5):
             return f_sweep(state, keys, step_idx, d, freq)
+        if marg:
+            # the G curves feed S and an exact G draw; the Z pass then
+            # needs no G inputs (JAX _marg_tail, step.py:265-282)
+            changed = _marg_s_and_gen(spec, data, state._replace(freq=freq),
+                                      keys, step_idx, d, dpm_update)
+            z, qqnum, zcounts = fs.zq_sample_pass(
+                keys, step_idx, state.q, freq, data, u=d.z)
+            return finish(state, keys, step_idx, d, z, qqnum, zcounts,
+                          freq=freq, **changed)
         if spec.mode == 1:
             # sampling only; cal_lkh is deferred to stored steps
             z, qqnum, zcounts = fs.zq_sample_pass(
@@ -352,6 +445,9 @@ def _build_unfused_parts(spec: ModelSpec, data: Dataset):
     """``(step_core, add_loglik)`` of the unfused sweep, in the reference's
     order: P, then S or F, then G, then Z and Q, then alpha."""
     n = data.n_indv
+    marg = _is_marg(spec)
+    dpm_update = (dpm.build_dpm_update(spec, data) if dpm.uses_dpm(spec)
+                  else None)
 
     def step(state: McmcState, keys: px.RngKeys, step_idx: int,
              draws: Optional[StepDraws] = None) -> McmcState:
@@ -367,31 +463,39 @@ def _build_unfused_parts(spec: ModelSpec, data: Dataset):
                                   zz=up.update_z_noadmix(u, data, freq,
                                                          state.active))
         changed = dict(freq=freq)
-        if spec.mode != 1:
+        if marg:
+            changed.update(_marg_s_and_gen(
+                spec, data, state._replace(freq=freq), keys, step_idx, d,
+                dpm_update))
+        elif spec.mode != 1:
             tail = _tail_draws(spec, keys, step_idx, d, n)
-        if spec.mode == 2:
-            rates, ais = up.update_s_pop(tail.u_prop, tail.u_acc, spec,
-                                         state.q, state.gen, state.rates,
-                                         state.ais_state, tail.fresh)
-            changed.update(rates=rates, ais_state=ais)
-        elif spec.mode == 3:
-            rates = up.update_s_ind(tail.u_prop, tail.u_acc, spec, state.gen,
-                                    state.rates, *_prior_args(spec, state))
-            changed.update(_hyper_update(spec, state, tail, rates))
-        elif spec.mode == 4:
-            rates, ais = up.update_f_pop(tail.u_prop, tail.u_acc, spec, data,
-                                         freq, state.z, state.rates,
-                                         state.ais_state, tail.fresh)
-            changed.update(rates=rates, ais_state=ais)
-        elif spec.mode == 5:
-            rates = up.update_f_ind(tail.u_prop, tail.u_acc, spec, data,
-                                    freq, state.z, state.rates,
-                                    *_prior_args(spec, state))
-            changed.update(_hyper_update(spec, state, tail, rates))
-        if spec.has_selfing:
-            changed["gen"] = up.update_gen(tail.ug, tail.ul, spec, data, freq,
-                                           state.z, state.q, rates,
-                                           state.gen)
+            if dpm_update is not None:
+                changed.update(_dpm_fields(dpm_update(
+                    state._replace(freq=freq), keys, step_idx, d.dpm)))
+            elif spec.mode == 2:
+                rates, ais = up.update_s_pop(tail.u_prop, tail.u_acc, spec,
+                                             state.q, state.gen, state.rates,
+                                             state.ais_state, tail.fresh)
+                changed.update(rates=rates, ais_state=ais)
+            elif spec.mode == 3:
+                rates = up.update_s_ind(tail.u_prop, tail.u_acc, spec,
+                                        state.gen, state.rates,
+                                        *_prior_args(spec, state))
+                changed.update(_hyper_update(spec, state, tail, rates))
+            elif spec.mode == 4:
+                rates, ais = up.update_f_pop(tail.u_prop, tail.u_acc, spec,
+                                             data, freq, state.z, state.rates,
+                                             state.ais_state, tail.fresh)
+                changed.update(rates=rates, ais_state=ais)
+            else:
+                rates = up.update_f_ind(tail.u_prop, tail.u_acc, spec, data,
+                                        freq, state.z, state.rates,
+                                        *_prior_args(spec, state))
+                changed.update(_hyper_update(spec, state, tail, rates))
+            if spec.has_selfing:
+                changed["gen"] = up.update_gen(
+                    tail.ug, tail.ul, spec, data, freq, state.z, state.q,
+                    changed["rates"], state.gen)
         z, q, _ = up.update_zq(keys, step_idx, spec, data, freq, state.q,
                                state.alpha, u=d.z, q_draws=d.q,
                                active=state.active)

@@ -18,8 +18,10 @@ from instruct_tpu.config import ModelSpec as JModelSpec
 from instruct_tpu.config import Schedule as JSchedule
 from instruct_tpu.data.synthetic import synthetic_panel as j_synthetic_panel
 from instruct_tpu.mcmc.driver import run_mcmc as j_run_mcmc
-from instruct_tpu_torch import ModelSpec, Schedule, run_mcmc, synthetic_panel
+from instruct_tpu_torch import (ModelSpec, Priors, Schedule, run_mcmc,
+                                synthetic_panel)
 from instruct_tpu_torch import checkpoint as ckpt
+from instruct_tpu_torch.config import PriorFamily
 from instruct_tpu_torch.data.synthetic import synthetic_tetra_panel
 from instruct_tpu_torch.kernels import fused_step as fs
 from instruct_tpu_torch.mcmc import driver as drv
@@ -50,14 +52,18 @@ def assert_same_moments(got, want):
     assert torch.equal(got.final_state.freq, want.final_state.freq)
 
 
-@pytest.mark.parametrize("mode,ploid", [(2, 2), (0, 2), (4, 2), (2, 4)],
-                         ids=["mode2", "mode0", "mode4", "tetra"])
-def test_checkpoint_resume_bitwise(tmp_path, mode, ploid):
+@pytest.mark.parametrize("mode,ploid,family",
+                         [(2, 2, None), (0, 2, None), (4, 2, None),
+                          (2, 4, None), (3, 2, PriorFamily.DPM)],
+                         ids=["mode2", "mode0", "mode4", "tetra",
+                              "mode3_dpm"])
+def test_checkpoint_resume_bitwise(tmp_path, mode, ploid, family):
     if ploid == 4:
         panel = synthetic_tetra_panel(10, 8, n_pops=2, n_alleles=3, seed=3)
     else:
         panel = synthetic_panel(10, 8, n_pops=2, seed=3)
-    spec = ModelSpec(mode=mode, ploid=ploid, n_pops=2)
+    priors = Priors() if family is None else Priors(family=family)
+    spec = ModelSpec(mode=mode, ploid=ploid, n_pops=2, priors=priors)
     straight = run(panel, spec)
 
     # checkpointed run, all segments in one process
@@ -78,6 +84,13 @@ def test_checkpoint_resume_bitwise(tmp_path, mode, ploid):
                        straight.accum.mean.total_ll)
     assert torch.equal(resumed.accum.mean.q, straight.accum.mean.q)
     assert torch.equal(resumed.accum.mean.rates, straight.accum.mean.rates)
+    # the DPM prior's table is part of the state: stored, and resumed
+    stored = torch.load(d1 / "step_000000000025" / "state.pt",
+                        weights_only=True)
+    for name in ("dpm_values", "dpm_counts", "dpm_assign"):
+        assert (f"states.{name}" in stored) == (family is not None)
+        assert torch.equal(getattr(resumed.final_state, name),
+                           getattr(straight.final_state, name))
 
 
 def test_checkpoint_format(tmp_path):

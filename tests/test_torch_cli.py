@@ -147,9 +147,6 @@ REFUSED = {
     "coordinator": (["--coordinator", "localhost:1234"], "Parallel (M9)"),
     "num processes": (["--num-processes", "2"], "Parallel (M9)"),
     "process id": (["--process-id", "0"], "Parallel (M9)"),
-    "dpm prior": (["-v", "3", "-f", "1"], "the DPM prior"),
-    "dpm prior, tetraploid": (["-p", "4", "-f", "1"], "the DPM prior"),
-    "marginalize g": (["-v", "2", "--marginalize-g"], "marg_g"),
 }
 
 
@@ -168,6 +165,37 @@ def test_cli_refuses_what_is_not_ported(datafile, tmp_path, capsys, case):
     err = capsys.readouterr().err
     assert f"(ROADMAP: {item})" in err
     assert not out.exists()
+
+
+RUNS_NOW = {
+    "dpm prior": ["-v", "3", "-f", "1"],
+    "dpm prior, tetraploid": ["-p", "4", "-f", "1"],
+    "marginalize g": ["-v", "2", "--marginalize-g"],
+}
+
+
+@pytest.mark.parametrize("case", list(RUNS_NOW))
+def test_cli_runs_what_was_refused(datafile, tmp_path, capsys, case):
+    """The DPM prior (``-f 1``; ignored by the tetraploid engine, as in
+    JAX) and ``--marginalize-g`` run to the report, whose section headers
+    are the JAX command's for the same flags."""
+    flags = RUNS_NOW[case]
+    if "-p" in flags:
+        from instruct_tpu_torch.data.synthetic import synthetic_tetra_panel
+        write_panel(synthetic_tetra_panel(8, 6, n_pops=2, seed=1),
+                    str(datafile), data_fmt=1)
+        flags = flags + ["-af", "1"]
+    args = ["-d", str(datafile), "-u", "30", "-b", "10", "-t", "2", "-c",
+            "2", "-r", "5", "-j", "5", "-K", "2", "--platform", "cpu"] + flags
+    out, jout = tmp_path / "out.txt", tmp_path / "jout.txt"
+    assert main(args + ["-o", str(out)]) == 0
+    assert "SUCCESSFULLY FINISHED" in capsys.readouterr().out
+    text = out.read_text()
+    if case == "dpm prior":
+        assert "Dirichlet" in text
+    if "-p" not in flags:
+        assert j_main(args + ["-o", str(jout)]) == 0
+        assert headers(text) == headers(jout.read_text())
 
 
 def test_cli_never_falls_back_to_the_cpu(datafile, tmp_path):

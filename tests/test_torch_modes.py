@@ -28,6 +28,7 @@ from instruct_tpu.model import likelihood as jlk
 from instruct_tpu_torch import ModelSpec, Priors, Schedule, run_mcmc
 from instruct_tpu_torch import convert
 from instruct_tpu_torch.config import PriorFamily
+from instruct_tpu_torch.data.synthetic import synthetic_tetra_panel
 from instruct_tpu_torch.data.dataset import make_dataset
 from instruct_tpu_torch.kernels import philox as px
 from instruct_tpu_torch.kernels.dirichlet import n_test_draws
@@ -283,33 +284,42 @@ def test_tail_uniform_streams_are_disjoint_and_reproducible():
     ids = [px.STREAM_P, px.STREAM_S_PROP, px.STREAM_S_ACC, px.STREAM_S_GEN,
            px.STREAM_S_LOGU, px.STREAM_Z, px.STREAM_Q, px.STREAM_ALPHA,
            px.STREAM_R_PROP, px.STREAM_R_ACC, px.STREAM_G_PROP,
-           px.STREAM_G_ACC]
-    assert len(set(ids)) == len(ids)
+           px.STREAM_G_ACC, px.STREAM_R_FRESH, px.STREAM_HYPER,
+           px.STREAM_ZZ, px.STREAM_GENO, px.STREAM_P2, px.STREAM_DPM_SEAT,
+           px.STREAM_DPM_NEW, px.STREAM_DPM_STICK, px.STREAM_DPM_THETA,
+           px.STREAM_MARG_GEN]
+    assert len(set(ids)) == len(ids) and px.INIT_STEP not in ids
+    # the DPM and marginalize_g streams: distinct words, reproducible
+    new = [px.random_words(keys, 7, s, 16) for s in ids[-5:]]
+    assert all(not torch.equal(a, b) for i, a in enumerate(new)
+               for b in new[i + 1:])
+    assert torch.equal(new[0], px.random_words(keys, 7, ids[-5], 16))
+    np.testing.assert_array_equal(
+        px.element_words(keys, 7, ids[-5], torch.arange(5, 13)).numpy(),
+        new[0][:, 5:13].numpy())
     u = tup.tail_uniforms(keys, 7, 2, 33)
     assert u.shape == (2, 2, 33) and bool(((u > 0) & (u < 1)).all())
     assert torch.equal(u, tup.tail_uniforms(keys, 7, 2, 33))
     assert not torch.equal(u, tup.tail_uniforms(keys, 8, 2, 33))
 
 
-@pytest.mark.parametrize("kwargs,what,item", [
-    (dict(mode=3, priors=Priors(family=PriorFamily.DPM)), "dpm prior",
-     "the DPM prior"),
-    (dict(mode=1, priors=Priors(family=PriorFamily.DPM)), "dpm prior",
-     "the DPM prior"),
-    (dict(mode=3, marginalize_g=True), "marginalize_g", "marg_g"),
-    # ploidy 4 runs (tests/test_torch_tetra.py); its DPM prior does not
-    (dict(mode=0, ploid=4, priors=Priors(family=PriorFamily.DPM)),
-     "dpm prior", "the DPM prior"),
-    (dict(mode=5, ploid=4, priors=Priors(family=PriorFamily.DPM)),
-     "dpm prior", "the DPM prior"),
+@pytest.mark.parametrize("kwargs,what", [
+    (dict(mode=1, marginalize_g=True), "marginalize_g applies"),
+    (dict(mode=2, ploid=4, marginalize_g=True), "marginalize_g applies"),
+    (dict(mode=3, type_freq=0, marginalize_g=True), "type_freq=1"),
+    (dict(mode=3, priors=Priors(family=PriorFamily.DPM, dp_truncation=1)),
+     "dp_truncation=1"),
+    (dict(mode=5, priors=Priors(family=PriorFamily.DPM, dp_truncation=9)),
+     "dp_truncation=9 out of range"),
 ])
-def test_what_is_left_still_raises(kwargs, what, item):
-    """Each refusal names what is refused and its ROADMAP item."""
+def test_what_is_left_still_raises(kwargs, what):
+    """The models the JAX package refuses too raise its ``ValueError``:
+    ``marginalize_g`` outside the diploid modes 2/3 or with the expectation
+    way, and a ``dp_truncation`` of 1 or above N (here N = 8)."""
     _, data = _panel(8, 9, 2, 2)
     spec = ModelSpec(**{"n_pops": 2, **kwargs})
-    with pytest.raises(NotImplementedError, match="ROADMAP") as e:
+    with pytest.raises(ValueError, match=what):
         step_mod.check_supported(spec, data)
-    assert what in str(e.value) and item in str(e.value)
     # the K grid's active mask and K > 8 are ported: no longer refused
     step_mod.check_supported(ModelSpec(mode=2, n_pops=12), data)
     q = torch.full((1, 8, 2), 0.5)
@@ -319,18 +329,29 @@ def test_what_is_left_still_raises(kwargs, what, item):
         test_draws=(torch.zeros(1), torch.full((1,), 0.5)))).all()
 
 
+_DPM = Priors(family=PriorFamily.DPM)
+
+
 @pytest.mark.parametrize("kwargs", [
     dict(mode=0), dict(mode=1, use_pallas=False),
     dict(mode=5, priors=Priors(family=PriorFamily.NORMAL)),
     dict(mode=5, back_refl=0), dict(mode=1, back_refl=0),
     dict(mode=4, priors=Priors(family=PriorFamily.NORMAL)),
+    dict(mode=1, priors=_DPM), dict(mode=0, ploid=4, priors=_DPM),
+    dict(mode=5, ploid=4, priors=_DPM), dict(mode=3, priors=_DPM),
+    dict(mode=3, marginalize_g=True),
 ])
 def test_what_was_refused_before_now_runs(kwargs):
-    """Mode 0, the unfused sweep, the normal prior and ``back_refl=0`` are
-    supported; where the JAX package ignores an option (the normal prior
-    outside modes 3/5, ``back_refl=0`` outside modes 2/4) the port does too:
-    the trajectory is that of the default spec."""
-    _, data = _panel(8, 9, 2, 2)
+    """Mode 0, the unfused sweep, the normal and DPM priors, ``back_refl=0``
+    and ``marginalize_g`` are supported; where the JAX package ignores an
+    option (the normal prior outside modes 3/5, the DPM prior outside
+    diploid modes 3/5, ``back_refl=0`` outside modes 2/4) the port does
+    too: the trajectory is that of the default spec."""
+    ploid = kwargs.get("ploid", 2)
+    if ploid == 4:
+        data = synthetic_tetra_panel(8, 9, n_pops=2, seed=4).data
+    else:
+        _, data = _panel(8, 9, 2, 2)
     spec = ModelSpec(**{"n_pops": 2, **kwargs})
     step_mod.check_supported(spec, data)
     keys = px.make_keys(1, 2, "cpu")
@@ -338,15 +359,16 @@ def test_what_was_refused_before_now_runs(kwargs):
     new = build_step(spec, data)(state, keys, 0)
     assert torch.isfinite(new.loglik_total).all()
     ignored = (("back_refl" in kwargs and spec.mode not in (2, 4))
-               or ("priors" in kwargs and spec.mode not in (3, 5)))
-    plain = build_step(ModelSpec(mode=spec.mode, n_pops=2), data)(
-        init_state(1, ModelSpec(mode=spec.mode, n_pops=2), data, 2,
-                   device="cpu"), keys, 0)
+               or ("priors" in kwargs and (spec.mode not in (3, 5)
+                                           or ploid == 4)))
+    default = ModelSpec(mode=spec.mode, ploid=ploid, n_pops=2)
+    plain = build_step(default, data)(
+        init_state(1, default, data, 2, device="cpu"), keys, 0)
     same = all((x is None and y is None) or torch.equal(x, y)
                for x, y in zip(new, plain))
     if ignored:
         assert same
-    elif "priors" in kwargs:
+    elif "priors" in kwargs or "marginalize_g" in kwargs:
         assert not same
 
 

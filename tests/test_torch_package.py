@@ -47,7 +47,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "instruct_tpu_torch.kernels.fused_step, instruct_tpu_torch.cli, "
             "instruct_tpu_torch.report, instruct_tpu_torch.checkpoint, "
             "instruct_tpu_torch.memory, instruct_tpu_torch.data.loader, "
-            "instruct_tpu_torch.native; "
+            "instruct_tpu_torch.native, instruct_tpu_torch.mcmc.dpm, "
+            "instruct_tpu_torch.mcmc.marg_g, instruct_tpu_torch.kernels.crp; "
             "from instruct_tpu_torch.cli import main; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'instruct_tpu' or "
@@ -86,13 +87,22 @@ def test_exports_and_defaults():
     (dict(mode=2, priors=Priors(family=PriorFamily.DPM)), "dpm prior"),
 ])
 def test_outside_the_slice_raises_not_implemented(panel, kwargs, what):
+    """What lay outside the port's slices -- ``marginalize_g`` and the DPM
+    prior -- is ported: no spec raises ``NotImplementedError`` any more.
+    Each runs, and where the JAX package ignores the DPM prior (modes 0-2,
+    4, ploidy 4) the port does too."""
     spec = ModelSpec(**{"n_pops": 2, **kwargs})
+    data = panel.data
+    if spec.ploid == 4:
+        from instruct_tpu_torch.data.synthetic import synthetic_tetra_panel
+        data = synthetic_tetra_panel(12, 10, n_pops=2, seed=2).data
     sched = Schedule(**SCHED)
-    with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-        run_mcmc(panel.data, spec, sched, 0, device="cpu")
-    assert what in str(e.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        step_mod.build_step_parts(spec, panel.data)
+    res = run_mcmc(data, spec, sched, 0, device="cpu")
+    assert torch.isfinite(res.final_state.loglik_total).all()
+    step_mod.build_step_parts(spec, data)
+    used = res.final_state.dpm_counts.shape[1] > 0
+    assert used == (what == "dpm prior" and spec.mode == 5
+                    and spec.ploid == 2)
 
 
 @pytest.mark.parametrize("kwargs,fused", [
