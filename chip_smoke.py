@@ -38,6 +38,12 @@ in full float32, ``run_mcmc`` at full width in modes 3 and 5 under
 ``--marginalize-g -f 1`` and the unfused mode 3 ``-f 1``, a two-group
 recovery run, and the command line ``-v 3 -f 1`` with a resumed run's
 report byte-identical, and by ``python -m instruct_tpu_torch``.
+Phase ``samplers`` runs the gradient samplers: the G-curve kernel forward
+and backward against its plain versions (full width, the SMC shape of 128
+rows, edge shapes; bitwise reruns), ``run_sampler`` for HMC, NUTS, SVI and
+SMC on the headline panel in mode 2 (4 chains, twice from one seed), a
+short HMC in modes 1, 3, 4 and 5, the card against the CPU on a small
+panel, and ``python -m instruct_tpu_torch --sampler hmc``.
 Every phase prints one JSON line; any failure raises, so the exit code is
 non-zero.  There is no CPU path: without a CUDA device the script exits with
 code 1 and prints no result.
@@ -47,8 +53,8 @@ prints them; the line before that is the ``{"kernels": [...]}`` summary; the
 last line is ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset of build, kernels, main_path, modes, unfused,
-tetra, kselect, cli, dpm (development aid); the device and Philox phases
-always run.
+tetra, kselect, cli, dpm, samplers (development aid); the device and
+Philox phases always run.
 ``--parent-csrc DIR`` (another tree's ``instruct_tpu_torch/csrc``, e.g. a
 ``git archive`` of the parent commit unpacked under ``_parent/``) builds
 that tree's site pass and K3 to K8 beside this one's and times them on
@@ -90,6 +96,7 @@ from instruct_tpu_torch.data.dataset import (Dataset, make_dataset,
                                              packed_dataset)
 from instruct_tpu_torch.kernels import _build
 from instruct_tpu_torch.kernels import crp
+from instruct_tpu_torch.kernels import gen_curve as gc
 from instruct_tpu_torch.kernels import dirichlet as dk
 from instruct_tpu_torch.kernels import fused_step as fs
 from instruct_tpu_torch.kernels import philox as px
@@ -101,6 +108,14 @@ from instruct_tpu_torch.mcmc import dpm
 from instruct_tpu_torch.mcmc import marg_g as mg
 from instruct_tpu_torch.mcmc.state import init_state
 from instruct_tpu_torch.mcmc.step import build_step_parts, use_fused
+from instruct_tpu_torch.samplers import run as srun
+from instruct_tpu_torch.samplers import tree as srt
+from instruct_tpu_torch.samplers.hmc import HmcConfig, run_hmc
+from instruct_tpu_torch.samplers.noise import PhiloxNoise
+from instruct_tpu_torch.samplers.nuts import NutsConfig, run_nuts
+from instruct_tpu_torch.samplers.potential import MarginalModel
+from instruct_tpu_torch.samplers.smc import SmcConfig, run_smc
+from instruct_tpu_torch.samplers.svi import SviConfig, run_svi
 from instruct_tpu_torch.tetra import engine as te
 from instruct_tpu_torch.tools import dirichlet_counts_variants as dcv
 from instruct_tpu_torch.tools import geno_zq_variants as gzv
@@ -3594,11 +3609,515 @@ def phase_dpm(panel, smi: str):
     return launches, entries
 
 
+# ---------------------------------------------------------------------------
+# phase samplers: the gradient samplers and the G-curve kernel
+# ---------------------------------------------------------------------------
+
+GEN_CAP = 50
+SMC_PARTICLES = 128
+# Short engine configurations of the driven runs (run_sampler's own mapping
+# asks NUTS for >= 150 draws, each ~255 gradients at depth 8 on this
+# posterior: ~38 000 gradients)
+SAMPLER_CONFIGS = {
+    "hmc": HmcConfig(n_warmup=10, n_samples=10, n_leapfrog=16,
+                     init_step=0.02),
+    "nuts": NutsConfig(n_warmup=4, n_samples=6, max_depth=8,
+                       init_step=0.02),
+    "svi": SviConfig(n_steps=300, learning_rate=0.02),
+    "smc": SmcConfig(n_particles=SMC_PARTICLES, n_temps=20, n_mh_steps=5,
+                     rw_scale=0.05),
+}
+MODE_HMC = HmcConfig(n_warmup=4, n_samples=4, n_leapfrog=8, init_step=0.02)
+EPS32 = 2.0 ** -24
+# (N, L, K, A, missing rate, G): L off the 256-site stride, missing sites,
+# A = 8, G = 1, K = 32 with G = 64 (the kernel's limits), one site
+GEN_EDGES = ((37, 1001, 3, 2, 0.2, 50), (50, 300, 5, 8, 0.1, 50),
+             (20, 257, 2, 2, 0.0, 1), (16, 129, 32, 2, 0.1, 64),
+             (3, 1, 2, 2, 0.0, 50))
+
+
+def gen_curve_inputs(data, b: int, k: int, seed: int):
+    """(q f32[b, N, k], p f32[b, k, L, A]) on the card from a seed: softmax
+    rows spread enough that the curve's terms vary (the sampler's
+    constrained parameters)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n, l, a = data.n_indv, data.n_loci, data.max_alleles
+    q = torch.softmax(1.5 * torch.randn((b, n, k), generator=g,
+                                        device="cuda"), -1)
+    logits = 1.5 * torch.randn((b, k, l, a), generator=g, device="cuda")
+    logits = torch.where(data.allele_valid[None, None], logits,
+                         torch.full((), -1e30, device="cuda"))
+    return q.contiguous(), torch.softmax(logits, -1).contiguous()
+
+
+def gen_curve_sites(data, q, p, g: int):
+    """This run's sites by the kernel's path, summed over the rows (plain
+    m0 and 2 m0 m1, which round as the kernel's): homozygous with m0 >=
+    1e-14 and not, heterozygous with 2 m0 m1 w_G > 1e-30 and not."""
+    hom, het, _, _ = gc._sites(data)
+    w_min = 2.0 ** (1 - g)
+    out = np.zeros(4)
+    for lo in range(0, q.shape[0], N_CHAINS):
+        m0, m1, _ = gc._copy_probs(q[lo:lo + N_CHAINS], p[lo:lo + N_CHAINS],
+                                   data)
+        b = m0.shape[0]
+        m0, m1 = m0.reshape(b, -1), m1.reshape(b, -1)
+        fast_h = int((m0[:, hom] >= 1e-14).sum())
+        t = 2.0 * m0[:, het] * m1[:, het]
+        fast_e = int((t * w_min > 1e-30).sum())
+        out += (fast_h, b * hom.numel() - fast_h, fast_e,
+                b * het.numel() - fast_e)
+        del m0, m1, t
+    return out
+
+
+def gen_curve_work(data, q, p, g: int, backward: bool):
+    """(bytes, operations) of one forward or backward call on these inputs:
+    inputs read once and outputs written once (the backward pass's two
+    [B, N, L] planes are the kernel's own); the operations of the kernel's
+    path at each site of this run's data (``gen_curve_sites``): a mixture
+    2K - 1 a copy; a homozygous site on the fast path a logarithm, a
+    ``log1pf`` for g = 2..8 and a series of 9 beyond, plus 2 a g (backward:
+    a division instead of each logarithm, 10 a g of the series); JAX's form
+    on the slow path, a logarithm (backward a division) and 5-8 a g; a
+    heterozygous site a logarithm (backward two divisions), 4 a g on the
+    slow path; backward also the dq partials (4K a site) and the dP sums
+    (2K a copy's allele)."""
+    b, n, k = q.shape
+    l, a = data.n_loci, data.max_alleles
+    fh, sh, fe, se = gen_curve_sites(data, q, p, g)
+    mix = 2 * k - 1
+    exact, series = min(g - 1, 7), max(0, g - 8)
+    panel_bytes = n * 2 * l + 2 * n * l
+    in_bytes = 4 * (b * n * k + b * k * l * a) + panel_bytes
+    if not backward:
+        ops = (fh * (mix + OPS_TRANSC + 3 + exact * (OPS_TRANSC + 2)
+                     + series * 10)
+               + sh * (mix + 2 + g * (OPS_TRANSC + 5))
+               + fe * (2 * mix + 2 + OPS_TRANSC + 3)
+               + se * (2 * mix + 2 + OPS_TRANSC + 4 * g))
+        return in_bytes + 4 * b * n * g, ops
+    ops = (fh * (mix + 3 + exact * (OPS_TRANSC + 4) + series * 10
+                 + OPS_TRANSC)
+           + sh * (mix + 2 + g * (OPS_TRANSC + 8))
+           + fe * (2 * mix + 3 + 2 * OPS_TRANSC)
+           + se * (2 * mix + 2 + 3 * g + 2 * OPS_TRANSC)
+           + (fh + sh + fe + se) * 4 * k
+           + (fh + sh + 2 * (fe + se)) * 2 * k)
+    return in_bytes + 4 * b * n * g + 4 * (b * n * k + b * k * l * a), ops
+
+
+def gen_site_sets(data):
+    """The panel, its valid homozygous sites alone and its valid
+    heterozygous sites alone: each kind's terms held to their own
+    magnitude (at G = 50 a mixed row's heterozygous (1 - g) log 2 shift
+    outweighs its homozygous terms ~50-fold)."""
+    return (("all", data),
+            ("hom", data._replace(site_valid=data.site_valid & data.hom)),
+            ("het", data._replace(site_valid=data.site_valid & ~data.hom)))
+
+
+def gen_ulps(name: str, data, k: int, g: int) -> int:
+    """The kernel's rounding budget for an entry of ``name`` (per_gen, dq or
+    dp), in units of 2^-24 of the sum of its terms' magnitudes: the depth
+    of its float32 arithmetic, since a sum of depth d is off by at most d
+    such units.  A term: its mixture m_c (K) and the rest of the site's
+    arithmetic (8); a gradient's dm_c also its sum over g (G).  The sum:
+    a thread's sites one after another, a warp butterfly (5) and the 8
+    warps' partials for the curve and dq; a strip's individuals and then
+    the strips for dP (csrc/gen_curve.cu)."""
+    term = k + 8 + (0 if name == "per_gen" else g)
+    if name == "dp":
+        return term + sum(gc.col_strips(data.n_indv))
+    return term + -(-data.n_loci // 256) + 13
+
+
+def gen_curve_agrees(tag, data, q, p, g: int, seed: int):
+    """Forward and backward of the kernel against the plain versions run
+    in float64 on the same inputs, on each of ``gen_site_sets``.  Every
+    entry is held to ``gen_ulps`` * 2^-24 times the sum of its terms'
+    magnitudes: each term of the curve is <= 0, so that is |curve|, plus
+    one a valid site for the float32 rounding of m_c; each term of a
+    gradient is dper_gen times a positive factor, so the float64 backward
+    pass of |dper_gen| gives it.  Returns (max abs err, the largest ratio
+    of error to tolerance), keyed tensor_set."""
+    q64, p64 = q.double(), p.double()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dper = torch.randn((q.shape[0], data.n_indv, g), generator=gen,
+                       device="cuda")
+    errs, ratios = {}, {}
+    for kind, d in gen_site_sets(data):
+        fwd = gc._forward(q, p, d, g)
+        dq, dp = gc._backward(q, p, d, g, dper)
+        ref = gc.gen_curve_reference(q64, p64, d, g)
+        rdq, rdp = gc.gen_curve_backward_reference(q64, p64, d, g,
+                                                   dper.double())
+        adq, adp = gc.gen_curve_backward_reference(q64, p64, d, g,
+                                                   dper.abs().double())
+        sites = d.site_valid.sum(1, dtype=torch.float64)[None, :, None]
+        for name, got, want, mag in (("per_gen", fwd, ref, ref.abs() + sites),
+                                     ("dq", dq, rdq, adq),
+                                     ("dp", dp, rdp, adp)):
+            err = (got.double() - want).abs()
+            tol = gen_ulps(name, d, q.shape[2], g) * EPS32 * mag
+            key = f"{name}_{kind}"
+            errs[key] = float(err.max())
+            ratios[key] = float((err / tol.clamp_min(1e-300)).max())
+            if not (torch.isfinite(got).all() and bool((err <= tol).all())):
+                raise AssertionError(
+                    f"gen_curve {tag}: {name} on the {kind} sites differs "
+                    f"from the float64 plain version, max abs err "
+                    f"{errs[key]:.3e}, {ratios[key]:.3g} x its tolerance "
+                    f"({gen_ulps(name, d, q.shape[2], g)} x 2^-24 of the "
+                    "terms' magnitudes)")
+        del fwd, dq, dp, ref, rdq, rdp, adq, adp
+    return errs, ratios
+
+
+def check_gen_curve(panel, smi: str) -> dict:
+    """The G-curve kernel, forward and backward, against its plain versions
+    run in float64 on the card (``gen_curve_agrees``): at full width (4 rows of the headline panel, K = 3, G =
+    50), at the SMC shape (128 rows, forward; the plain version on rows
+    of its start, middle and end), at ``GEN_EDGES``; two runs bitwise
+    equal; times beside the bounds and the plain versions.  Returns the
+    kernels-line entries."""
+    data = panel.data.to("cuda")
+    lib = _build.library()
+    for n in (1, 3, 63, 64, 127, 1000, 1024, 5000):
+        if lib.gen_curve_strip_rows(n) != gc.col_strips(n)[0]:
+            raise AssertionError(f"gen_curve: the dP pass's strips at N = {n}"
+                                 f": kernel {lib.gen_curve_strip_rows(n)}, "
+                                 f"plan {gc.col_strips(n)}")
+    q, p = gen_curve_inputs(data, N_CHAINS, N_POPS, 5)
+    errs, ratios = gen_curve_agrees("full width", data, q, p, GEN_CAP, 6)
+    dper = torch.randn((N_CHAINS, data.n_indv, GEN_CAP), device="cuda")
+    a1, (b1, c1) = gc._forward(q, p, data, GEN_CAP), gc._backward(
+        q, p, data, GEN_CAP, dper)
+    a2, (b2, c2) = gc._forward(q, p, data, GEN_CAP), gc._backward(
+        q, p, data, GEN_CAP, dper)
+    if not (torch.equal(a1, a2) and torch.equal(b1, b2)
+            and torch.equal(c1, c2)):
+        raise AssertionError("gen_curve: two runs differ")
+    timing = {}
+    for name, fn, plain in (
+            ("fwd", lambda: gc._forward(q, p, data, GEN_CAP),
+             lambda: gc.gen_curve_reference(q, p, data, GEN_CAP)),
+            ("bwd", lambda: gc._backward(q, p, data, GEN_CAP, dper),
+             lambda: gc.gen_curve_backward_reference(q, p, data, GEN_CAP,
+                                                     dper))):
+        ms = time_ms(fn, reps=10, warm=2, inner=5)
+        plain_ms = time_ms(plain, reps=3, warm=1, inner=1)
+        b_ms, b_by = bound(*gen_curve_work(data, q, p, GEN_CAP,
+                                           name == "bwd"))
+        timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by)
+    # the SMC shape, forward, held as gen_curve_agrees holds it
+    q128, p128 = gen_curve_inputs(data, SMC_PARTICLES, N_POPS, 7)
+    f128 = gc._forward(q128, p128, data, GEN_CAP)
+    sites = data.site_valid.sum(1, dtype=torch.float64)[None, :, None]
+    smc_err = smc_ratio = 0.0
+    for lo in (0, SMC_PARTICLES // 2 - 2, SMC_PARTICLES - 4):
+        want = gc.gen_curve_reference(q128[lo:lo + 4].double(),
+                                      p128[lo:lo + 4].double(), data, GEN_CAP)
+        err = (f128[lo:lo + 4].double() - want).abs()
+        tol = gen_ulps("per_gen", data, N_POPS, GEN_CAP) * EPS32
+        ratio = float((err / (tol * (want.abs() + sites))).max())
+        if not (torch.isfinite(f128[lo:lo + 4]).all() and ratio <= 1.0):
+            raise AssertionError(f"gen_curve smc shape: rows {lo}..{lo + 3} "
+                                 f"differ, max abs err {float(err.max()):.3e}"
+                                 f", {ratio:.3g} x its tolerance")
+        smc_err = max(smc_err, float(err.max()))
+        smc_ratio = max(smc_ratio, ratio)
+    del want, err
+    smc_ms = time_ms(lambda: gc._forward(q128, p128, data, GEN_CAP), reps=5,
+                     warm=1, inner=2)
+    smc_bound = bound(*gen_curve_work(data, q128, p128, GEN_CAP, False))
+    del q128, p128, f128
+    edges = []
+    for n, l, k, a, miss, g in GEN_EDGES:
+        pnl = synthetic_panel(n, l, n_pops=2, n_alleles=a,
+                              missing_rate=miss, seed=PANEL_SEED + n)
+        d = pnl.data.to("cuda")
+        qe, pe = gen_curve_inputs(d, 3, k, n + l)
+        e, r = gen_curve_agrees(f"N={n} L={l} K={k} A={a} G={g}", d, qe, pe,
+                                g, l)
+        edges.append(dict(N=n, L=l, K=k, A=a, missing=miss, G=g,
+                          max_abs_err={x: float(f"{v:.3e}")
+                                       for x, v in e.items()},
+                          err_over_tol=max(r.values())))
+    torch.cuda.empty_cache()
+    emit("gen_curve", card=smi, B=N_CHAINS, N=data.n_indv, L=data.n_loci,
+         K=N_POPS, G=GEN_CAP, max_abs_err=errs, err_over_tol=ratios,
+         sites_by_path=dict(zip(("hom_fast", "hom_slow", "het_fast",
+                                 "het_slow"),
+                                gen_curve_sites(data, q, p,
+                                                GEN_CAP).tolist())),
+         tolerance_ulps={x: gen_ulps(x, data, N_POPS, GEN_CAP)
+                         for x in ("per_gen", "dq", "dp")},
+         bitwise_reruns=True, timing=timing,
+         dp_strips=dict(zip(("rows", "strips"), gc.col_strips(data.n_indv))),
+         smc_shape=dict(B=SMC_PARTICLES, ms=smc_ms, bound_ms=smc_bound[0],
+                        bound_by=smc_bound[1], max_abs_err=smc_err,
+                        err_over_tol=smc_ratio),
+         edges=edges)
+    entries = {}
+    for name, key in (("gen_curve_fwd", "fwd"), ("gen_curve_bwd", "bwd")):
+        t = timing[key]
+        entries[name] = dict(
+            name=name, route="cuda",
+            source="instruct_tpu_torch/csrc/gen_curve.cu",
+            replaces="instruct_tpu/samplers/potential.py:119",
+            max_abs_err=max(v for x, v in errs.items()
+                            if x.startswith("per_gen") == (key == "fwd")),
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"],
+            # no one PyTorch call computes the G-marginal curve
+            library_ms=None)
+    return entries
+
+
+def sampler_profile(fn) -> dict:
+    """Device busy time and idle share of one ``fn()`` under
+    ``torch.profiler`` (the kernels' device time summed), with its wall
+    time and gradient evaluations."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    srt.counts.clear()
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.time() - t0)
+    rows = [(ev.key, getattr(ev, "self_device_time_total", 0.0), ev.count)
+            for ev in prof.key_averages()]
+    busy = sum(r[1] for r in rows) / 1e3
+    top = sorted(rows, key=lambda r: -r[1])[:6]
+    return dict(wall_ms=wall, device_ms=busy,
+                idle_share=max(0.0, 1.0 - busy / wall),
+                grad_evals=srt.counts["grad_evals"],
+                evals=srt.counts["evals"],
+                kernels=sum(r[2] for r in rows),
+                top=[dict(name=k[:50], ms=round(us / 1e3, 3), n=c)
+                     for k, us, c in top])
+
+
+def drive_sampler(method, panel, spec, smi: str) -> dict:
+    """``run_sampler`` at full width, twice from one seed (bitwise equal
+    results); launches, gradient evaluations and peak memory of the first
+    run; a profiled short window of the same engine."""
+    sched = Schedule(n_iter=200, burnin=100, thinning=10,
+                     n_chains=N_CHAINS, ckrep=5, nstep_check_empty_cluster=5)
+    cfg = SAMPLER_CONFIGS[method]
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        srt.counts.clear()
+        t0 = time.time()
+        res = srun.run_sampler(method, panel.data, spec, sched, RUN_SEED,
+                               device="cuda", config=cfg)
+        torch.cuda.synchronize()
+        runs.append(dict(res=res, wall=time.time() - t0,
+                         launches=dict(_build.launches),
+                         counts=dict(srt.counts),
+                         peak=torch.cuda.max_memory_allocated()))
+    a, b = runs[0]["res"], runs[1]["res"]
+    same = (np.array_equal(a.s_mean, b.s_mean)
+            and np.array_equal(a.q_mean, b.q_mean)
+            and np.array_equal(a.s_var, b.s_var) and a.extra == b.extra)
+    finite = bool(np.isfinite(a.s_mean).all() and np.isfinite(a.q_mean).all()
+                  and all(np.isfinite(v).all() for v in a.extra.values()))
+    ok = same and finite
+    if method in ("hmc", "nuts"):
+        ok = ok and all(0.0 < x <= 1.0 for x in a.extra["accept_rate"])
+    r0 = runs[0]
+    work = r0["counts"].get("grad_evals", 0) + r0["counts"].get("evals", 0)
+    # a profiled window of the engine alone, on the model at a fixed start
+    model = MarginalModel(spec, panel.data.to("cuda"))
+    noise = PhiloxNoise(RUN_SEED + 1, "cuda")
+    short = {"hmc": lambda x: run_hmc(model.potential, x, noise, HmcConfig(
+                 n_warmup=2, n_samples=2, n_leapfrog=16, init_step=0.02)),
+             "nuts": lambda x: run_nuts(model.potential, x, noise,
+                                        NutsConfig(n_warmup=0, n_samples=1,
+                                                   max_depth=8,
+                                                   init_step=0.02)),
+             "svi": lambda x: run_svi(model.log_joint,
+                                      srt.tmap(lambda v: v[0], x), noise,
+                                      SviConfig(n_steps=20)),
+             "smc": lambda x: run_smc(model.log_joint, model.log_prior,
+                                      model.init(noise, SMC_PARTICLES),
+                                      noise, SmcConfig(
+                                          n_particles=SMC_PARTICLES,
+                                          n_temps=1, n_mh_steps=5,
+                                          rw_scale=0.05))}[method]
+    start = model.init(noise, N_CHAINS)
+    short(start)
+    prof = sampler_profile(lambda: short(start))
+    line = dict(card=smi, method=method, config=dataclasses.asdict(cfg),
+                wall_seconds=[round(r["wall"], 3) for r in runs],
+                grad_evals=r0["counts"].get("grad_evals", 0),
+                value_evals=r0["counts"].get("evals", 0),
+                evals_per_second=work / r0["wall"],
+                launches=r0["launches"], peak_device_bytes=r0["peak"],
+                s_mean=a.s_mean.tolist(), s_mean_sorted=np.sort(
+                    a.s_mean).tolist(), truth=[0.1, 0.4, 0.8],
+                extra=a.extra, rerun_bitwise=same, finite=finite,
+                profile=prof)
+    emit("sampler", **line)
+    if not ok:
+        raise AssertionError(f"sampler {method}: finite {finite}, rerun "
+                             f"bitwise {same}, extra {a.extra}")
+    return r0["launches"]
+
+
+def sampler_modes(panel, smi: str) -> None:
+    """One short HMC at full width in each of modes 1, 3, 4 and 5 (modes 1,
+    4, 5 on the plain potential, mode 3 through the G-curve kernel)."""
+    out = {}
+    for mode in (1, 3, 4, 5):
+        spec = ModelSpec(mode=mode, n_pops=N_POPS)
+        model = MarginalModel(spec, panel.data.to("cuda"))
+        noise = PhiloxNoise(RUN_SEED, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        srt.counts.clear()
+        t0 = time.time()
+        (s, q), acc, _ = run_hmc(
+            model.potential, model.init(noise, N_CHAINS), noise, MODE_HMC,
+            collect=lambda x: (model.selfing_rates(x), model.admixture(x)))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        ok = (bool(torch.isfinite(s).all() and torch.isfinite(q).all())
+              and bool(((acc > 0) & (acc <= 1)).all()))
+        out[mode] = dict(wall_seconds=round(wall, 3),
+                         grad_evals=srt.counts["grad_evals"],
+                         evals_per_second=srt.counts["grad_evals"] / wall,
+                         accept_rate=acc.tolist(),
+                         launches=dict(_build.launches),
+                         peak_device_bytes=torch.cuda.max_memory_allocated(),
+                         finite=ok)
+        if not ok:
+            raise AssertionError(f"sampler mode {mode}: {out[mode]}")
+        if (mode == 3) != ("gen_curve_bwd" in _build.launches):
+            raise AssertionError(f"sampler mode {mode}: launches "
+                                 f"{dict(_build.launches)}")
+        torch.cuda.empty_cache()
+    emit("sampler_modes", card=smi, config=dataclasses.asdict(MODE_HMC),
+         modes=out)
+
+
+def sampler_cpu_agreement(smi: str) -> None:
+    """The same seed on the card and on the CPU, on a small mode-2 panel:
+    the first HMC and NUTS transitions agree within 1e-3 of the values'
+    magnitude (float32 rounding of the gradient in another order, grown
+    along the trajectories)."""
+    pnl = synthetic_panel(30, 60, n_pops=2, selfing_rates=np.array(
+        [0.1, 0.8]), missing_rate=0.05, seed=PANEL_SEED)
+    spec = ModelSpec(mode=2, n_pops=2)
+    out = {}
+    for name, run, cfg in (
+            ("hmc", run_hmc, HmcConfig(n_warmup=2, n_samples=3,
+                                       n_leapfrog=4, init_step=0.02)),
+            ("nuts", run_nuts, NutsConfig(n_warmup=2, n_samples=2,
+                                          max_depth=4, init_step=0.02))):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            model = MarginalModel(spec, pnl.data.to(dev))
+            noise = PhiloxNoise(RUN_SEED, dev)
+            draws, acc, _ = run(model.potential, model.init(noise, 2), noise,
+                                cfg, collect=lambda x: x)
+            got[dev] = [d.cpu().double() for d in draws] + [acc.cpu()]
+        errs = []
+        for a, b in zip(got["cuda"], got["cpu"]):
+            err = float((a.double() - b.double()).abs().max()) \
+                if a.numel() else 0.0
+            scale = max(1.0, float(b.abs().max())) if b.numel() else 1.0
+            if err > 1e-3 * scale:
+                raise AssertionError(f"sampler {name}: card and CPU differ "
+                                     f"by {err:.3e} (scale {scale:.3e})")
+            errs.append(err)
+        out[name] = dict(max_abs_err=max(errs))
+    emit("sampler_cpu_agreement", card=smi, N=30, L=60, rtol=1e-3, **out)
+
+
+def sampler_cli(panel, smi: str) -> None:
+    """``python -m instruct_tpu_torch ... --sampler hmc`` on the headline
+    file, in its own process, on the card by default: exit code 0, the
+    finishing line, the report's sections in order.  HMC, not NUTS: the
+    command line maps a schedule to >= 50 + 100 draws, and NUTS takes ~255
+    gradients a draw on this posterior (~38 000, minutes at this kernel's
+    times), beyond this script's budget; NUTS runs at full width through
+    ``run_sampler`` above."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_samplers_") as tmp:
+        work = pathlib.Path(tmp)
+        data_file, out = work / "panel.txt", work / "out.txt"
+        loader.write_panel(panel, str(data_file), data_fmt=0)
+        t0 = time.time()
+        r = subprocess.run(
+            [sys.executable, "-m", "instruct_tpu_torch", "-d",
+             str(data_file), "-o", str(out), "-v", "2", "-K", str(N_POPS),
+             "-c", str(N_CHAINS), "-u", "200", "-b", "10", "-t", "10", "-r",
+             "5", "-j", "5", "--sampler", "hmc"],
+            capture_output=True, text=True, timeout=600,
+            cwd=str(pathlib.Path(__file__).resolve().parent))
+        wall = time.time() - t0
+        report = out.read_text() if out.exists() else ""
+        heads = ("instruct_tpu HMC inference (marginalized model, mode 2)",
+                 "accept_rate = ",
+                 "The Posterior distribution of Selfing Rates:",
+                 "Inferred ancestry of individuals:")
+        pos = [report.find(h) for h in heads]
+        if (r.returncode != 0
+                or not r.stdout.rstrip().endswith(
+                    "THE JOB IS SUCCESSFULLY FINISHED")
+                or min(pos) < 0 or pos != sorted(pos)):
+            raise AssertionError(f"sampler cli: exit code {r.returncode}, "
+                                 f"sections {pos}: {r.stderr[-2000:]}")
+        emit("sampler_cli", card=smi, N=panel.n_indv, L=panel.n_loci,
+             method="hmc", draws="50 + 100 (the schedule's mapping)",
+             wall_seconds=round(wall, 3), report_bytes=len(report),
+             report_head=report.splitlines()[:8])
+
+
+def phase_samplers(panel, smi: str):
+    """The gradient samplers (``--sampler hmc|nuts|svi|smc``): the G-curve
+    kernel against its plain versions; ``run_sampler`` for each method at
+    full width on the headline panel, mode 2, 4 chains, twice; a short HMC
+    in modes 1, 3, 4, 5; the card against the CPU on a small panel; the
+    command line with ``--sampler hmc``.  Returns (the launches by kernel,
+    summed over the four methods' first runs, the kernels-line
+    entries)."""
+    seconds = {}
+    t0 = time.time()
+    entries = check_gen_curve(panel, smi)
+    seconds["gen_curve"] = time.time() - t0
+    spec = ModelSpec(mode=2, n_pops=N_POPS)
+    launches = collections.Counter()
+    for method in ("hmc", "nuts", "svi", "smc"):
+        t0 = time.time()
+        launches.update(drive_sampler(method, panel, spec, smi))
+        torch.cuda.empty_cache()
+        seconds[method] = time.time() - t0
+    for name, fn in (("modes", lambda: sampler_modes(panel, smi)),
+                     ("cpu_agreement", lambda: sampler_cpu_agreement(smi)),
+                     ("cli", lambda: sampler_cli(panel, smi))):
+        t0 = time.time()
+        fn()
+        seconds[name] = time.time() - t0
+    emit("samplers_phase", card=smi,
+         seconds={k: round(v, 2) for k, v in seconds.items()},
+         total_seconds=round(sum(seconds.values()), 2))
+    return {k: launches[k] for k in ("gen_curve_fwd", "gen_curve_bwd")}, \
+        entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,main_path,modes,unfused,tetra,"
-                            "kselect,cli,dpm")
+                            "kselect,cli,dpm,samplers")
     ap.add_argument("--parent-csrc", default=None,
                     help="another tree's instruct_tpu_torch/csrc: its site "
                          "pass, K5 and K8 are built and timed beside this "
@@ -3656,8 +4175,13 @@ def main(argv=None) -> int:
         dpm_launches, dpm_entries = phase_dpm(panel, smi)
         launches.update(dpm_launches)
         entries.update(dpm_entries)
+    if "samplers" in phases:
+        # this slice's main path: run_sampler's four methods
+        smp_launches, smp_entries = phase_samplers(panel, smi)
+        launches.update(smp_launches)
+        entries.update(smp_entries)
     full = {"kernels", "main_path", "modes", "unfused", "tetra",
-            "kselect", "cli", "dpm"} <= phases
+            "kselect", "cli", "dpm", "samplers"} <= phases
     if full:
         keys = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -18,7 +18,8 @@ allotetraploid (``tetra/engine.py``); the selection of K,
 command line, ``python -m instruct_tpu_torch -d panel.txt -o out.txt ...``
 (``cli.py``), from a genotype file (:func:`read_data`) to the InStruct
 report (:func:`write_report`), with checkpoint/resume, progress and a JSONL
-log.
+log; and the gradient samplers (``samplers/``: HMC, NUTS, SVI and SMC on the
+marginalized posterior, ``--sampler``).
 Sub-packages and functions keep the names of their counterparts in
 ``instruct_tpu``.  Entry points run on ``device="cuda"`` unless the caller
 asks for the CPU, where the kernels' plain PyTorch versions run instead.

@@ -7,10 +7,12 @@ instruct_tpu_torch --help``.  ``--platform`` picks the torch device:
 unless ``--platform cpu`` is given; it never moves to the CPU on its own.
 ``--profile-dir`` writes a ``torch.profiler`` trace of the run there.
 
+``--sampler hmc|nuts|svi|smc`` runs the gradient samplers over the
+marginalized model (``samplers/run.py``) and writes their report.
 What the port does not run yet is refused by name, exit code 2 and the
-``ROADMAP.md`` item that ports it: ``--sampler`` other than ``gibbs``,
-``--chain-shards``, ``--data-shards``, ``--mesh-mode`` other than ``auto``,
-``--coordinator``, ``--num-processes`` and ``--process-id``.
+``ROADMAP.md`` item that ports it: ``--chain-shards``, ``--data-shards``,
+``--mesh-mode`` other than ``auto``, ``--coordinator``, ``--num-processes``
+and ``--process-id``.
 """
 
 from __future__ import annotations
@@ -22,7 +24,6 @@ import sys
 
 # flag -> (its value when the run does not use it, the ROADMAP item)
 _NOT_PORTED = {
-    "sampler": ("gibbs", "Samplers (M10)"),
     "chain_shards": (None, "Parallel (M9)"),
     "data_shards": (None, "Parallel (M9)"),
     "mesh_mode": ("auto", "Parallel (M9)"),
@@ -108,7 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sampler", default="gibbs",
                    choices=["gibbs", "hmc", "nuts", "svi", "smc"],
                    help="inference engine (gibbs = reference-family MCMC; "
-                        "the others are not ported yet)")
+                        "hmc/nuts/svi/smc = gradient samplers over the "
+                        "marginalized model)")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-every", type=int, default=100_000)
     p.add_argument("--jsonl-log", default=None,
@@ -207,6 +209,17 @@ def main(argv=None) -> int:
 
     profile_ctx = (_profiled(args.profile_dir, device)
                    if args.profile_dir else contextlib.nullcontext())
+    if args.sampler != "gibbs":
+        from instruct_tpu_torch.samplers.run import (run_sampler,
+                                                     write_sampler_report)
+        with profile_ctx:
+            result = run_sampler(args.sampler, panel.data, spec, sched, seed,
+                                 device=device)
+        write_sampler_report(args.outfile, panel, spec, result,
+                             argv=sys.argv)
+        print("THE JOB IS SUCCESSFULLY FINISHED")
+        return 0
+
     echo = {"datafile": args.datafile, "initfile": args.initfile,
             "outfile": args.outfile, "missing": args.missing,
             "siglevel": args.siglevel,

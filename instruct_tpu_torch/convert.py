@@ -1,7 +1,9 @@
-"""Carry a panel or a sampler state across from the JAX package.
+"""Carry a panel, a sampler state or the gradient samplers' parameters
+across from the JAX package.
 
 The port imports nothing of ``instruct_tpu``, so a JAX ``Dataset`` or
-``McmcState`` is handed over as a dict of numpy arrays keyed by field name
+``McmcState`` (or ``MarginalParams``) is handed over as a dict of numpy
+arrays keyed by field name
 (``{name: np.asarray(value) for name, value in obj._asdict().items()}``).
 The tests use this to let both packages compute on the same numbers.
 """
@@ -15,6 +17,7 @@ import torch
 
 from instruct_tpu_torch.data.dataset import Dataset
 from instruct_tpu_torch.mcmc.state import McmcState
+from instruct_tpu_torch.samplers.potential import MarginalParams
 
 # one chain's rank of every state field (the JAX package's layout)
 _STATE_RANK = dict(freq=3, z=2, zz=1, q=2, alpha=0, rates=1, ais_state=1,
@@ -72,3 +75,19 @@ def state_to_numpy(state: McmcState) -> dict:
     """The state's fields as numpy arrays, chain axis leading."""
     return {name: None if t is None else t.detach().cpu().numpy()
             for name, t in state._asdict().items()}
+
+
+def marginal_params_from_numpy(fields, device="cpu"):
+    """The samplers' :class:`MarginalParams` from the JAX package's
+    ``MarginalParams`` as numpy arrays (a mapping by field name, or the
+    tuple in field order): one position (a batch axis of length 1 is
+    added) or several stacked on a leading axis, told apart by the rank of
+    ``phi_q``."""
+    if not isinstance(fields, Mapping):
+        fields = dict(zip(MarginalParams._fields, fields))
+    stacked = np.asarray(fields["phi_q"]).ndim == 3
+    out = []
+    for name in MarginalParams._fields:
+        v = np.array(fields[name], dtype=np.float32)
+        out.append(torch.from_numpy(v if stacked else v[None]).to(device))
+    return MarginalParams(*out)

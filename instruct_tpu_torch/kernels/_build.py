@@ -106,6 +106,13 @@ _SIGNATURES = {
     # out values, counts, assign, scratch, C, N, M, variant, k0, k1,
     # chain_key, step, stream
     "crp_sweep_launch": [_P] * 12 + [_I] * 4 + [_U, _U, _P, _U, _P],
+    # q, p, geno, hom, valid, per_gen, B, N, L, K, A, G, stream
+    "gen_curve_fwd_launch": [_P] * 6 + [_I] * 6 + [_P],
+    # q, p, geno, hom, valid, dper_gen, dm0, dm1, dq, strip partials, dp,
+    # B, N, L, K, A, G, stream
+    "gen_curve_bwd_launch": [_P] * 11 + [_I] * 6 + [_P],
+    # N -> rows of a strip of the dP pass (not a launch)
+    "gen_curve_strip_rows": [_I],
     # L -> locus tiles per row of the site pass; N -> its row strips (not
     # launches)
     "site_pass_tiles": [_I],

@@ -65,6 +65,24 @@ STREAM_DPM_THETA = 21  # stick-breaking: the components' values, Beta
 #                        Gumbel noise of the grid index, t * M + m (mode 5)
 STREAM_MARG_GEN = 22  # marginalize_g: Gumbel noise of the exact G draw,
 #                       element i * gen_cap + g
+# The gradient samplers (samplers/noise.py:PhiloxNoise).  Their step word
+# packs the draw's place: (phase << 24) | transition for HMC and NUTS,
+# (temperature << 8) | MH step for SMC; the chain key is the batch row's
+# chain (HMC, NUTS), ELBO sample (SVI) or particle (SMC).
+STREAM_MOMENTUM = 23   # HMC / NUTS momenta: Box-Muller normals, two words
+#                        a value, the leaves' values in order
+STREAM_HMC_ACCEPT = 24  # HMC: the MH accept uniform (one word)
+STREAM_HMC_JITTER = 25  # HMC: the jittered trajectory length (one word)
+STREAM_NUTS_DIR = 26   # NUTS: direction of doubling j (word j)
+STREAM_NUTS_SUBTREE = 27  # NUTS: the uniform that takes subtree j (word j)
+STREAM_NUTS_LEAF = 28  # NUTS: leaf i of subtree j, word 2^j - 1 + i
+STREAM_ELBO = 29       # SVI: the reparameterization noise (normals)
+STREAM_SMC_PROPOSAL = 30  # SMC: random-walk proposal noise (normals)
+STREAM_SMC_ACCEPT = 31  # SMC: MH accept uniforms (one word a particle)
+STREAM_SMC_RESAMPLE = 32  # SMC: the systematic resampling uniform
+STREAM_SAMPLER_INIT = 33  # MarginalModel.init: the initial normals
+STREAM_SAMPLER_JITTER = 34  # the warm start's per-chain jitter (normals)
+STREAM_SVI_DRAW = 35   # run_sampler("svi"): draws of the fitted Gaussian
 # The initial state of the tetraploid engine and the DPM prior's initial
 # table draw at step INIT_STEP, a step index no sweep reaches, from the
 # streams of the sweep's same draws

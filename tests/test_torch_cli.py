@@ -1,10 +1,12 @@
 """The port's command line on the CPU (``--platform cpu``): the flows of
 ``tests/test_cli.py`` exit 0 and write reports with the JAX CLI's section
 headers in the JAX CLI's order on the same file (the numbers differ by
-design: the port draws Philox); every flag that is not ported yet exits 2
-naming its ROADMAP item; without a card the default platform fails instead
-of moving to the CPU."""
+design: the port draws Philox); ``--sampler hmc|nuts|svi|smc`` writes the
+JAX writer's report bytes for its result; every flag that is not ported
+yet exits 2 naming its ROADMAP item; without a card the default platform
+fails instead of moving to the CPU."""
 
+import dataclasses
 import json
 import os
 import re
@@ -12,6 +14,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -136,10 +139,6 @@ def test_cli_checkpoint_resume_and_log(datafile, tmp_path, capsys):
 
 
 REFUSED = {
-    "sampler hmc": (["--sampler", "hmc"], "Samplers (M10)"),
-    "sampler nuts": (["--sampler", "nuts"], "Samplers (M10)"),
-    "sampler svi": (["--sampler", "svi"], "Samplers (M10)"),
-    "sampler smc": (["--sampler", "smc"], "Samplers (M10)"),
     "chain shards": (["--chain-shards", "2"], "Parallel (M9)"),
     "data shards": (["--data-shards", "2"], "Parallel (M9)"),
     "mesh mode shard_map": (["--mesh-mode", "shard_map"], "Parallel (M9)"),
@@ -165,6 +164,108 @@ def test_cli_refuses_what_is_not_ported(datafile, tmp_path, capsys, case):
     err = capsys.readouterr().err
     assert f"(ROADMAP: {item})" in err
     assert not out.exists()
+
+
+# Short engine configurations for the CLI's sampler runs: the schedule's
+# own mapping (test_sampler_schedule_mapping_is_jax_s) asks NUTS for 150
+# draws at depth 8, minutes of plain-version gradients on the CPU.
+SHORT = {
+    "hmc": dict(n_warmup=4, n_samples=4, n_leapfrog=3, init_step=0.02),
+    "nuts": dict(n_warmup=2, n_samples=3, max_depth=3, init_step=0.02),
+    "svi": dict(n_steps=20, learning_rate=0.02),
+    "smc": dict(n_particles=16, n_temps=3, n_mh_steps=2, rw_scale=0.05),
+}
+
+
+def _short_config(method, sched):
+    from instruct_tpu_torch.samplers import run as s_run
+    return {"hmc": s_run.HmcConfig, "nuts": s_run.NutsConfig,
+            "svi": s_run.SviConfig, "smc": s_run.SmcConfig}[method](
+        **SHORT[method])
+
+
+@pytest.mark.parametrize("method", list(SHORT))
+def test_cli_runs_the_samplers(datafile, tmp_path, capsys, monkeypatch,
+                               method):
+    """``--sampler hmc|nuts|svi|smc --platform cpu``: exit code 0, the
+    finishing line, and a report byte-identical to the JAX writer's
+    (``instruct_tpu/samplers/run.py:write_sampler_report``) for the
+    ``SamplerResult`` of the run."""
+    from instruct_tpu.samplers import run as j_run
+    from instruct_tpu_torch.data.loader import read_data
+    from instruct_tpu_torch.samplers import run as s_run
+    monkeypatch.setattr(s_run, "_schedule_config", _short_config)
+    results = []
+    real = s_run.run_sampler
+
+    def spy(*a, **kw):
+        results.append(real(*a, **kw))
+        return results[-1]
+
+    monkeypatch.setattr(s_run, "run_sampler", spy)
+    out, jout = tmp_path / "out.txt", tmp_path / "jout.txt"
+    rc = main(["-d", str(datafile), "-o", str(out), "-v", "2", "-K", "2",
+               "-u", "30", "-b", "10", "-t", "2", "-c", "2", "-r", "5", "-j",
+               "5", "--sampler", method, "--platform", "cpu"])
+    assert rc == 0
+    assert capsys.readouterr().out.rstrip().endswith(
+        "THE JOB IS SUCCESSFULLY FINISHED")
+    (res,) = results
+    assert res.method == method and res.s_mean.shape == (2,)
+    assert res.q_mean.shape == (15, 2)
+    assert np.isfinite(res.q_mean).all() and np.isfinite(res.s_mean).all()
+    key = {"hmc": "accept_rate", "nuts": "accept_rate", "svi": "final_elbo",
+           "smc": "log_evidence"}[method]
+    assert key in res.extra
+    j_res = j_run.SamplerResult(res.method, res.s_mean, res.s_var,
+                                res.q_mean, res.q_var, res.extra)
+    from instruct_tpu import ModelSpec as JSpec
+    j_run.write_sampler_report(str(jout), read_data(str(datafile)),
+                               JSpec(mode=2, n_pops=2), j_res, argv=sys.argv)
+    text = out.read_bytes()
+    assert text == jout.read_bytes()
+    assert b"Selfing Rates" in text and b"Inferred ancestry" in text
+
+
+class _Captured(Exception):
+    pass
+
+
+@pytest.mark.parametrize("method", ["hmc", "nuts", "svi", "smc"])
+def test_sampler_schedule_mapping_is_jax_s(monkeypatch, method):
+    """The engine configuration ``run_sampler`` derives from a Gibbs
+    schedule (and chain count) is the one the JAX ``run_sampler`` passes to
+    its engine, caught there by stubs."""
+    import jax
+    from instruct_tpu import ModelSpec as JSpec
+    from instruct_tpu.data.synthetic import synthetic_panel as j_panel
+    from instruct_tpu.samplers import nuts as j_nuts
+    from instruct_tpu.samplers import run as j_run
+    from instruct_tpu_torch import Schedule
+    from instruct_tpu_torch.samplers.run import _schedule_config
+
+    def catch(*args, **kw):
+        cfgs = [a for a in args if dataclasses.is_dataclass(a)]
+        raise _Captured(cfgs[0])
+
+    monkeypatch.setattr(j_run, "_svi_warm_start", lambda *a: None)
+    for mod, name in ((j_run, "run_hmc"), (j_nuts, "run_nuts"),
+                      (j_run, "run_svi"), (j_run, "run_smc")):
+        monkeypatch.setattr(mod, name, catch)
+    data = j_panel(n_indv=6, n_loci=5, n_pops=2, seed=1).data
+    for kw in (dict(n_iter=30, burnin=10, thinning=2, n_chains=2, ckrep=5,
+                    nstep_check_empty_cluster=5),
+               dict(n_iter=30_000, burnin=2000, thinning=10, n_chains=4,
+                    ckrep=5, nstep_check_empty_cluster=5),
+               dict(n_iter=900, burnin=300, thinning=1, n_chains=1, ckrep=5,
+                    nstep_check_empty_cluster=5)):
+        from instruct_tpu import Schedule as JSchedule
+        with pytest.raises(_Captured) as cap:
+            j_run.run_sampler(method, data, JSpec(mode=2, n_pops=2),
+                              JSchedule(**kw), jax.random.key(0))
+        want = cap.value.args[0]
+        got = _schedule_config(method, Schedule(**kw))
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), kw
 
 
 RUNS_NOW = {
@@ -257,10 +358,30 @@ def test_python_dash_m_entry_point(datafile, tmp_path):
     assert "Inferred ancestry" in out.read_text()
     r = subprocess.run(
         [sys.executable, "-m", "instruct_tpu_torch", "-d", str(datafile),
-         "-o", str(out), "--sampler", "nuts"],
+         "-o", str(out), "--chain-shards", "2"],
         capture_output=True, text=True, timeout=300, cwd=str(REPO),
         env={**os.environ, "PYTHONPATH": str(REPO)})
-    assert r.returncode == 2 and "ROADMAP: Samplers (M10)" in r.stderr
+    assert r.returncode == 2 and "ROADMAP: Parallel (M9)" in r.stderr
+
+
+def test_python_dash_m_sampler_nuts_defaults_to_the_card(datafile,
+                                                         tmp_path):
+    """``python -m instruct_tpu_torch --sampler nuts`` in its own process:
+    the flag is taken (not refused), the run defaults to the card, and
+    without one it fails instead of moving to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a machine without a CUDA device")
+    out = tmp_path / "o.txt"
+    r = subprocess.run(
+        [sys.executable, "-m", "instruct_tpu_torch", "-d", str(datafile),
+         "-o", str(out), "-v", "2", "-u", "30", "-b", "10", "-t", "2",
+         "-r", "5", "-j", "5", "--sampler", "nuts"],
+        capture_output=True, text=True, timeout=300, cwd=str(REPO),
+        env={**os.environ, "PYTHONPATH": str(REPO)})
+    assert r.returncode == 1, r.stderr[-2000:]
+    assert "still to be ported" not in r.stderr
+    assert "--platform cuda, but torch sees no CUDA device" in r.stderr
+    assert not out.exists()
 
 
 def test_no_module_of_the_port_imports_jax():
