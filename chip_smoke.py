@@ -44,6 +44,17 @@ rows, edge shapes; bitwise reruns), ``run_sampler`` for HMC, NUTS, SVI and
 SMC on the headline panel in mode 2 (4 chains, twice from one seed), a
 short HMC in modes 1, 3, 4 and 5, the card against the CPU on a small
 panel, and ``python -m instruct_tpu_torch --sampler hmc``.
+Phase ``parallel`` runs the sharded paths (``instruct_tpu_torch/parallel``):
+an NCCL world of one (``make_mesh(1, 1)``) bitwise the unsharded run at the
+headline, then a world of two gloo ranks on the one card (this script with
+``--parallel-worker``, one process a rank; NCCL refuses two ranks on one
+device): the headline run chain-sharded (2, 1) bitwise the unsharded run,
+loci-sharded (1, 2) in modes 2 and 4 and on the tetraploid panels, auto and
+allo -- each twice from one seed, the replicated state bitwise equal on
+both ranks, each rank's launches and all-reduces as predicted for its
+block, the log-lik leaving the run equal to the gathered state's over the
+whole panel -- and ``python -m instruct_tpu_torch --chain-shards 1
+--data-shards 1``.
 Every phase prints one JSON line; any failure raises, so the exit code is
 non-zero.  There is no CPU path: without a CUDA device the script exits with
 code 1 and prints no result.
@@ -53,8 +64,8 @@ prints them; the line before that is the ``{"kernels": [...]}`` summary; the
 last line is ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset of build, kernels, main_path, modes, unfused,
-tetra, kselect, cli, dpm, samplers (development aid); the device and
-Philox phases always run.
+tetra, kselect, cli, dpm, samplers, parallel (development aid); the device
+and Philox phases always run.
 ``--parent-csrc DIR`` (another tree's ``instruct_tpu_torch/csrc``, e.g. a
 ``git archive`` of the parent commit unpacked under ``_parent/``) builds
 that tree's site pass and K3 to K8 beside this one's and times them on
@@ -71,7 +82,9 @@ import argparse
 import collections
 import contextlib
 import ctypes
+import functools
 import json
+import os
 import pathlib
 import re
 import statistics
@@ -125,7 +138,11 @@ from instruct_tpu_torch.tools import site_pass_variants as spv
 # Headline shapes of the main path.
 N_INDV, N_LOCI, N_POPS, N_CHAINS, SUBSWEEPS = 1000, 10_000, 3, 4, 12
 PANEL_SEED, RUN_SEED = 17, 2024
-N_ITER = 200           # sweeps of a run_mcmc path (half of them burn-in)
+N_ITER = 200           # sweeps of K selection, the CLI and the recovery run
+PATH_ITER = 100        # sweeps of a run_mcmc path (half of them burn-in)
+# a path's sweep profile: sweeps timed, then sweeps in the profiled window
+PROFILE_SWEEPS, PROFILE_N = 30, 10
+TRAJECTORY = 20        # sweeps of the bitwise rates trajectories
 # The multi-allelic panel of the generic site path.
 GEN_LOCI, GEN_ALLELES = 2000, 8
 # The wide panel of the unfused sweep: K*A = 80 is beyond the fused sweep.
@@ -1667,7 +1684,8 @@ def _profile_window(step, state, keys, i0: int, n_prof: int):
     it turns device tracing on can be lost).  Returns (state, kernel rows
     (name, device us, events), the wrappers' launches in the window)."""
     from torch.profiler import ProfilerActivity, profile, schedule
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    # device activity only: the sums read kernels alone
+    with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=n_prof,
                                    repeat=1)) as prof:
         state = step(state, keys, i0)
@@ -1886,8 +1904,8 @@ def expected_launches(spec, data, steps, evals, attempts) -> dict:
     return want
 
 
-def drive_path(tag, panel, spec, n_iter, smi, profile_sweeps=100,
-               n_prof=30) -> dict:
+def drive_path(tag, panel, spec, n_iter, smi, profile_sweeps=PROFILE_SWEEPS,
+               n_prof=PROFILE_N) -> dict:
     """Drive ``run_mcmc`` once with the launch counts set to 0 just before
     and read just after; check the counts against the schedule, the output,
     and that a second run from the seed is bitwise equal.  Returns the
@@ -1974,8 +1992,9 @@ def drive_path(tag, panel, spec, n_iter, smi, profile_sweeps=100,
             and torch.equal(res.accum.mean.total_ll,
                             res2.accum.mean.total_ll))
     if r:
-        same = same and torch.equal(rates_trajectory(data, spec, 60),
-                                    rates_trajectory(data, spec, 60))
+        same = same and torch.equal(
+            rates_trajectory(data, spec, TRAJECTORY),
+            rates_trajectory(data, spec, TRAJECTORY))
     if not same:
         raise AssertionError(f"{tag}: two runs from one seed are not "
                              "bitwise equal")
@@ -2003,8 +2022,8 @@ def phase_main_path(panel, smi: str) -> dict:
     agreement = small_agreement(2, 2)
     emit("small_agreement", mode=2, A=2, max_abs_err=agreement)
     spec = ModelSpec(mode=2, n_pops=N_POPS, s_subsweeps=SUBSWEEPS)
-    return drive_path("main_path: mode 2, packed panel", panel, spec, N_ITER,
-                      smi)
+    return drive_path("main_path: mode 2, packed panel", panel, spec,
+                      PATH_ITER, smi)
 
 
 def direct_calls(x, tag) -> None:
@@ -2048,14 +2067,15 @@ def phase_modes(panel, panel_a, panel_a4, smi: str) -> dict:
     for mode in (1, 3, 4, 5):
         spec = ModelSpec(mode=mode, n_pops=N_POPS, s_subsweeps=SUBSWEEPS)
         got = drive_path(f"modes: mode {mode}, packed panel", panel, spec,
-                         N_ITER, smi)
+                         PATH_ITER, smi)
         launches.update({name: n for name, n in got.items()
                          if name in MODE_PASSES[mode]})
     for mode in (2, 1, 3, 4, 5):
         spec = ModelSpec(mode=mode, n_pops=N_POPS, s_subsweeps=SUBSWEEPS)
         got = drive_path(f"modes: mode {mode}, A = {GEN_ALLELES} panel",
-                         panel_a, spec, N_ITER if mode == 2 else 40, smi,
-                         profile_sweeps=100 if mode == 2 else 0)
+                         panel_a, spec, PATH_ITER if mode == 2 else 40,
+                         smi, profile_sweeps=PROFILE_SWEEPS if mode == 2
+                         else 0)
         # mode 2 runs first and deepest: its counts stand for the passes
         # that mode 3 shares with it
         for name, n in got.items():
@@ -2070,7 +2090,8 @@ def phase_modes(panel, panel_a, panel_a4, smi: str) -> dict:
                              ModelSpec(mode=mode, n_pops=k,
                                        s_subsweeps=SUBSWEEPS),
                              UNFUSED_ITER, smi,
-                             profile_sweeps=30 if mode == 2 else 0, n_prof=10)
+                             profile_sweeps=PROFILE_SWEEPS if mode == 2
+                             else 0)
             for name, n in got.items():
                 if name.endswith("_wide"):
                     launches.setdefault(name, n)
@@ -2116,12 +2137,11 @@ def phase_unfused(panel, panel_w, smi: str) -> dict:
                 small_agreement(mode, 2, use_pallas=sweep, **kw)
     emit("small_agreement", sweeps=3, max_abs_err=agreement)
 
-    short = dict(n_iter=UNFUSED_ITER, smi=smi, profile_sweeps=30, n_prof=10)
+    short = dict(n_iter=UNFUSED_ITER, smi=smi)
     launches = {}
     got = drive_path("unfused: mode 2, wide panel (K*A = 80)", panel_w,
                      ModelSpec(mode=2, n_pops=WIDE_POPS,
-                               s_subsweeps=SUBSWEEPS), N_ITER, smi,
-                     profile_sweeps=50)
+                               s_subsweeps=SUBSWEEPS), PATH_ITER, smi)
     launches.update({name: got[name] for name in ("zq_sample_counts",
                                                   "allele_counts_wide")})
     for mode in (1, 3, 4, 5):
@@ -2129,8 +2149,7 @@ def phase_unfused(panel, panel_w, smi: str) -> dict:
                    ModelSpec(mode=mode, n_pops=WIDE_POPS,
                              s_subsweeps=SUBSWEEPS), **short)
     drive_path("unfused: mode 0, headline panel", panel,
-               ModelSpec(mode=0, n_pops=N_POPS), N_ITER, smi,
-               profile_sweeps=30, n_prof=10)
+               ModelSpec(mode=0, n_pops=N_POPS), PATH_ITER, smi)
     got = drive_path("unfused: mode 2, headline panel, use_pallas=False",
                      panel, ModelSpec(mode=2, n_pops=N_POPS,
                                       s_subsweeps=SUBSWEEPS,
@@ -2177,8 +2196,8 @@ def phase_kselect(panel, smi: str) -> dict:
     """``infer_k`` on the headline panel in mode 2: 4 chains per K, K =
     1..10, one padded grid of 40 replicas at K_max = 10 (the fused sweep
     through the run-time-K body of the site pass, the plain S tail, as in
-    JAX at K > 8), at the main path's depth (200 sweeps, half burn-in,
-    thinning 10).  Checks: the panel's K = 3 is picked; launches as the
+    JAX at K > 8), over 200 sweeps (half burn-in, thinning 10: the depth
+    its choice of K needs).  Checks: the panel's K = 3 is picked; launches as the
     schedule predicts; every K's slice puts no q mass or z on its padding;
     a rerun is bitwise equal; the card agrees with the CPU after 3 sweeps
     of a small grid in modes 0, 2 and 4.  Reports per-K WAIC, wall and
@@ -2835,8 +2854,8 @@ def tetra_small_agreement(autopoly: bool, **spec_kw) -> dict:
     return errs
 
 
-def drive_tetra(tag, panel, spec, n_iter, smi, profile_sweeps=100,
-                n_prof=30) -> dict:
+def drive_tetra(tag, panel, spec, n_iter, smi, profile_sweeps=PROFILE_SWEEPS,
+                n_prof=PROFILE_N) -> dict:
     """``run_mcmc`` on a tetraploid panel with the launch counts set to 0
     just before and read just after; counts against the schedule, the
     output's checks, a second run from the seed bitwise equal."""
@@ -2905,8 +2924,8 @@ def drive_tetra(tag, panel, spec, n_iter, smi, profile_sweeps=100,
             and torch.equal(st.rates, f2.rates)
             and torch.equal(acc.mean.rates, res2.accum.mean.rates)
             and torch.equal(acc.mean.total_ll, res2.accum.mean.total_ll))
-    same = same and torch.equal(rates_trajectory(data, spec, 30),
-                                rates_trajectory(data, spec, 30))
+    same = same and torch.equal(rates_trajectory(data, spec, TRAJECTORY),
+                                rates_trajectory(data, spec, TRAJECTORY))
     if not same:
         raise AssertionError(f"{tag}: two runs from one seed are not "
                              "bitwise equal")
@@ -2959,7 +2978,7 @@ def phase_tetra(panels, smi: str) -> dict:
             launches[name] = got[name]
         if not auto:
             launches["s_delta_pass"] = got["s_delta_pass"]
-    short = dict(n_iter=UNFUSED_ITER, smi=smi, profile_sweeps=30, n_prof=10)
+    short = dict(n_iter=UNFUSED_ITER, smi=smi)
     drive_tetra("tetra: auto, s_subsweeps=4", panels[True],
                 ModelSpec(mode=2, ploid=4, n_pops=N_POPS, s_subsweeps=4),
                 **short)
@@ -3577,23 +3596,20 @@ def phase_dpm(panel, smi: str):
     seconds["grid_products"] = time.time() - t0
     launches = {}
     paths = (
-        ("dpm: mode 3 -f 1", dict(mode=3, priors=DPM_PRIOR), N_ITER),
-        ("dpm: mode 5 -f 1", dict(mode=5, priors=DPM_PRIOR), N_ITER),
+        ("dpm: mode 3 -f 1", dict(mode=3, priors=DPM_PRIOR), PATH_ITER),
+        ("dpm: mode 5 -f 1", dict(mode=5, priors=DPM_PRIOR), PATH_ITER),
         (f"dpm: mode 3 --dp-trunc {DPM_TRUNC}", dict(mode=3, priors=Priors(
-            family=PriorFamily.DPM, dp_truncation=DPM_TRUNC)), N_ITER),
+            family=PriorFamily.DPM, dp_truncation=DPM_TRUNC)), PATH_ITER),
         ("dpm: mode 2 --marginalize-g", dict(mode=2, marginalize_g=True),
-         N_ITER),
+         PATH_ITER),
         ("dpm: mode 3 --marginalize-g -f 1",
-         dict(mode=3, marginalize_g=True, priors=DPM_PRIOR), N_ITER),
+         dict(mode=3, marginalize_g=True, priors=DPM_PRIOR), PATH_ITER),
         ("dpm: mode 3 -f 1, use_pallas=False",
          dict(mode=3, priors=DPM_PRIOR, use_pallas=False), UNFUSED_ITER))
     for tag, kw, n_iter in paths:
         t0 = time.time()
         spec = ModelSpec(n_pops=N_POPS, s_subsweeps=SUBSWEEPS, **kw)
-        short = n_iter < N_ITER
-        got = drive_path(tag, panel, spec, n_iter, smi,
-                         profile_sweeps=40 if short else 100,
-                         n_prof=10 if short else 30)
+        got = drive_path(tag, panel, spec, n_iter, smi)
         launches.setdefault("crp_sweep", got.get("crp_sweep", 0))
         torch.cuda.empty_cache()
         seconds[tag] = time.time() - t0
@@ -3619,12 +3635,12 @@ SMC_PARTICLES = 128
 # asks NUTS for >= 150 draws, each ~255 gradients at depth 8 on this
 # posterior: ~38 000 gradients)
 SAMPLER_CONFIGS = {
-    "hmc": HmcConfig(n_warmup=10, n_samples=10, n_leapfrog=16,
+    "hmc": HmcConfig(n_warmup=5, n_samples=5, n_leapfrog=16,
                      init_step=0.02),
-    "nuts": NutsConfig(n_warmup=4, n_samples=6, max_depth=8,
+    "nuts": NutsConfig(n_warmup=2, n_samples=2, max_depth=8,
                        init_step=0.02),
-    "svi": SviConfig(n_steps=300, learning_rate=0.02),
-    "smc": SmcConfig(n_particles=SMC_PARTICLES, n_temps=20, n_mh_steps=5,
+    "svi": SviConfig(n_steps=150, learning_rate=0.02),
+    "smc": SmcConfig(n_particles=SMC_PARTICLES, n_temps=10, n_mh_steps=5,
                      rw_scale=0.05),
 }
 MODE_HMC = HmcConfig(n_warmup=4, n_samples=4, n_leapfrog=8, init_step=0.02)
@@ -4042,14 +4058,18 @@ def sampler_cpu_agreement(smi: str) -> None:
     emit("sampler_cpu_agreement", card=smi, N=30, L=60, rtol=1e-3, **out)
 
 
-def sampler_cli(panel, smi: str) -> None:
-    """``python -m instruct_tpu_torch ... --sampler hmc`` on the headline
-    file, in its own process, on the card by default: exit code 0, the
+def sampler_cli(smi: str) -> None:
+    """``python -m instruct_tpu_torch ... --sampler hmc`` on a genotype file
+    of the headline individuals (2000 loci, as the other command-line
+    checks), in its own process, on the card by default: exit code 0, the
     finishing line, the report's sections in order.  HMC, not NUTS: the
     command line maps a schedule to >= 50 + 100 draws, and NUTS takes ~255
     gradients a draw on this posterior (~38 000, minutes at this kernel's
-    times), beyond this script's budget; NUTS runs at full width through
-    ``run_sampler`` above."""
+    times), beyond this script's budget; every method runs at full width
+    through ``run_sampler`` above."""
+    panel = synthetic_panel(N_INDV, 2000, n_pops=N_POPS, n_alleles=2,
+                            selfing_rates=np.array([0.1, 0.4, 0.8]),
+                            admixture_alpha=0.1, seed=PANEL_SEED)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_samplers_") as tmp:
         work = pathlib.Path(tmp)
         data_file, out = work / "panel.txt", work / "out.txt"
@@ -4102,7 +4122,7 @@ def phase_samplers(panel, smi: str):
         seconds[method] = time.time() - t0
     for name, fn in (("modes", lambda: sampler_modes(panel, smi)),
                      ("cpu_agreement", lambda: sampler_cpu_agreement(smi)),
-                     ("cli", lambda: sampler_cli(panel, smi))):
+                     ("cli", lambda: sampler_cli(smi))):
         t0 = time.time()
         fn()
         seconds[name] = time.time() - t0
@@ -4113,26 +4133,518 @@ def phase_samplers(panel, smi: str):
         entries
 
 
+# ---------------------------------------------------------------------------
+# phase parallel: chain and loci sharding over torch.distributed
+# ---------------------------------------------------------------------------
+
+PAR_ITER, PAR_BURNIN, PAR_THIN = 40, 20, 5   # sweeps of a sharded run
+PAR_WORLD_SECONDS = 240                     # the 2-rank world's time limit
+PAR_PROFILE_SWEEPS = 20                     # timed sweeps of a sharded sweep
+# the replicated state: equal bits on every rank of a chain block
+REPLICATED = ("q", "alpha", "rates", "ais_state", "gen", "loglik_indv",
+              "loglik_total", "prior_mu", "prior_sigma2")
+
+
+def par_sched(n_chains=N_CHAINS) -> Schedule:
+    return Schedule(n_iter=PAR_ITER, burnin=PAR_BURNIN, thinning=PAR_THIN,
+                    n_chains=n_chains, ckrep=4, nstep_check_empty_cluster=4)
+
+
+def par_cases() -> list:
+    """(tag, panel kind, spec, mesh shape, track_freq) of the 2-rank
+    world: the headline panel chain-sharded and loci-sharded in modes 2
+    and 4, the tetraploid panels loci-sharded, auto and allo."""
+    head = dict(n_pops=N_POPS, s_subsweeps=SUBSWEEPS)
+    return [("chain (2, 1): mode 2", "head", ModelSpec(mode=2, **head),
+             (2, 1), False),
+            ("loci (1, 2): mode 2", "head", ModelSpec(mode=2, **head),
+             (1, 2), False),
+            ("loci (1, 2): mode 4", "head", ModelSpec(mode=4, **head),
+             (1, 2), False),
+            ("loci (1, 2): tetra auto", "auto",
+             ModelSpec(mode=2, ploid=4, n_pops=N_POPS, autopoly=True),
+             (1, 2), True),
+            ("loci (1, 2): tetra allo", "allo",
+             ModelSpec(mode=2, ploid=4, n_pops=N_POPS, autopoly=False),
+             (1, 2), True)]
+
+
+@functools.lru_cache(maxsize=None)
+def par_panel(kind):
+    if kind == "head":
+        return synthetic_panel(N_INDV, N_LOCI, n_pops=N_POPS, n_alleles=2,
+                               selfing_rates=np.array([0.1, 0.4, 0.8]),
+                               admixture_alpha=0.1, seed=PANEL_SEED)
+    return tetra_panel(kind == "auto")
+
+
+class _Shard:
+    """The mesh fields ``loci_shard.shard_panel`` reads, for the shape of
+    a rank's block (launch predictions)."""
+
+    def __init__(self, d, index):
+        self.n_data_shards, self.data_index, self.device = d, index, "cuda"
+
+
+def par_stored(sched):
+    """(log-lik evaluations, marginal log-lik evaluations) of a run."""
+    last_extra = 0 if (sched.n_iter - sched.burnin) % sched.thinning == 0 \
+        else 1
+    margs = sum(1 for nth in range(sched.n_stored)
+                if nth % sched.dic_every == 0)
+    return sched.n_stored + last_extra, margs
+
+
+def par_expected(spec, local, sched, track_freq):
+    """Launches and all-reduces of one rank's run: the schedule's kernels
+    on the rank's block, and the sums of the data group -- the pop counts
+    and the G / F log-ratio (diploid) or the S log-ratio of every
+    subsweep (tetraploid) a sweep, one a log-lik evaluation, one at the
+    initial state."""
+    evals, margs = par_stored(sched)
+    steps = sched.n_iter
+    if spec.ploid == 4:
+        want = tetra_expected_launches(spec, local, steps, evals, margs, 1)
+        if not track_freq:
+            want[f"site_ll_pass_{'auto' if spec.autopoly else 'allo'}"] -= 1
+        per_sweep = 1 + max(1, spec.s_subsweeps)
+    else:
+        want = expected_launches(spec, local, steps, evals, 1)
+        per_sweep = 2
+    return want, per_sweep * steps + evals + margs + 1
+
+
+def _same_bits(a, b) -> bool:
+    return a is None and b is None or (
+        a is not None and b is not None and a.shape == b.shape
+        and torch.equal(a.cpu(), b.cpu()))
+
+
+def _tree_diffs(got, ref, prefix="") -> dict:
+    """Fields of two NamedTuples (nested) whose bits differ -> their
+    largest relative error."""
+    out = {}
+    for name, x, y in zip(ref._fields, got, ref):
+        if isinstance(y, tuple):
+            out.update(_tree_diffs(x, y, f"{prefix}{name}."))
+        elif not _same_bits(x, y):
+            if x is None or y is None or x.shape != y.shape:
+                out[prefix + name] = float("inf")
+                continue
+            xf, yf = x.double().cpu(), y.double().cpu()
+            out[prefix + name] = float(((xf - yf).abs()
+                                        / yf.abs().clamp_min(1e-30)).max())
+    return out
+
+
+def par_sweep_profile(spec, data, mesh, state, keys, tables) -> dict:
+    """Where a sharded sweep's time goes, on this rank: wall time a sweep
+    of the bare step loop, the host time spent in all-reduces and their
+    bytes, and (rank 0) the device time of everything the sweep ran from
+    ``torch.profiler``, hence the device's idle share.  The other rank
+    runs the same sweeps, unprofiled, to keep step with it."""
+    from instruct_tpu_torch.mcmc.step import build_step_parts as bsp
+    step, _ = bsp(spec, data, tables, mesh)
+    for i in range(5):
+        state = step(state, keys, i)
+    torch.cuda.synchronize()
+    mesh.reset_stats()
+    t0 = time.time()
+    for i in range(5, 5 + PAR_PROFILE_SWEEPS):
+        state = step(state, keys, i)
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) / PAR_PROFILE_SWEEPS
+    st = dict(mesh.stats)
+    out = dict(wall_ms_per_sweep=1e3 * wall,
+               all_reduce_ms_per_sweep=1e3 * st.get("all_reduce_s", 0.0)
+               / PAR_PROFILE_SWEEPS,
+               all_reduces_per_sweep=st.get("all_reduces", 0)
+               / PAR_PROFILE_SWEEPS,
+               all_reduce_bytes_per_sweep=st.get("all_reduce_bytes", 0)
+               / PAR_PROFILE_SWEEPS,
+               device_ms_per_sweep=None, device_idle_share=None)
+    n_prof = 10
+    if mesh.rank != 0:
+        for i in range(n_prof + 1):
+            state = step(state, keys, 100 + i)
+        torch.cuda.synchronize()
+        return out
+    from torch.profiler import ProfilerActivity, profile, schedule
+    try:
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=n_prof,
+                                       repeat=1)) as prof:
+            for i in range(n_prof + 1):
+                state = step(state, keys, 100 + i)
+                torch.cuda.synchronize()
+                prof.step()
+        busy_us = 0.0
+        for ev in prof.key_averages():
+            if ev.key.startswith("ProfilerStep"):
+                continue
+            busy_us += getattr(ev, "self_device_time_total",
+                               getattr(ev, "self_cuda_time_total", 0.0))
+    except RuntimeError as e:
+        out["profiler_error"] = str(e)[:200]
+        return out
+    if busy_us > 0:
+        dev_ms = busy_us / 1e3 / n_prof
+        out.update(device_ms_per_sweep=dev_ms,
+                   device_idle_share=max(0.0, 1.0 - dev_ms
+                                         / out["wall_ms_per_sweep"]))
+    return out
+
+
+def par_worker_case(tag, kind, spec, shape, track_freq, mesh) -> dict:
+    """One case of the 2-rank world on this rank: the sharded run twice
+    (bitwise equal), its launches and all-reduces, this rank's replicated
+    state before the gather (its bits, for the cross-rank check), the
+    result's checks; for the chain mesh, rank 0 against the unsharded run;
+    for the loci mesh, rank 0's log-lik of the gathered state over the
+    whole panel, and the sweep's time profile."""
+    import hashlib
+    from instruct_tpu_torch.mcmc.step import build_step_parts as bsp
+    from instruct_tpu_torch.parallel import loci_shard as ls
+    panel = par_panel(kind)
+    sched = par_sched()
+    local_bits = {}
+
+    def keep_local(step, state, accum):
+        for name in REPLICATED:
+            t = getattr(state, name).contiguous().cpu()
+            local_bits[name] = hashlib.sha1(t.numpy().tobytes()).hexdigest()
+
+    out = dict(tag=tag, rank=mesh.rank)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    mesh.reset_stats()
+    t0 = time.time()
+    res = run_mcmc(panel.data, spec, sched, RUN_SEED, track_freq=track_freq,
+                   mesh=mesh, progress_every=PAR_ITER, progress_fn=keep_local)
+    torch.cuda.synchronize()
+    out.update(wall_seconds=time.time() - t0,
+               launches=dict(_build.launches),
+               all_reduces=mesh.stats.get("all_reduces", 0),
+               all_reduce_bytes=mesh.stats.get("all_reduce_bytes", 0),
+               local_bits=dict(local_bits), n_retries=res.n_retries)
+    res2 = run_mcmc(panel.data, spec, sched, RUN_SEED, track_freq=track_freq,
+                    mesh=mesh)
+    out["rerun_diffs"] = _tree_diffs(res2.final_state, res.final_state)
+    out["rerun_diffs"].update(_tree_diffs(res2.accum, res.accum, "accum."))
+    st, acc = res.final_state, res.accum
+    data = panel.data.to(mesh.device)
+    n, l = data.n_indv, data.n_loci
+    checks = {
+        "shapes": tuple(st.z.shape) == (N_CHAINS, n, spec.ploid * l)
+        and tuple(st.freq.shape[:3]) == (N_CHAINS, N_POPS, l),
+        "loglik finite": bool(torch.isfinite(st.loglik_indv).all()
+                              and torch.isfinite(acc.mean.total_ll).all()),
+        "stored count": bool((acc.count == sched.n_stored).all()),
+        "freq rows sum to 1": bool(torch.allclose(
+            st.freq.sum(-1), torch.ones_like(st.freq.sum(-1)), atol=1e-4)),
+    }
+    if spec.ploid == 4:
+        checks["geno an ordering of the input's loci"] = \
+            geno_is_an_ordering(data, st.geno)
+        want = te.plugin_loglik(spec, data, acc.mean, st)
+        checks["plug-in log-lik of the gathered means"] = bool(
+            np.array_equal(res.plugin_ll, want.cpu().numpy()))
+    out["checks"] = checks
+    if shape[1] > 1:
+        # the log-lik leaving the run against the gathered state's, over
+        # the whole panel (the bound of tests/test_sharding.py)
+        _, add_ll = bsp(spec, data)
+        ref = add_ll(st).loglik_indv
+        err = (st.loglik_indv - ref).abs()
+        out["loglik_err"] = float(err.max())
+        out["loglik_ok"] = bool((err <= 2e-5 + 2e-5 * ref.abs()).all())
+        local = ls.shard_panel(panel.data, mesh)
+        tables = te.build_tables(spec, local) if spec.ploid == 4 else None
+        keys = px.make_keys(RUN_SEED, N_CHAINS, mesh.device,
+                            shard=mesh.shard)
+        state = init_state(RUN_SEED, spec, local, N_CHAINS,
+                           device=mesh.device, tetra_tables=tables,
+                           mesh=mesh)
+        out["profile"] = par_sweep_profile(spec, local, mesh, state, keys,
+                                           tables)
+    elif mesh.rank == 0:
+        ref = run_mcmc(panel.data, spec, sched, RUN_SEED,
+                       track_freq=track_freq, device=mesh.device)
+        out["vs_unsharded"] = _tree_diffs(res.final_state, ref.final_state)
+        out["vs_unsharded"].update(_tree_diffs(res.accum, ref.accum,
+                                               "accum."))
+    del res, res2
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_worker(td: str, rank: int, world_size: int, port: int) -> int:
+    """A rank of the phase's 2-rank world (gloo: NCCL refuses two ranks on
+    one device): every case, results written to ``td``."""
+    import datetime
+    import pickle
+    import torch.distributed as dist
+    from instruct_tpu_torch.parallel import initialize_multihost, make_mesh
+    initialize_multihost(f"127.0.0.1:{port}", world_size, rank,
+                         backend="gloo", device="cuda",
+                         timeout=datetime.timedelta(seconds=120))
+    meshes = {shape: make_mesh(*shape) for shape in ((2, 1), (1, 2))}
+    out = [par_worker_case(*case, meshes[case[3]]) for case in par_cases()]
+    pathlib.Path(td, f"rank_{rank}.pkl").write_bytes(pickle.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def par_world(world_size: int = 2) -> list:
+    """Start the world (this script, ``--parallel-worker``, one process a
+    rank), poll it, kill it at its time limit or at the first rank that
+    fails; the ranks' results by rank."""
+    import pickle
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    td = tempfile.mkdtemp(prefix="par_world_")
+    logs = [open(pathlib.Path(td, f"log_{r}.txt"), "w")
+            for r in range(world_size)]
+    env = dict(os.environ)
+    if pathlib.Path("/sys/class/net/lo").exists():
+        # one host: gloo on the loopback device, whatever the host name
+        # resolves to
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    procs = [subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()),
+         "--parallel-worker", td, str(r), str(world_size), str(port)],
+        stdout=logs[r], stderr=subprocess.STDOUT, env=env,
+        cwd=str(pathlib.Path(__file__).resolve().parent))
+        for r in range(world_size)]
+    deadline = time.time() + PAR_WORLD_SECONDS
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            if bad or time.time() > deadline:
+                r = bad[0] if bad else 0
+                text = pathlib.Path(td, f"log_{r}.txt").read_text()[-4000:]
+                raise AssertionError(
+                    f"parallel: rank {r} "
+                    + (f"exited with {codes[r]}" if bad else
+                       f"still running after {PAR_WORLD_SECONDS} s")
+                    + ":\n" + text)
+            if all(c == 0 for c in codes):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    outs = [pickle.loads(pathlib.Path(td, f"rank_{r}.pkl").read_bytes())
+            for r in range(world_size)]
+    shutil.rmtree(td, ignore_errors=True)
+    return outs
+
+
+def par_world_of_one(panel, smi: str) -> None:
+    """A world of one NCCL rank: ``run_mcmc`` on ``make_mesh(1, 1)`` is
+    bitwise the unsharded run, at the headline."""
+    import torch.distributed as dist
+    from instruct_tpu_torch.parallel import make_mesh
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    import datetime
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh(1, 1)
+        spec = ModelSpec(mode=2, n_pops=N_POPS, s_subsweeps=SUBSWEEPS)
+        t0 = time.time()
+        got = run_mcmc(panel.data, spec, par_sched(), RUN_SEED, mesh=mesh,
+                       track_freq=True)
+        wall = time.time() - t0
+        ref = run_mcmc(panel.data, spec, par_sched(), RUN_SEED,
+                       track_freq=True)
+        diffs = _tree_diffs(got.final_state, ref.final_state)
+        diffs.update(_tree_diffs(got.accum, ref.accum, "accum."))
+        if diffs or not np.array_equal(got.plugin_ll, ref.plugin_ll):
+            raise AssertionError(f"parallel: the NCCL world of one differs "
+                                 f"from the unsharded run: {diffs}")
+        emit("parallel_world_of_one", card=smi, backend=dist.get_backend(),
+             mesh=[1, 1], bitwise_unsharded=True, wall_seconds=wall)
+    finally:
+        dist.destroy_process_group()
+
+
+def par_cli(smi: str) -> None:
+    """``python -m instruct_tpu_torch`` with ``--chain-shards 1
+    --data-shards 1`` and without: the same report but for the lines that
+    echo the command line and name the output file (both processes at
+    once, on the card)."""
+    td = pathlib.Path(tempfile.mkdtemp(prefix="par_cli_"))
+    panel = synthetic_panel(N_INDV, 2000, n_pops=N_POPS, n_alleles=2,
+                            selfing_rates=np.array([0.1, 0.4, 0.8]),
+                            admixture_alpha=0.1, seed=PANEL_SEED)
+    from instruct_tpu_torch import write_panel
+    write_panel(panel, str(td / "p.txt"))
+    base = [sys.executable, "-m", "instruct_tpu_torch", "-d",
+            str(td / "p.txt"), "-v", "2", "-K", str(N_POPS), "-u", "40",
+            "-b", "20", "-t", "2", "-c", str(N_CHAINS), "-r", "5", "-j", "5"]
+    t0 = time.time()
+    procs = [subprocess.Popen(base + ["-o", str(td / f"{name}.txt")] + flags,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              cwd=str(pathlib.Path(__file__).resolve()
+                                      .parent))
+             for name, flags in (("plain", []), ("mesh", [
+                 "--chain-shards", "1", "--data-shards", "1"]))]
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.time() - t0
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"parallel: CLI exit codes "
+                             f"{[p.returncode for p in procs]}: "
+                             f"{outs[-1][-2000:]}")
+
+    def body(name):
+        lines = (td / f"{name}.txt").read_text().splitlines()
+        i = lines.index("Command line arguments:")
+        return [ln for j, ln in enumerate(lines)
+                if j not in (i, i + 1) and not ln.startswith("Output File")]
+    if body("plain") != body("mesh"):
+        raise AssertionError("parallel: --chain-shards 1 --data-shards 1 "
+                             "changed the report")
+    shutil.rmtree(td, ignore_errors=True)
+    emit("parallel_cli", card=smi, report_identical=True,
+         wall_seconds_both=wall)
+
+
+def phase_parallel(panel, smi: str) -> dict:
+    """Chain and loci sharding over ``torch.distributed`` on the card: an
+    NCCL world of one against the unsharded run; a gloo world of two ranks
+    on the one card (NCCL refuses two ranks on one device): the headline
+    run chain-sharded (2, 1) against the unsharded run, loci-sharded
+    (1, 2) in modes 2 and 4, and the tetraploid panels loci-sharded, auto
+    and allo -- each run twice from one seed (bitwise), the replicated
+    state bitwise equal on both ranks, each rank's launches and
+    all-reduces exactly as predicted for its block, the log-lik leaving
+    the run equal to the gathered state's over the whole panel (2e-5);
+    and the command line with a 1x1 mesh.  Returns rank 0's launches of
+    the loci-sharded runs, by kernel."""
+    seconds = {}
+    t0 = time.time()
+    par_world_of_one(panel, smi)
+    seconds["world of one"] = time.time() - t0
+    t0 = time.time()
+    outs = par_world(2)
+    seconds["world of two"] = time.time() - t0
+    launches = collections.Counter()
+    sched = par_sched()
+    for i, (tag, kind, spec, shape, track_freq) in enumerate(par_cases()):
+        ranks = [o[i] for o in outs]
+        bad = []
+        for r in ranks:
+            if r["rerun_diffs"]:
+                bad.append(f"rank {r['rank']}: a rerun differs "
+                           f"{r['rerun_diffs']}")
+            failed = [k for k, v in r["checks"].items() if not v]
+            if failed:
+                bad.append(f"rank {r['rank']}: failed checks {failed}")
+        if shape[1] > 1:
+            if ranks[0]["local_bits"] != ranks[1]["local_bits"]:
+                bad.append("the replicated state differs between the "
+                           "ranks")
+            panel_k = par_panel(kind)
+            for r in ranks:
+                local = ls_shard(panel_k.data, r["rank"])
+                want, reduces = par_expected(spec, local, sched, track_freq)
+                if r["launches"] != want:
+                    bad.append(f"rank {r['rank']}: launches "
+                               f"{r['launches']}, predicted {want}")
+                if r["all_reduces"] != reduces:
+                    bad.append(f"rank {r['rank']}: {r['all_reduces']} "
+                               f"all-reduces, predicted {reduces}")
+            if not ranks[0]["loglik_ok"]:
+                bad.append(f"log-lik of the gathered state differs by "
+                           f"{ranks[0]['loglik_err']:.3e}")
+            launches.update(ranks[0]["launches"])
+        elif ranks[0]["vs_unsharded"]:
+            bad.append(f"the chain-sharded run differs from the unsharded "
+                       f"run in {ranks[0]['vs_unsharded']}")
+        if bad:
+            raise AssertionError(f"parallel: {tag}: " + "; ".join(bad))
+        emit("parallel", path=tag, card=smi, backend="gloo", ranks=2,
+             mesh=list(shape), sweeps=sched.n_iter, chains=N_CHAINS,
+             wall_seconds=[r["wall_seconds"] for r in ranks],
+             launches_rank0=ranks[0]["launches"],
+             all_reduces_per_rank=ranks[0]["all_reduces"],
+             all_reduce_bytes_per_rank=ranks[0]["all_reduce_bytes"],
+             loglik_max_abs_err=ranks[0].get("loglik_err"),
+             profile=[r.get("profile") for r in ranks],
+             checks=sorted(ranks[0]["checks"]),
+             bitwise_reproducible=True,
+             bitwise_unsharded=None if shape[1] > 1 else True,
+             replicated_state_equal_across_ranks=True if shape[1] > 1
+             else None,
+             note="two ranks share one card's SMs: wall time measures "
+                  "the path, not scaling")
+    t0 = time.time()
+    par_cli(smi)
+    seconds["cli"] = time.time() - t0
+    emit("parallel_phase", card=smi,
+         seconds={k: round(v, 2) for k, v in seconds.items()},
+         total_seconds=round(sum(seconds.values()), 2))
+    return dict(launches)
+
+
+def ls_shard(data, index: int, d: int = 2):
+    """Rank ``index``'s loci block of ``data`` on the card."""
+    from instruct_tpu_torch.parallel import loci_shard as ls
+    return ls.shard_panel(data, _Shard(d, index))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="build,kernels,main_path,modes,unfused,tetra,"
-                            "kselect,cli,dpm,samplers")
+                            "kselect,cli,dpm,samplers,parallel")
     ap.add_argument("--parent-csrc", default=None,
                     help="another tree's instruct_tpu_torch/csrc: its site "
                          "pass, K5 and K8 are built and timed beside this "
                          "one's")
+    ap.add_argument("--parallel-worker", nargs=4, default=None,
+                    metavar=("DIR", "RANK", "WORLD", "PORT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.parallel_worker:
+        td, rank, world_size, port = args.parallel_worker
+        return par_worker(td, int(rank), int(world_size), int(port))
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
               "is false", file=sys.stderr)
         return 1
+    t_start = time.time()
+    cumulative = {}                 # seconds from the start to each phase's end
+
+    def done(name):
+        cumulative[name] = round(time.time() - t_start, 2)
     smi = phase_device()
     if args.parent_csrc:
         start_parent_build(args.parent_csrc)
     if "build" in phases:
         phase_build()
+        done("build")
     philox_entry = phase_philox()
     rates = np.array([0.1, 0.4, 0.8])
     panel = synthetic_panel(N_INDV, N_LOCI, n_pops=N_POPS, n_alleles=2,
@@ -4153,35 +4665,51 @@ def main(argv=None) -> int:
     entries = (phase_kernels(panel, panel_a, panel_a4, panel_w,
                              philox_entry, tetra_panels)
                if "kernels" in phases else {})
+    done("kernels")
     launches = (phase_main_path(panel, smi)
                 if "main_path" in phases else {})
+    done("main_path")
     if "modes" in phases:
         # a kernel of the main path keeps the main path's count
         launches = {**phase_modes(panel, panel_a, panel_a4, smi),
                     **launches}
+        done("modes")
     if "unfused" in phases:
         launches = {**phase_unfused(panel, panel_w, smi), **launches}
+        done("unfused")
     if "tetra" in phases:
         launches = {**phase_tetra(tetra_panels, smi), **launches}
+        done("tetra")
     if "kselect" in phases:
         # the K grid's site passes: this slice's main path counts them
         launches.update(phase_kselect(panel, smi))
+        done("kselect")
     if "cli" in phases:
         # the command line is the previous slice's main path: its counts
         launches.update(phase_cli(panel, smi))
+        done("cli")
     if "dpm" in phases:
         # this slice's main path: the seating kernel's count comes from the
         # mode 3 -f 1 run
         dpm_launches, dpm_entries = phase_dpm(panel, smi)
         launches.update(dpm_launches)
         entries.update(dpm_entries)
+        done("dpm")
     if "samplers" in phases:
         # this slice's main path: run_sampler's four methods
         smp_launches, smp_entries = phase_samplers(panel, smi)
         launches.update(smp_launches)
         entries.update(smp_entries)
+        done("samplers")
+    if "parallel" in phases:
+        # this slice's main path: the loci-sharded runs' kernels (rank 0)
+        launches.update(phase_parallel(panel, smi))
+        done("parallel")
+    # seconds from the start of main (the device query) to the end of each
+    # phase
+    emit("script_seconds", card=smi, cumulative=cumulative)
     full = {"kernels", "main_path", "modes", "unfused", "tetra",
-            "kselect", "cli", "dpm", "samplers"} <= phases
+            "kselect", "cli", "dpm", "samplers", "parallel"} <= phases
     if full:
         keys = ("name", "route", "source", "replaces", "launches",
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -7,8 +7,9 @@ first use, bound with ``ctypes``) wherever the JAX package has a Pallas
 kernel.  The package imports ``torch`` and numpy only, never ``jax`` and
 nothing of ``instruct_tpu``.
 
-Ported so far: the diploid modes 0-5 (no admixture, admixture, population-
-and individual-level selfing, population- and individual-level inbreeding;
+Ported: everything the JAX package runs except its GSPMD mesh mode -- the
+diploid modes 0-5 (no admixture, admixture, population- and
+individual-level selfing, population- and individual-level inbreeding;
 uniform and normal prior, back-reflection and adaptive-independence
 proposal, any number of pops and alleles) on packed biallelic and on
 multi-allelic panels, end to end through :func:`run_mcmc`, as a fused and an
@@ -18,8 +19,12 @@ allotetraploid (``tetra/engine.py``); the selection of K,
 command line, ``python -m instruct_tpu_torch -d panel.txt -o out.txt ...``
 (``cli.py``), from a genotype file (:func:`read_data`) to the InStruct
 report (:func:`write_report`), with checkpoint/resume, progress and a JSONL
-log; and the gradient samplers (``samplers/``: HMC, NUTS, SVI and SMC on the
-marginalized posterior, ``--sampler``).
+log; the gradient samplers (``samplers/``: HMC, NUTS, SVI and SMC on the
+marginalized posterior, ``--sampler``); and chain and loci sharding over
+``torch.distributed``, one process a rank (``parallel/``:
+``run_mcmc(mesh=make_mesh(C, D))``, ``infer_k(mesh=...)``, the command
+line's ``--chain-shards``, ``--data-shards`` and ``--coordinator`` /
+``--num-processes`` / ``--process-id``).
 Sub-packages and functions keep the names of their counterparts in
 ``instruct_tpu``.  Entry points run on ``device="cuda"`` unless the caller
 asks for the CPU, where the kernels' plain PyTorch versions run instead.

@@ -15,7 +15,9 @@ tensors keyed by each leaf's field path (``states.freq``,
 reordering state fields; zero-size and ``None`` leaves are not stored and
 are re-grafted from the caller's template at restore time.  A sibling
 ``step_<12 digits>.meta.json`` carries the package name, ``format_version``
-and the saved keys.  A port checkpoint is not a JAX checkpoint: the JAX
+and the saved keys, and the mesh that saved it (``mesh`` [C, D], ``rank``;
+a loci- or chain-sharded run saves each rank's part under
+``<dir>/rank_<r>/``, :func:`saved_mesh`).  A port checkpoint is not a JAX checkpoint: the JAX
 package cannot read one (no orbax tree), and :func:`restore_checkpoint`
 refuses a step without this package's meta file, so neither reads the
 other's.
@@ -84,12 +86,14 @@ def _stored(leaf) -> bool:
     return True
 
 
-def save_checkpoint(directory: str, step: int, payload: Any) -> None:
+def save_checkpoint(directory: str, step: int, payload: Any,
+                    mesh: Tuple[int, int] = (1, 1), rank: int = 0) -> None:
     """Persist ``payload`` (dicts and NamedTuples of tensors, ``None`` and
     lists of ints) at ``step``.  Tensors are stored from the CPU.  The meta
     file is written first and the state directory appears under its final
     name only once it is complete, so every entry that
-    :func:`latest_step` finds has both."""
+    :func:`latest_step` finds has both.  ``mesh`` and ``rank`` record the
+    saving run's mesh shape and rank."""
     os.makedirs(os.path.abspath(directory), exist_ok=True)
     path = _ckpt_path(directory, step)
     pairs = _flatten(payload)
@@ -104,7 +108,8 @@ def save_checkpoint(directory: str, step: int, payload: Any) -> None:
         torch.save(d, os.path.join(td, _STATE_FILE))
         with open(_meta_path(directory, step), "w") as fh:
             json.dump({"package": PACKAGE, "format_version": FORMAT_VERSION,
-                       "step": step, "keys": [k for k, _ in pairs]}, fh)
+                       "step": step, "keys": [k for k, _ in pairs],
+                       "mesh": list(mesh), "rank": rank}, fh)
         if os.path.isdir(path):
             shutil.rmtree(path)
         os.replace(td, path)
@@ -126,6 +131,28 @@ def latest_step(directory: str) -> Optional[int]:
             if os.path.isfile(os.path.join(directory, name, _STATE_FILE)):
                 steps.append(step)
     return max(steps) if steps else None
+
+
+def rank_dir(directory: str, rank: int) -> str:
+    """Where rank ``rank`` of a sharded run keeps its part."""
+    return os.path.join(directory, f"rank_{rank}")
+
+
+def saved_mesh(directory: str) -> Optional[Tuple[int, int]]:
+    """The mesh shape (C, D) of the run that saved under ``directory``: of
+    its latest step, or of rank 0's part; None when nothing is saved
+    there.  Checkpoints of older versions, without the key, are
+    unsharded."""
+    for d in (directory, rank_dir(directory, 0)):
+        step = latest_step(d)
+        if step is None:
+            continue
+        try:
+            with open(_meta_path(d, step)) as fh:
+                return tuple(json.load(fh).get("mesh", (1, 1)))
+        except (OSError, ValueError):
+            return (1, 1)
+    return None
 
 
 def restore_checkpoint(directory: str, step: int, template: Any) -> Any:

@@ -8,11 +8,17 @@ unless ``--platform cpu`` is given; it never moves to the CPU on its own.
 ``--profile-dir`` writes a ``torch.profiler`` trace of the run there.
 
 ``--sampler hmc|nuts|svi|smc`` runs the gradient samplers over the
-marginalized model (``samplers/run.py``) and writes their report.
-What the port does not run yet is refused by name, exit code 2 and the
-``ROADMAP.md`` item that ports it: ``--chain-shards``, ``--data-shards``,
-``--mesh-mode`` other than ``auto``, ``--coordinator``, ``--num-processes``
-and ``--process-id``.
+marginalized model (``samplers/run.py``) and writes their report; as in
+the JAX package they take no mesh.
+
+Sharded runs (``parallel/``): every process of a world runs the same line
+with its own ``--process-id``, joined through ``--coordinator host:port``
+and ``--num-processes``: NCCL under ``--platform cuda``, gloo under
+``--platform cpu``.  ``--chain-shards`` / ``--data-shards`` shape the
+(chain, data) mesh over the world (every rank on the chain axis by
+default); rank 0 alone writes the report and the ``-cf`` file.
+``--mesh-mode gspmd`` has no counterpart and is refused with exit code 2,
+as is ``--process-id`` without ``--num-processes``.
 """
 
 from __future__ import annotations
@@ -21,16 +27,6 @@ import argparse
 import contextlib
 import os
 import sys
-
-# flag -> (its value when the run does not use it, the ROADMAP item)
-_NOT_PORTED = {
-    "chain_shards": (None, "Parallel (M9)"),
-    "data_shards": (None, "Parallel (M9)"),
-    "mesh_mode": ("auto", "Parallel (M9)"),
-    "coordinator": (None, "Parallel (M9)"),
-    "num_processes": (None, "Parallel (M9)"),
-    "process_id": (None, "Parallel (M9)"),
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -95,17 +91,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data-shards", type=int, default=None)
     p.add_argument("--mesh-mode", default="auto",
                    choices=["auto", "shard_map", "gspmd"],
-                   help="loci-axis partitioning (not ported yet: only "
-                        "'auto' runs)")
+                   help="loci-axis partitioning: auto and shard_map are "
+                        "the per-rank all-reduce path; gspmd has no "
+                        "counterpart in the port")
     p.add_argument("--platform", default="cuda",
                    help="torch device of the run: cuda (default) or cpu")
     p.add_argument("--coordinator", default=None,
-                   help="multi-host coordinator address (host:port); not "
-                        "ported yet")
+                   help="multi-process: rank 0's address (host:port) for "
+                        "torch.distributed")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="multi-host: total process count (not ported yet)")
+                   help="multi-process: total process count")
     p.add_argument("--process-id", type=int, default=None,
-                   help="multi-host: this process's id (not ported yet)")
+                   help="multi-process: this process's id")
     p.add_argument("--sampler", default="gibbs",
                    choices=["gibbs", "hmc", "nuts", "svi", "smc"],
                    help="inference engine (gibbs = reference-family MCMC; "
@@ -146,22 +143,57 @@ def _profiled(directory, device):
     prof.export_chrome_trace(os.path.join(directory, "trace.json"))
 
 
+def _refused(message: str) -> int:
+    print(f"instruct_tpu_torch: {message}", file=sys.stderr)
+    return 2
+
+
+def _mesh_of(args, device):
+    """The run's mesh from the shard flags (after joining the world), or
+    None for an unsharded run in a world of one."""
+    from instruct_tpu_torch.parallel import initialize_multihost, make_mesh
+    from instruct_tpu_torch.parallel.mesh import world
+    initialize_multihost(args.coordinator, args.num_processes,
+                         args.process_id, device=device)
+    mesh_dev = device if device.type == "cpu" else None
+    if args.chain_shards or args.data_shards:
+        return make_mesh(args.chain_shards, args.data_shards,
+                         device=mesh_dev)
+    if world()[0] > 1:
+        return make_mesh(device=mesh_dev)
+    return None
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, (unused, item) in _NOT_PORTED.items():
-        value = getattr(args, flag)
-        if value != unused:
-            name = "--" + flag.replace("_", "-")
-            print(f"instruct_tpu_torch: {name} {value} is still to be "
-                  f"ported (ROADMAP: {item})", file=sys.stderr)
-            return 2
+    if args.mesh_mode == "gspmd":
+        return _refused("--mesh-mode gspmd has no counterpart in the "
+                        "PyTorch port (GSPMD partitioning gives the "
+                        "unsharded run's result: run without a mesh)")
+    if args.process_id is not None and args.num_processes is None:
+        return _refused("--process-id needs --num-processes")
+    if (args.num_processes or 0) > 1 and args.coordinator is None:
+        return _refused("--num-processes needs --coordinator host:port")
 
     import torch
     device = torch.device(args.platform)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("instruct_tpu_torch: --platform cuda, but torch "
-                         "sees no CUDA device (give --platform cpu to run "
-                         "on the CPU)")
+    try:
+        try:
+            mesh = _mesh_of(args, device)
+        except ValueError as e:
+            return _refused(str(e))
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise SystemExit("instruct_tpu_torch: --platform cuda, but "
+                             "torch sees no CUDA device (give --platform "
+                             "cpu to run on the CPU)")
+        return _run(args, device, mesh)
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, device, mesh) -> int:
 
     from instruct_tpu_torch.config import (ModelSpec, PriorFamily, Priors,
                                            Schedule)
@@ -215,6 +247,8 @@ def main(argv=None) -> int:
         with profile_ctx:
             result = run_sampler(args.sampler, panel.data, spec, sched, seed,
                                  device=device)
+        if mesh is not None and mesh.rank != 0:
+            return 0
         write_sampler_report(args.outfile, panel, spec, result,
                              argv=sys.argv)
         print("THE JOB IS SUCCESSFULLY FINISHED")
@@ -232,7 +266,10 @@ def main(argv=None) -> int:
             ksel = infer_k(panel.data, spec, sched, seed, n_small, n_large,
                            init_rates=init_rates,
                            track_freq=bool(args.print_freq)
-                           or spec.ploid == 2, device=device)
+                           or spec.ploid == 2, device=device, mesh=mesh,
+                           mesh_mode=args.mesh_mode)
+        if mesh is not None and mesh.rank != 0:
+            return 0
         write_kselect_report(args.outfile, panel, spec, sched, ksel,
                              chain_names=chain_names, argv=sys.argv,
                              distr_fmt=args.distr_fmt,
@@ -250,7 +287,11 @@ def main(argv=None) -> int:
                        track_freq=bool(args.print_freq), device=device,
                        checkpoint_dir=args.checkpoint_dir,
                        checkpoint_every=args.checkpoint_every,
-                       progress_every=progress, jsonl_log=args.jsonl_log)
+                       progress_every=progress, jsonl_log=args.jsonl_log,
+                       mesh=mesh, mesh_mode=args.mesh_mode)
+    if mesh is not None and mesh.rank != 0:
+        # every rank holds the whole result; rank 0 writes it
+        return 0
     write_report(args.outfile, panel, spec, sched, res,
                  chain_names=chain_names, argv=sys.argv,
                  distr_fmt=args.distr_fmt, print_freq=bool(args.print_freq),

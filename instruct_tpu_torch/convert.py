@@ -6,6 +6,9 @@ The port imports nothing of ``instruct_tpu``, so a JAX ``Dataset`` or
 arrays keyed by field name
 (``{name: np.asarray(value) for name, value in obj._asdict().items()}``).
 The tests use this to let both packages compute on the same numbers.
+:func:`state_from_sharded` carries the final state of a JAX run on a mesh
+whose loci were split (blocked z, padded P, the tetraploid plan's
+permuted loci) into the port's unsharded layout.
 """
 
 from __future__ import annotations
@@ -69,6 +72,32 @@ def state_from_numpy(fields: Mapping[str, np.ndarray],
         dtype = _STATE_DTYPE.get(name, torch.float32)
         out[name] = t.to(dtype).to(device).contiguous()
     return McmcState(**out)
+
+
+def state_from_sharded(fields: Mapping[str, np.ndarray], data: Dataset,
+                       n_data_shards: int, device="cuda") -> McmcState:
+    """:func:`state_from_numpy` of the JAX package's loci-sharded final
+    state (chains stacked): its site tensors (z, geno) are the shards'
+    copy-major blocks side by side (``loci_shard.py:unblock_sites``'s
+    "blocked" layout) and its per-locus tensors (freq, freq2, zcounts) the
+    shards' loci side by side, padding included, in the plan of
+    ``parallel/loci_shard.py:loci_plan`` for ``data`` (the port's panel).
+    Returns the state over the panel's loci in their order."""
+    from instruct_tpu_torch.parallel import loci_shard as ls
+    src = ls.loci_plan(data, n_data_shards)
+    d, p = n_data_shards, data.ploid
+    out = dict(fields)
+    for name in ("freq", "freq2", "zcounts"):
+        v = fields.get(name)
+        if v is not None and np.asarray(v).ndim == 4:
+            parts = np.split(np.array(v), d, axis=2)
+            out[name] = ls.gather_loci(parts, src, axis=2).numpy()
+    for name in ("z", "geno"):
+        v = fields.get(name)
+        if v is not None and np.asarray(v).size:
+            parts = np.split(np.array(v), d, axis=-1)
+            out[name] = ls.gather_sites(parts, src, p).numpy()
+    return state_from_numpy(out, device=device)
 
 
 def state_to_numpy(state: McmcState) -> dict:

@@ -19,7 +19,7 @@ multiply.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -87,15 +87,26 @@ STREAM_SVI_DRAW = 35   # run_sampler("svi"): draws of the fitted Gaussian
 # table draw at step INIT_STEP, a step index no sweep reaches, from the
 # streams of the sweep's same draws
 INIT_STEP = 0xFFFFFFFF
+# fold_seed's chain word: no chain key is negative as an int32, so no draw
+# reads the blocks that fold the site seeds
+FOLD_CHAIN = 0xFFFFFFFF
 
 
 class RngKeys(NamedTuple):
     """The randomness of one run: the 64-bit ``seed`` (Philox key) and one
     int32 key per chain (counter word c3).  A retried chain gets a fresh
-    chain key; the others replay theirs."""
+    chain key; the others replay theirs.
+
+    ``site_seed`` is the key of the draws whose sites a loci shard owns
+    (P, z and the tetraploid genotype noise; :func:`site_keys`): the run's
+    seed with the shard's index folded in (:func:`fold_seed`) when the
+    loci are split over several ranks, ``None`` (the seed itself)
+    otherwise.  Every other draw reads ``seed``, so it is the same on every
+    shard of a chain."""
 
     seed: int
     chain_key: torch.Tensor    # int32[C], on the run's device
+    site_seed: Optional[int] = None
 
     @property
     def k0(self) -> int:
@@ -106,11 +117,36 @@ class RngKeys(NamedTuple):
         return (self.seed >> 32) & _MASK
 
 
-def make_keys(seed: int, n_chains: int, device, chain_key=None) -> RngKeys:
+def fold_seed(seed: int, shard: int) -> int:
+    """The site seed of loci shard ``shard``: two words of the Philox block
+    with counter (shard, 0, 0, ``FOLD_CHAIN``) under the run's key, so
+    shards never replay each other's site draws (the counterpart of the
+    JAX package's ``fold_in(key, axis_index)``, ``mcmc/updates.py:54``)."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    w = philox4x32_10(int(shard), 0, 0, FOLD_CHAIN, seed & _MASK,
+                      seed >> 32)
+    return int(w[0]) | (int(w[1]) << 32)
+
+
+def make_keys(seed: int, n_chains: int, device, chain_key=None,
+              shard: Optional[int] = None) -> RngKeys:
+    """The keys of ``n_chains`` chains (chain keys ``chain_key``, default
+    ``range(n_chains)``); ``shard`` is the loci shard's index when the loci
+    are split over several ranks (see :class:`RngKeys`)."""
     if chain_key is None:
         chain_key = range(n_chains)
     ck = torch.tensor(list(chain_key), dtype=torch.int32, device=device)
-    return RngKeys(int(seed) & 0xFFFFFFFFFFFFFFFF, ck)
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return RngKeys(seed, ck,
+                   None if shard is None else fold_seed(seed, shard))
+
+
+def site_keys(keys: Optional[RngKeys]) -> Optional[RngKeys]:
+    """The keys of the site-level draws (see :class:`RngKeys`); None
+    stays None (a caller that injects its draws)."""
+    if keys is None or keys.site_seed is None:
+        return keys
+    return keys._replace(seed=keys.site_seed, site_seed=None)
 
 
 def _mulhilo(m: int, x: torch.Tensor):

@@ -122,13 +122,17 @@ def _summaries(res: RunResult, n_chains: int):
 
 def infer_k(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
             n_small: int = 1, n_large: int = 0, init_rates=None,
-            grid: bool = True, device="cuda", **run_kwargs) -> KSelectResult:
+            grid: bool = True, device="cuda", mesh=None,
+            **run_kwargs) -> KSelectResult:
     """Run K = n_small..n_large (default 1..N^0.3 + 1 when the range is
     not a valid one) and pick K.  ``grid`` runs every diploid mode (0-5) as
     one padded (chain x K) grid; ploidy 4 and ``grid=False`` run one
     ``run_mcmc`` per K.  ``run_kwargs`` go to ``run_mcmc`` (``track_freq``
     defaults to True: the corrected DIC's plug-in needs the posterior-mean
-    P)."""
+    P).  ``mesh`` (``parallel/mesh.py``) goes to every run: on a mesh
+    whose loci are split the K values run one by one (the grid's mask does
+    not combine with loci sharding, JAX ``kselect.py:126-136``); on a
+    chain mesh the grid's replicas are split over the chain axis."""
     if n_large < 1 or n_small < 1 or n_small > n_large:
         n_small = 1
         n_large = int(data.n_indv ** 0.3) + 1  # InStruct.c:547-548
@@ -144,7 +148,8 @@ def infer_k(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
             cols[name][kv] = v
 
     nc = sched.n_chains
-    if grid and spec.ploid == 2 and len(ks_list) > 1:
+    loci_split = mesh is not None and mesh.n_data_shards > 1
+    if grid and spec.ploid == 2 and len(ks_list) > 1 and not loci_split:
         # one padded run: replicas i*C..(i+1)*C run K = ks[i]
         k_max = n_large
         spec_pad = dataclasses.replace(spec, n_pops=k_max)
@@ -165,7 +170,7 @@ def infer_k(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
         res_all = run_mcmc(data, spec_pad,
                            dataclasses.replace(sched, n_chains=reps), seed,
                            init_rates=rates_grid, active_pops=active,
-                           device=device, **run_kwargs)
+                           device=device, mesh=mesh, **run_kwargs)
         for i, kv in enumerate(ks_list):
             record(kv, _slice_result(res_all, slice(i * nc, (i + 1) * nc),
                                      kv, spec), nc)
@@ -175,7 +180,7 @@ def infer_k(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
             res = run_mcmc(data, spec_k, sched, k_seed(seed, kv),
                            init_rates=_rates_for_k(
                                init_rates, spec_k.n_rates(data.n_indv)),
-                           device=device, **run_kwargs)
+                           device=device, mesh=mesh, **run_kwargs)
             record(kv, res, nc)
     return _pick_best(cols["dic"], cols["waic"], cols["waic_se"], results,
                       cols["dic_ref"], cols["p_d"], cols["gr"], n_small,

@@ -382,12 +382,14 @@ def stick_sweep_inbreeding(keys, step: int, table: DpmTable, ll_grid,
 # the update of the sweep
 # ---------------------------------------------------------------------------
 
-def build_dpm_update(spec: ModelSpec, data: Dataset):
+def build_dpm_update(spec: ModelSpec, data: Dataset, mesh=None):
     """``dpm_update(state, keys, step, draws=None) -> state``: the DP sweep
     of modes 3/5 (mcmc.c:337-342, 423-428) -- the exact CRP sweep for
     ``dp_truncation == 0``, the stick-breaking sweep with T components
     otherwise -- after which each individual's rate is its table's value.
-    Mode 5 evaluates the grid curves at the state's freq and z."""
+    Mode 5 evaluates the grid curves at the state's freq and z (summed
+    over the loci shards of ``mesh``); every draw of the sweep is the same
+    on every shard."""
     alpha = spec.priors.alpha_dpm
     t_max = spec.priors.dp_truncation
     check_truncation(t_max, data.n_indv)
@@ -404,6 +406,8 @@ def build_dpm_update(spec: ModelSpec, data: Dataset):
                                           alpha, draws)
         else:
             ll_grid = f_loglik_grid(data, state.freq, state.z)
+            if mesh is not None:
+                ll_grid = mesh.all_reduce_(ll_grid)
             if t_max > 0:
                 table = stick_sweep_inbreeding(keys, step, table, ll_grid,
                                                alpha, t_max, draws)

@@ -26,7 +26,14 @@ checkpoint bitwise: Philox draws are keyed on (seed, chain key, step), and
 the carried ``zcounts`` are recounted from the restored z by K4.  A retry
 of a checkpointed run saves under its own ``retry-<n>`` namespace.
 
-Still to be ported: device meshes (``mesh``, ``mesh_mode``).
+With ``mesh`` (``parallel/mesh.py``: one process a rank over
+``torch.distributed``) the chains are split over the mesh's chain axis and
+the loci over its data axis (JAX ``driver.py:303-496``): each rank runs its
+chain rows under their global chain keys on its own loci block
+(``parallel/loci_shard.py:shard_panel``), the sweeps add the per-individual
+sums over the rank's data group, and at the end every rank gathers the
+whole ``RunResult`` in the unsharded layout.  ``mesh_mode="gspmd"`` has no
+counterpart and is refused; the unsharded run gives its result.
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from instruct_tpu_torch.mcmc.step import (build_marg_loglik,
                                           build_step_parts, check_supported,
                                           nopop_marginal)
 from instruct_tpu_torch.model import likelihood as lk
+from instruct_tpu_torch.parallel import loci_shard as ls
 from instruct_tpu_torch.tetra import engine as te
 
 
@@ -157,14 +165,14 @@ def unhealthy_flags(state: McmcState, accum: ChainAccum) -> np.ndarray:
 
 
 def _chain_runner(data: Dataset, spec: ModelSpec, sched: Schedule,
-                  track_freq: bool, tetra_tables=None):
+                  track_freq: bool, tetra_tables=None, mesh=None):
     """``run_segment(state, accum, keys, start, stop)``: sweeps ``start`` to
     ``stop - 1`` of all chains, the unit of both the single-shot and the
     segmented run.  The log-lik is evaluated on stored steps and at the
     segment's last step (JAX ``driver.py:225-233``): it is an observable,
     so where segments end changes no draw and no moment."""
-    step_core, add_loglik = build_step_parts(spec, data, tetra_tables)
-    add_marg = build_marg_loglik(spec, data, tetra_tables)
+    step_core, add_loglik = build_step_parts(spec, data, tetra_tables, mesh)
+    add_marg = build_marg_loglik(spec, data, tetra_tables, mesh)
     # diploid mode 0 has no Q to run empty: the guard never latches
     # (mcmc.c:111-115); the tetraploid engine always has one
     check_at = (-1 if (spec.mode == 0 and spec.ploid == 2)
@@ -190,6 +198,112 @@ def _chain_runner(data: Dataset, spec: ModelSpec, sched: Schedule,
         return state, accum
 
     return run_segment
+
+
+MESH_MODES = ("auto", "shard_map")
+
+
+def check_mesh(mesh, mesh_mode: str, n_chains: int, active_pops) -> None:
+    """JAX's rules for a mesh (``driver.py:318-384``) as far as the port
+    has their paths: "auto" and "shard_map" are the explicit per-rank
+    path; "gspmd" has no counterpart (its result is the unsharded run's);
+    the chains must split evenly over the chain axis (else JAX takes GSPMD);
+    the K grid's ``active_pops`` does not combine with loci sharding."""
+    if mesh_mode == "gspmd":
+        raise ValueError(
+            "mesh_mode='gspmd' has no counterpart in the PyTorch port: "
+            "GSPMD partitioning of the unsharded program gives the "
+            "unsharded result, which mesh=None computes")
+    if mesh_mode not in MESH_MODES:
+        raise ValueError(f"unknown mesh_mode {mesh_mode!r}")
+    if mesh is None:
+        return
+    mesh.chain_rows(n_chains)
+    if active_pops is not None and mesh.n_data_shards > 1:
+        raise ValueError("active_pops (the padded K grid) does not combine "
+                         "with loci sharding; use a chain-parallel mesh for "
+                         "the K grid")
+
+
+def _by_chain_block(mesh, parts):
+    """One entry a chain block: the data-index-0 rank's of ``parts`` (one
+    per rank)."""
+    d = mesh.n_data_shards
+    return [parts[ci * d] for ci in range(mesh.n_chain_shards)]
+
+
+def gather_flags(mesh, flags: np.ndarray) -> np.ndarray:
+    """All chains' flags from every rank's own: each rank of a chain block
+    holds the same flags (they are computed from replicated state), which
+    is checked."""
+    if mesh is None:
+        return flags
+    parts = mesh.gather(flags)
+    d = mesh.n_data_shards
+    for r, f in enumerate(parts):
+        if not np.array_equal(f, parts[r - r % d]):
+            raise RuntimeError(f"rank {r}'s chain flags differ from its "
+                               "chain block's: the replicated state of the "
+                               "loci shards diverged")
+    return np.concatenate(_by_chain_block(mesh, parts))
+
+
+# per-locus fields: [C, K, L, A] frequencies and counts, [C, N, ploid * L]
+# copy-major sites
+_LOCI_FIELDS = ("freq", "freq2", "zcounts")
+_SITE_FIELDS = ("z", "geno")
+
+
+def _host(x):
+    """A NamedTuple of tensors (nested) with every tensor on the CPU."""
+    if x is None:
+        return None
+    if torch.is_tensor(x):
+        return x.detach().cpu()
+    return type(x)(*[_host(t) for t in x])
+
+
+def gather_result(mesh, data: Dataset, state: McmcState, accum: ChainAccum,
+                  device):
+    """(state, accum) of every chain, on every rank and on ``device``, in
+    the unsharded layout: chain blocks in order, the loci shards' per-locus
+    tensors put back into the input's loci order (padding dropped,
+    the tetraploid plan undone, ``loci_shard.gather_loci``)."""
+    if mesh is None or mesh.world_size == 1:
+        return state, accum
+    parts = mesh.gather((_host(state), _host(accum)))
+    d = mesh.n_data_shards
+    src = ls.loci_plan(data, d) if d > 1 else None
+
+    def combine(xs, name):
+        if xs[0] is None:
+            return None
+        if d == 1 or xs[0].numel() == 0:
+            blocks = xs[::d]
+        elif name in _LOCI_FIELDS:
+            blocks = [ls.gather_loci(xs[i:i + d], src, axis=2)
+                      for i in range(0, len(xs), d)]
+        elif name in _SITE_FIELDS:
+            blocks = [ls.gather_sites(xs[i:i + d], src, data.ploid)
+                      for i in range(0, len(xs), d)]
+        else:
+            blocks = xs[::d]
+        return torch.cat(blocks).to(device)
+
+    def stats(getter):
+        return type(accum.mean)(*[
+            combine([getter(p)[i] for p in parts], name)
+            for i, name in enumerate(accum.mean._fields)])
+
+    new_state = McmcState(*[combine([p[0][i] for p in parts], name)
+                            for i, name in enumerate(McmcState._fields)])
+    fields = {}
+    for i, name in enumerate(ChainAccum._fields):
+        if name in ("mean", "mean_sq"):
+            fields[name] = stats(lambda p, i=i: p[1][i])
+        else:
+            fields[name] = combine([p[1][i] for p in parts], name)
+    return new_state, ChainAccum(**fields)
 
 
 def recount_zcounts(spec: ModelSpec, data: Dataset,
@@ -264,7 +378,8 @@ def run_mcmc(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
              active_pops=None, checkpoint_dir: Optional[str] = None,
              checkpoint_every: int = 100_000,
              progress_every: Optional[int] = None, progress_fn=None,
-             jsonl_log: Optional[str] = None) -> RunResult:
+             jsonl_log: Optional[str] = None, mesh=None,
+             mesh_mode: str = "auto") -> RunResult:
     """Run ``sched.n_chains`` chains on ``device`` and return streaming
     posterior moments.
 
@@ -289,34 +404,71 @@ def run_mcmc(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
     calls ``progress_fn(step, states, accums)``) every that many sweeps;
     ``jsonl_log`` appends one JSON record a segment (step, per-chain
     log-lik, the full rates matrix, stored count).
+
+    ``mesh`` (``parallel.mesh.make_mesh``; every rank calls ``run_mcmc``
+    with the same arguments) runs this rank's chain rows, under their
+    global chain keys, on its loci block (``mesh.device``; ``device`` is
+    not read); the pop counts, the MH log-ratio columns and the
+    per-individual log-liks are summed over the data group, and the site
+    draws (P, z, the tetraploid orderings) read the shard's site seed
+    (``kernels/philox.py:fold_seed``), so a loci-sharded trajectory
+    differs from the unsharded one by design.  A chain-only mesh, and a
+    world of one, is bitwise the unsharded run.  The retry decision is
+    made on every chain's flags, on every rank alike; each rank saves its
+    own checkpoint part (``checkpoint.rank_dir``), and resuming under
+    another mesh is refused; progress and the JSONL log come from rank 0
+    (``progress_fn`` gets this rank's chains).  Every rank returns the
+    whole result in the unsharded layout (:func:`gather_result`).
+    ``mesh_mode`` "auto" or "shard_map" (the same path); "gspmd" raises.
     """
     check_supported(spec, data)
-    dev = torch.device(device)
     n_chains = sched.n_chains
-    active = (None if active_pops is None
-              else active_mask(active_pops, spec, n_chains, dev))
-    data = data.to(dev)
+    check_mesh(mesh, mesh_mode, n_chains, active_pops)
+    full_data = data
+    if mesh is None:
+        dev = torch.device(device)
+        rows = range(n_chains)
+        data = data.to(dev)
+    else:
+        dev = mesh.device
+        rows = mesh.chain_rows(n_chains)
+        data = ls.shard_panel(data, mesh)
+    sharded = mesh is not None and mesh.world_size > 1
+    shard = None if mesh is None else mesh.shard
+    n_local = len(rows)
+    active_all = (None if active_pops is None
+                  else active_mask(active_pops, spec, n_chains, dev))
+    active = (None if active_all is None
+              else active_all[rows.start:rows.stop])
     if init_rates is not None:
-        init_rates = np.asarray(init_rates, np.float32).reshape(n_chains, -1)
+        init_rates = np.asarray(init_rates, np.float32).reshape(
+            n_chains, -1)[rows.start:rows.stop]
 
     # the tetraploid engine's data-only tables, built once per run
     tables = te.build_tables(spec, data) if spec.ploid == 4 else None
-    run_segment = _chain_runner(data, spec, sched, track_freq, tables)
+    run_segment = _chain_runner(data, spec, sched, track_freq, tables, mesh)
     segmented = (checkpoint_dir is not None or progress_every is not None
                  or jsonl_log is not None)
     seg_len = (min(x for x in (checkpoint_every, progress_every, sched.n_iter)
                    if x is not None) if segmented else sched.n_iter)
 
     def report(step, state, accum):
-        ll = _np(state.loglik_total)
-        rates = _np(state.rates)
+        ll, rates, ais = (_np(state.loglik_total), _np(state.rates),
+                          _np(state.ais_state))
         if progress_fn is not None:
             progress_fn(step, state, accum)
-        elif progress_every is not None:
+            if not jsonl_log:
+                return
+        if mesh is not None and mesh.world_size > 1:
+            parts = _by_chain_block(mesh, mesh.gather((ll, rates, ais)))
+            ll, rates, ais = [np.concatenate(x) for x in zip(*parts)]
+            if mesh.rank != 0:
+                return
+        if progress_fn is None and progress_every is not None:
             show_st = (spec.back_refl == 0
                        and (spec.rates_are_per_pop or spec.ploid == 4))
             print(progress_lines(spec, step, ll, rates,
-                                 _np(state.ais_state) if show_st else None),
+                                 ais if show_st else None),
                   flush=True)
         if jsonl_log:
             with open(jsonl_log, "a") as fh:
@@ -327,15 +479,38 @@ def run_mcmc(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
                     "stored": int(_np(accum.count)[0]),
                 }) + "\n")
 
+    mesh_shape = ((1, 1) if mesh is None
+                  else (mesh.n_chain_shards, mesh.n_data_shards))
+    rank = 0 if mesh is None else mesh.rank
+
+    def resume_step(ckpt_dir):
+        """The step to resume from: the latest step saved (by every rank,
+        on a sharded mesh), after refusing a checkpoint of another mesh."""
+        if ckpt_dir is None:
+            return None
+        found = ckpt.saved_mesh(ckpt_dir)
+        if found is not None and found != mesh_shape:
+            raise ValueError(
+                f"{ckpt_dir} holds a checkpoint of a {found[0]}x{found[1]} "
+                f"mesh; this run's mesh is {mesh_shape[0]}x{mesh_shape[1]}")
+        latest = ckpt.latest_step(ckpt.rank_dir(ckpt_dir, rank) if sharded
+                                  else ckpt_dir)
+        if sharded:
+            steps = mesh.gather(latest)
+            latest = None if None in steps else min(steps)
+        return latest
+
     def attempt(chain_key, ckpt_dir):
-        """One attempt: initialise all chains (or resume them from
+        """One attempt: initialise this rank's chains (or resume them from
         ``ckpt_dir``) and run the rest of the schedule."""
-        state = init_state(seed, spec, data, n_chains, init_rates, dev,
+        state = init_state(seed, spec, data, n_local, init_rates, dev,
                            chain_key=chain_key, tetra_tables=tables,
-                           active=active)
-        accum = init_accum(spec, sched, data, track_freq, n_chains, dev)
+                           active=active, mesh=mesh)
+        accum = init_accum(spec, sched, data, track_freq, n_local, dev)
         start = 0
-        latest = None if ckpt_dir is None else ckpt.latest_step(ckpt_dir)
+        latest = resume_step(ckpt_dir)
+        if sharded and ckpt_dir is not None:
+            ckpt_dir = ckpt.rank_dir(ckpt_dir, rank)
         if latest is not None and 0 < latest <= sched.n_iter:
             got = ckpt.restore_checkpoint(
                 ckpt_dir, latest, {"states": state, "accums": accum,
@@ -343,7 +518,8 @@ def run_mcmc(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
             state = recount_zcounts(spec, data, got["states"])
             accum, chain_key = got["accums"], got["chain_key"]
             start = latest
-        keys = px.make_keys(seed, n_chains, dev, chain_key=chain_key)
+        keys = px.make_keys(seed, n_local, dev, chain_key=chain_key,
+                            shard=shard)
         while start < sched.n_iter:
             stop = min(start + seg_len, sched.n_iter)
             state, accum = run_segment(state, accum, keys, start, stop)
@@ -352,36 +528,41 @@ def run_mcmc(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
                                          or start == sched.n_iter):
                 ckpt.save_checkpoint(ckpt_dir, start,
                                      {"states": state, "accums": accum,
-                                      "chain_key": list(chain_key)})
+                                      "chain_key": list(chain_key)},
+                                     mesh=mesh_shape, rank=rank)
             if progress_every is not None or jsonl_log:
                 report(start, state, accum)
         return state, accum
 
-    chain_key = list(range(n_chains))
+    chain_key = list(rows)
     state, accum = attempt(chain_key, checkpoint_dir)
     retries = 0
-    flags = unhealthy_flags(state, accum)
+    flags = gather_flags(mesh, unhealthy_flags(state, accum))
     while flags.any() and retries < max_retries:
         retries += 1
-        if checkpoint_dir is not None:
+        if checkpoint_dir is not None and rank == 0:
             # a retry gets its own checkpoint namespace: the main run has
             # saved its final step, so resuming from it would skip the rerun
             print(f"[instruct_tpu_torch] retrying {int(flags.sum())} "
                   f"unhealthy chain(s) (attempt {retries}/{max_retries})",
                   flush=True)
         # flagged chains get a fresh key; the others replay theirs
-        chain_key = [10_000 * retries + c if flags[c] else chain_key[c]
-                     for c in range(n_chains)]
+        chain_key = [10_000 * retries + c if flags[c]
+                     else chain_key[c - rows.start] for c in rows]
         state, accum = attempt(
             chain_key, None if checkpoint_dir is None else
             os.path.join(checkpoint_dir, f"retry-{retries}"))
-        flags = unhealthy_flags(state, accum)
-    if flags.any():
+        flags = gather_flags(mesh, unhealthy_flags(state, accum))
+    if flags.any() and rank == 0:
         print(f"[instruct_tpu_torch] WARNING: {int(flags.sum())} chain(s) "
               f"still unhealthy after {retries} retries (empty cluster or "
               "non-finite log-likelihood); results include them",
               flush=True)
 
+    state, accum = gather_result(mesh, full_data, state, accum, dev)
+    if sharded:
+        # the plug-in pass of an unsharded run, on the gathered means
+        data, tables, active = full_data.to(dev), None, active_all
     plugin_ll = None
     if track_freq and spec.ploid == 4:
         plugin_ll = _np(te.plugin_loglik(spec, data, accum.mean, state,

@@ -96,7 +96,7 @@ def chain_generator(seed: int, chain_key: int, device) -> torch.Generator:
 def init_state(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
                init_rates=None, device="cuda",
                chain_key: Optional[Sequence[int]] = None,
-               tetra_tables=None, active=None) -> McmcState:
+               tetra_tables=None, active=None, mesh=None) -> McmcState:
     """Draw the initial state of ``n_chains`` chains on ``device``.
 
     Mirrors the per-mode initialisation of the JAX package
@@ -121,6 +121,10 @@ def init_state(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
     Ploidy 4 runs the tetraploid engine's initialisation
     (``tetra/engine.py:init_tetra_state``, with the run's ``tetra_tables``
     when given).
+    On a loci-sharded ``mesh`` (``data`` this rank's block) each chain's z
+    draws from a generator of the shard's site seed
+    (``kernels/philox.py:fold_seed``), its other draws from the chain's own
+    generator, and the Q counts are summed over the shards first.
     """
     from instruct_tpu_torch.kernels import philox as px
     from instruct_tpu_torch.kernels.fused_step import allele_counts
@@ -130,7 +134,7 @@ def init_state(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
     if spec.ploid == 4:
         from instruct_tpu_torch.tetra.engine import init_tetra_state
         return init_tetra_state(seed, spec, data, n_chains, init_rates,
-                                device, chain_key, tetra_tables)
+                                device, chain_key, tetra_tables, mesh)
     if spec.ploid != 2 or spec.mode not in (0, 1, 2, 3, 4, 5):
         raise ValueError(f"init_state: no model with mode {spec.mode} and "
                          f"ploidy {spec.ploid}")
@@ -181,15 +185,22 @@ def init_state(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
         u = torch.rand(shape, generator=g, device=dev)
         return torch.floor(u * n_act).clamp_max(n_act - 1).to(dtype)
 
-    for ci, ck in enumerate(chain_key):
-        g = chain_generator(seed, ck, dev)
-        if admix:
-            z[ci] = uniform_pops(ci, g, (n, l * p), torch.int8)
+    shard = None if mesh is None else mesh.shard
+    gens = [chain_generator(seed, ck, dev) for ck in chain_key]
+    if admix:
+        for ci, ck in enumerate(chain_key):
+            g = gens[ci]
+            g_z = g if shard is None else chain_generator(
+                px.fold_seed(seed, shard), ck, dev)
+            z[ci] = uniform_pops(ci, g_z, (n, l * p), torch.int8)
             alpha[ci] = (torch.rand((), generator=g, device=dev)
                          * spec.alpha_prior_max)
-            counts = masked_z_counts(z[ci][None], data, k)[0]
+        counts = up.psum(masked_z_counts(z, data, k), mesh)
+    for ci, ck in enumerate(chain_key):
+        g = gens[ci]
+        if admix:
             q[ci] = up.dirichlet_from_counts(
-                g, counts + alpha[ci],
+                g, counts[ci] + alpha[ci],
                 None if active is None else (active[ci] > 0)[None])
         else:
             zz[ci] = uniform_pops(ci, g, (n,), torch.int32)

@@ -249,13 +249,15 @@ def _dpm_fields(state: McmcState) -> dict:
 
 
 def _marg_s_and_gen(spec: ModelSpec, data: Dataset, state: McmcState,
-                    keys, step_idx: int, d: StepDraws, dpm_update) -> dict:
+                    keys, step_idx: int, d: StepDraws, dpm_update,
+                    mesh=None) -> dict:
     """The ``marginalize_g`` tail of modes 2/3, both sweeps (JAX
     ``step.py:69-99``): the G curves at the state's freq and z, S on the
     G-marginal target (mode 2 per pop, mode 3 per individual or the DPM
     sweep), then the exact G draw.  Returns the changed fields."""
     n = data.n_indv
-    gtable = mg.selfing_gtable(data, state.freq, state.z, spec.gen_cap)
+    gtable = up.psum(mg.selfing_gtable(data, state.freq, state.z,
+                                       spec.gen_cap), mesh)
     if dpm_update is not None:
         changed = _dpm_fields(dpm_update(state, keys, step_idx, d.dpm))
         sbar = changed["rates"]
@@ -280,8 +282,11 @@ def _marg_s_and_gen(spec: ModelSpec, data: Dataset, state: McmcState,
     return changed
 
 
-def _build_fused_parts(spec: ModelSpec, data: Dataset):
-    """``(step_core, add_loglik)`` of the fused sweep."""
+def _build_fused_parts(spec: ModelSpec, data: Dataset, mesh=None):
+    """``(step_core, add_loglik)`` of the fused sweep; with a loci-sharded
+    ``mesh`` the pop counts, the G or F log-ratio columns and the
+    per-individual log-liks are summed over the shards, and P and z draw
+    from the site keys."""
     n = data.n_indv
     structure = spec.type_freq == 1
     marg = _is_marg(spec)
@@ -290,17 +295,19 @@ def _build_fused_parts(spec: ModelSpec, data: Dataset):
     # marginalize_g; else the plain updates
     s_tail_kernel = (spec.mode == 2 and spec.back_refl == 1
                      and spec.n_pops <= sp.MAX_POPS and not marg)
-    dpm_update = (dpm.build_dpm_update(spec, data) if dpm.uses_dpm(spec)
-                  else None)
+    dpm_update = (dpm.build_dpm_update(spec, data, mesh)
+                  if dpm.uses_dpm(spec) else None)
+    skeys = px.site_keys
 
     def finish(state, keys, step_idx, d, z, qqnum, zcounts, **changed):
         """Q | Z ~ Dirichlet(counts + alpha), one draw per (chain,
         individual), masked to the active slots; then the alpha MH step.
         The sampling pass returns the allele-pop counts of the fresh z,
         which the next sweep's P update reads."""
+        conc = up.psum(qqnum, mesh) + state.alpha[:, None, None]
         q_new = up.mask_active(
-            dk.dirichlet_nk(keys, step_idx, qqnum + state.alpha[:, None, None],
-                            test_draws=d.q), state.active)
+            dk.dirichlet_nk(keys, step_idx, conc, test_draws=d.q),
+            state.active)
         alpha = up.update_alpha(keys, step_idx, spec, q_new, state.alpha,
                                 state.active, test_draws=d.alpha)
         return state._replace(z=z, q=q_new, alpha=alpha, zcounts=zcounts,
@@ -347,7 +354,7 @@ def _build_fused_parts(spec: ModelSpec, data: Dataset):
                                              step_idx, d.dpm))
             f = changed["rates"]
             z, qqnum, _, zcounts = fs.zq_f_pass(
-                keys, step_idx, state.q, freq, data,
+                skeys(keys), step_idx, state.q, freq, data,
                 torch.stack([f, f], dim=-1), pop=False, u=d.z)
             return finish(state, keys, step_idx, d, z, qqnum, zcounts,
                           freq=freq, **changed)
@@ -361,8 +368,9 @@ def _build_fused_parts(spec: ModelSpec, data: Dataset):
             prop_states, log_hast = state.ais_state, None
         f_pair = torch.stack([state.rates, prop], dim=-1)     # [C, R, 2]
         z, qqnum, ll, zcounts = fs.zq_f_pass(
-            keys, step_idx, state.q, freq, data, f_pair,
+            skeys(keys), step_idx, state.q, freq, data, f_pair,
             pop=(spec.mode == 4), u=d.z)
+        ll = up.psum(ll, mesh)
         # mode 4: the per-individual sums of each pop add up over N
         log_ratio = ll.sum(dim=1) if spec.mode == 4 else ll
         if log_hast is not None:
@@ -386,7 +394,7 @@ def _build_fused_parts(spec: ModelSpec, data: Dataset):
         d = draws if draws is not None else StepDraws()
         # P | Z from the counts carried out of the previous site pass
         # (update_P, mcmc.c:799-861)
-        freq = dk.dirichlet_kla(keys, step_idx, state.zcounts + 1.0,
+        freq = dk.dirichlet_kla(skeys(keys), step_idx, state.zcounts + 1.0,
                                 data.allele_valid, test_draws=d.p)
         if spec.mode in (4, 5):
             return f_sweep(state, keys, step_idx, d, freq)
@@ -394,15 +402,15 @@ def _build_fused_parts(spec: ModelSpec, data: Dataset):
             # the G curves feed S and an exact G draw; the Z pass then
             # needs no G inputs (JAX _marg_tail, step.py:265-282)
             changed = _marg_s_and_gen(spec, data, state._replace(freq=freq),
-                                      keys, step_idx, d, dpm_update)
+                                      keys, step_idx, d, dpm_update, mesh)
             z, qqnum, zcounts = fs.zq_sample_pass(
-                keys, step_idx, state.q, freq, data, u=d.z)
+                skeys(keys), step_idx, state.q, freq, data, u=d.z)
             return finish(state, keys, step_idx, d, z, qqnum, zcounts,
                           freq=freq, **changed)
         if spec.mode == 1:
             # sampling only; cal_lkh is deferred to stored steps
             z, qqnum, zcounts = fs.zq_sample_pass(
-                keys, step_idx, state.q, freq, data, u=d.z)
+                skeys(keys), step_idx, state.q, freq, data, u=d.z)
             return finish(state, keys, step_idx, d, z, qqnum, zcounts,
                           freq=freq)
         # modes 2/3: S subsweeps + G proposal + generation weights + accept
@@ -417,9 +425,10 @@ def _build_fused_parts(spec: ModelSpec, data: Dataset):
             changed, gen_prop, wg_pair, logu = s_tail(state, keys, step_idx,
                                                       d)
         z, qqnum, ll_diff, zcounts = fs.zq_gendiff_pass(
-            keys, step_idx, state.q, freq, data, wg_pair,
+            skeys(keys), step_idx, state.q, freq, data, wg_pair,
             structure=structure, u=d.z)
-        gen = torch.where(logu < ll_diff, gen_prop, state.gen)
+        gen = torch.where(logu < up.psum(ll_diff, mesh), gen_prop,
+                          state.gen)
         return finish(state, keys, step_idx, d, z, qqnum, zcounts,
                       freq=freq, gen=gen, **changed)
 
@@ -435,19 +444,21 @@ def _build_fused_parts(spec: ModelSpec, data: Dataset):
             wg = torch.exp2(1.0 - state.gen.to(torch.float32))
             ll_indv = fs.panel_loglik_pass(state.freq, state.q, data,
                                            state.z, wg, structure=structure)
+        ll_indv = up.psum(ll_indv, mesh)
         return state._replace(loglik_indv=ll_indv,
                               loglik_total=ll_indv.sum(dim=-1))
 
     return step, add_loglik
 
 
-def _build_unfused_parts(spec: ModelSpec, data: Dataset):
+def _build_unfused_parts(spec: ModelSpec, data: Dataset, mesh=None):
     """``(step_core, add_loglik)`` of the unfused sweep, in the reference's
-    order: P, then S or F, then G, then Z and Q, then alpha."""
+    order: P, then S or F, then G, then Z and Q, then alpha; ``mesh`` as in
+    :func:`_build_fused_parts`."""
     n = data.n_indv
     marg = _is_marg(spec)
-    dpm_update = (dpm.build_dpm_update(spec, data) if dpm.uses_dpm(spec)
-                  else None)
+    dpm_update = (dpm.build_dpm_update(spec, data, mesh)
+                  if dpm.uses_dpm(spec) else None)
 
     def step(state: McmcState, keys: px.RngKeys, step_idx: int,
              draws: Optional[StepDraws] = None) -> McmcState:
@@ -461,12 +472,12 @@ def _build_unfused_parts(spec: ModelSpec, data: Dataset):
                                                 n))
             return state._replace(freq=freq,
                                   zz=up.update_z_noadmix(u, data, freq,
-                                                         state.active))
+                                                         state.active, mesh))
         changed = dict(freq=freq)
         if marg:
             changed.update(_marg_s_and_gen(
                 spec, data, state._replace(freq=freq), keys, step_idx, d,
-                dpm_update))
+                dpm_update, mesh))
         elif spec.mode != 1:
             tail = _tail_draws(spec, keys, step_idx, d, n)
             if dpm_update is not None:
@@ -485,20 +496,21 @@ def _build_unfused_parts(spec: ModelSpec, data: Dataset):
             elif spec.mode == 4:
                 rates, ais = up.update_f_pop(tail.u_prop, tail.u_acc, spec,
                                              data, freq, state.z, state.rates,
-                                             state.ais_state, tail.fresh)
+                                             state.ais_state, tail.fresh,
+                                             mesh)
                 changed.update(rates=rates, ais_state=ais)
             else:
                 rates = up.update_f_ind(tail.u_prop, tail.u_acc, spec, data,
                                         freq, state.z, state.rates,
-                                        *_prior_args(spec, state))
+                                        *_prior_args(spec, state), mesh=mesh)
                 changed.update(_hyper_update(spec, state, tail, rates))
             if spec.has_selfing:
                 changed["gen"] = up.update_gen(
                     tail.ug, tail.ul, spec, data, freq, state.z, state.q,
-                    changed["rates"], state.gen)
+                    changed["rates"], state.gen, mesh)
         z, q, _ = up.update_zq(keys, step_idx, spec, data, freq, state.q,
                                state.alpha, u=d.z, q_draws=d.q,
-                               active=state.active)
+                               active=state.active, mesh=mesh)
         alpha = up.update_alpha(keys, step_idx, spec, q, state.alpha,
                                 state.active, test_draws=d.alpha)
         return state._replace(z=z, q=q, alpha=alpha, **changed)
@@ -506,19 +518,21 @@ def _build_unfused_parts(spec: ModelSpec, data: Dataset):
     def add_loglik(state: McmcState) -> McmcState:
         """cal_lkh (mcmc.c:1916-1942) in plain tensor code, for any K."""
         if spec.mode == 0:
-            ll = lk.loglik_matrix_nopop_admix(data, state.freq)
+            ll = up.psum(lk.loglik_matrix_nopop_admix(data, state.freq), mesh)
             ll_indv = torch.gather(
                 ll, 2, state.zz.to(torch.int64)[:, :, None])[:, :, 0]
         else:
-            ll_indv = lk.per_indv_loglik(spec, data, state.freq, state.z,
-                                         state.q, state.gen, state.rates)
+            ll_indv = up.psum(lk.per_indv_loglik(
+                spec, data, state.freq, state.z, state.q, state.gen,
+                state.rates), mesh)
         return state._replace(loglik_indv=ll_indv,
                               loglik_total=ll_indv.sum(dim=-1))
 
     return step, add_loglik
 
 
-def build_step_parts(spec: ModelSpec, data: Dataset, tetra_tables=None):
+def build_step_parts(spec: ModelSpec, data: Dataset, tetra_tables=None,
+                     mesh=None):
     """Return ``(step_core, add_loglik)`` for the sweep the spec selects
     (:func:`use_fused`; ploidy 4: ``tetra/engine.py:build_tetra_step``,
     with the run's ``tetra_tables`` when given).
@@ -528,22 +542,26 @@ def build_step_parts(spec: ModelSpec, data: Dataset, tetra_tables=None):
     ``loglik_indv`` / ``loglik_total`` (cal_lkh, mcmc.c:1916-1942).  The
     split lets ``run_mcmc`` evaluate the log-likelihood only on stored or
     reported steps: it is an observable, not an input to any update.
-    ``data`` must live on the device of the state.
+    ``data`` must live on the device of the state.  With a
+    ``parallel.mesh.Mesh`` whose loci are split, ``data`` is this rank's
+    block (``parallel/loci_shard.py:shard_panel``) and the sweep sums its
+    per-individual quantities over the shards (``updates.psum``).
     """
     check_supported(spec, data)
     if spec.ploid == 4:
-        return te.build_tetra_step(spec, data, tetra_tables)
+        return te.build_tetra_step(spec, data, tetra_tables, mesh)
     if use_fused(spec, data):
-        return _build_fused_parts(spec, data)
-    return _build_unfused_parts(spec, data)
+        return _build_fused_parts(spec, data, mesh)
+    return _build_unfused_parts(spec, data, mesh)
 
 
-def nopop_marginal(spec: ModelSpec, data: Dataset, freq, active=None):
+def nopop_marginal(spec: ModelSpec, data: Dataset, freq, active=None,
+                   mesh=None):
     """Mode 0's per-individual marginal log-lik f32[C, N]: the uniform
     mixture over the K single-pop log-liks, or, under the K grid's mask
     ``active`` f32[C, K], over each chain's active slots only (inactive
     slots' P is Dirichlet(1) noise; JAX ``step.py:526-531``)."""
-    ll = lk.loglik_matrix_nopop_admix(data, freq)            # [C, N, K]
+    ll = up.psum(lk.loglik_matrix_nopop_admix(data, freq), mesh)  # [C, N, K]
     if active is None:
         return torch.logsumexp(ll, dim=2) - math.log(spec.n_pops)
     ll = torch.where(active[:, None, :] > 0, ll,
@@ -552,7 +570,8 @@ def nopop_marginal(spec: ModelSpec, data: Dataset, freq, active=None):
     return torch.logsumexp(ll, dim=2) - torch.log(n_act)[:, None]
 
 
-def build_marg_loglik(spec: ModelSpec, data: Dataset, tetra_tables=None):
+def build_marg_loglik(spec: ModelSpec, data: Dataset, tetra_tables=None,
+                      mesh=None):
     """``add_marg(state) -> state`` filling ``state.loglik_marg`` with the
     Z-marginalized per-individual log-likelihood that feeds WAIC and the
     corrected DIC: ``model/likelihood.py:marginal_site_loglik`` in modes
@@ -563,17 +582,20 @@ def build_marg_loglik(spec: ModelSpec, data: Dataset, tetra_tables=None):
     active slots under the K grid's mask), the (z, geno)-conditional log-lik
     of the tetraploid engine
     (``tetra/engine.py:build_marg_loglik``).  ``run_mcmc`` calls it only
-    every ``Schedule.dic_every``-th stored step."""
+    every ``Schedule.dic_every``-th stored step.  ``mesh`` as in
+    :func:`build_step_parts`: the per-individual sums (mode 0: the [N, K]
+    log-liks) are summed over the loci shards."""
     check_supported(spec, data)
     if spec.ploid == 4:
-        return te.build_marg_loglik(spec, data, tetra_tables)
+        return te.build_marg_loglik(spec, data, tetra_tables, mesh)
 
     def add_marg(state: McmcState) -> McmcState:
         if spec.mode == 0:
-            indv = nopop_marginal(spec, data, state.freq, state.active)
+            indv = nopop_marginal(spec, data, state.freq, state.active, mesh)
         else:
-            indv = lk.marginal_indv_loglik(spec, data, state.freq, state.q,
-                                           state.gen, state.rates)
+            indv = up.psum(lk.marginal_indv_loglik(
+                spec, data, state.freq, state.q, state.gen, state.rates),
+                mesh)
         return state._replace(loglik_marg=indv)
 
     return add_marg

@@ -41,6 +41,15 @@ def _slog(x):
     return torch.log(torch.clamp_min(x, _EPS))
 
 
+def psum(x, mesh=None):
+    """The sum of ``x`` over the loci shards of the mesh's data axis
+    (``parallel/mesh.py:Mesh.all_reduce_``); the identity without a mesh
+    or when the loci are whole.  Its calls are the only communication of
+    a sharded sweep: the pop counts before the Q draw, the MH log-ratio
+    columns and the per-individual log-liks (JAX ``_psum``, :47)."""
+    return x if mesh is None else mesh.all_reduce_(x)
+
+
 def dirichlet_from_counts(generator: torch.Generator, conc, valid=None):
     """Sample Dirichlet(conc) rows (last axis) by gamma-normalisation,
     respecting a padding mask (replaces rdirich, random.c).  Exact gamma
@@ -101,8 +110,8 @@ def update_freq(keys: px.RngKeys, step: int, spec: ModelSpec, data: Dataset,
                                   n_pops=spec.n_pops,
                                   max_alleles=data.max_alleles,
                                   bits2=data.bits2)
-    return dk.dirichlet_kla(keys, step, counts + 1.0, data.allele_valid,
-                            test_draws=test_draws)
+    return dk.dirichlet_kla(px.site_keys(keys), step, counts + 1.0,
+                            data.allele_valid, test_draws=test_draws)
 
 
 def mask_active(q, active=None):
@@ -117,7 +126,7 @@ def mask_active(q, active=None):
 
 
 def update_zq(keys: px.RngKeys, step: int, spec: ModelSpec, data: Dataset,
-              freq, q, alpha, u=None, q_draws=None, active=None):
+              freq, q, alpha, u=None, q_draws=None, active=None, mesh=None):
     """Gibbs z per allele copy, then Q | Z ~ Dirichlet(counts + alpha)
     (update_ZQ, mcmc.c:1122-1199): z[n, s] ~ Cat_k(q[n, k] * freq[k, l,
     a_ns]), mcmc.c:1146.  The z draw and the counts are one launch of
@@ -125,21 +134,24 @@ def update_zq(keys: px.RngKeys, step: int, spec: ModelSpec, data: Dataset,
     f32[C, N, S] and ``q_draws`` (as ``dirichlet_nk``'s ``test_draws``)
     inject the uniforms; with ``active`` the Q draw is masked
     (:func:`mask_active`).  Returns (z int8[C, N, S], q f32[C, N, K], qqnum
-    f32[C, N, K])."""
-    z, qqnum = zq_sample_counts(keys, step, q, freq, data.geno,
-                                data.site_valid, n_pops=spec.n_pops, u=u)
+    f32[C, N, K]; the counts summed over the loci shards of ``mesh``).
+    z draws from the site keys, Q from the run's."""
+    z, qqnum = zq_sample_counts(px.site_keys(keys), step, q, freq,
+                                data.geno, data.site_valid,
+                                n_pops=spec.n_pops, u=u)
+    qqnum = psum(qqnum, mesh)
     q_new = dk.dirichlet_nk(keys, step, qqnum + alpha[:, None, None],
                             test_draws=q_draws)
     return z, mask_active(q_new, active), qqnum
 
 
-def update_z_noadmix(u, data: Dataset, freq, active=None):
+def update_z_noadmix(u, data: Dataset, freq, active=None, mesh=None):
     """Mode 0: one z per individual, Gibbs over K with full-genome log-liks
     (update_Z, mcmc.c:1094-1119 via log_ld_indv_K), by inverse CDF on the
     normalised weights exp(ll - max ll) from the uniforms ``u`` f32[C, N];
     with ``active`` the inactive slots weigh 0 (log-lik -inf), so the
     draw never selects one.  Returns zz i32[C, N]."""
-    ll = lk.loglik_matrix_nopop_admix(data, freq)            # [C, N, K]
+    ll = psum(lk.loglik_matrix_nopop_admix(data, freq), mesh)  # [C, N, K]
     if active is not None:
         ll = torch.where(active[:, None, :] > 0, ll,
                          torch.full_like(ll, float("-inf")))
@@ -366,7 +378,7 @@ def _f_site_terms(data: Dataset, freq, z):
 
 
 def update_f_pop(u_prop, u_acc, spec: ModelSpec, data: Dataset, freq, z,
-                 rates, ais_state, u_fresh=None):
+                 rates, ais_state, u_fresh=None, mesh=None):
     """Mode 4: MH on the per-subpop inbreeding coefficients at the carried
     z (update_inbreedcoff_POP, mcmc.c:986-1050, with a standard MH accept).
     F_j only affects sites with both copies in pop j, so the K decisions
@@ -388,13 +400,13 @@ def update_f_pop(u_prop, u_acc, spec: ModelSpec, data: Dataset, freq, z,
     delta = torch.stack([torch.where(z0 == kk, diff, torch.zeros_like(diff))
                          .sum(dim=(1, 2)) for kk in range(spec.n_pops)],
                         dim=1)
-    accept = _slog(u_acc) < delta + log_hast
+    accept = _slog(u_acc) < psum(delta, mesh) + log_hast
     return (torch.where(accept, prop, rates),
             torch.where(accept, prop_states, ais_state))
 
 
 def update_f_ind(u_prop, u_acc, spec: ModelSpec, data: Dataset, freq, z,
-                 rates, prior_mu=None, prior_sigma2=None):
+                 rates, prior_mu=None, prior_sigma2=None, mesh=None):
     """Mode 5: per-individual MH random walk on F at the carried z
     (update_F_IND, mcmc.c:888-910); ``rates``, ``u_prop``, ``u_acc``
     f32[C, N]; with the normal prior (``prior_mu``, ``prior_sigma2``
@@ -408,7 +420,7 @@ def update_f_ind(u_prop, u_acc, spec: ModelSpec, data: Dataset, freq, z,
         site = _slog(lk.genofreq_inbreeding(p0, p1, hom, f[:, :, None]))
         return torch.where(mask, site, torch.zeros_like(site)).sum(dim=2)
 
-    log_ratio = lp(prop) - lp(rates)
+    log_ratio = psum(lp(prop) - lp(rates), mesh)
     if prior_mu is not None:
         log_ratio = log_ratio - (
             0.5 * (prop - prior_mu[:, None]) ** 2
@@ -462,7 +474,7 @@ def update_normal_hyper(u, rates, priors: Priors):
 
 
 def update_gen(ug, u_acc, spec: ModelSpec, data: Dataset, freq, z, q, rates,
-               gen):
+               gen, mesh=None):
     """Modes 2/3: MH on the per-individual selfing-generation counts
     (update_G, mcmc.c:1053-1091), ``ug``, ``u_acc`` f32[C, N].
 
@@ -474,7 +486,8 @@ def update_gen(ug, u_acc, spec: ModelSpec, data: Dataset, freq, z, q, rates,
     prop = sample_geometric(ug, sbar, spec.gen_cap)
     ll_prop = lk.per_indv_loglik(spec, data, freq, z, q, prop, rates)
     ll_cur = lk.per_indv_loglik(spec, data, freq, z, q, gen, rates)
-    return torch.where(_slog(u_acc) < ll_prop - ll_cur, prop, gen)
+    return torch.where(_slog(u_acc) < psum(ll_prop - ll_cur, mesh), prop,
+                       gen)
 
 
 def empty_cluster_flag(q, active=None) -> torch.Tensor:

@@ -305,6 +305,7 @@ def update_p(keys, step: int, spec: ModelSpec, data: Dataset, z, geno,
     None).  Both sweeps run it: the counts are exact either way, and the
     port's P draw is always the Dirichlet kernel."""
     c1, c2 = p_counts(spec, data, z, geno)
+    keys = px.site_keys(keys)
     f = dk.dirichlet_kla(keys, step, c1 + 1.0, data.allele_valid,
                          test_draws=test_draws)
     if spec.autopoly:
@@ -335,31 +336,34 @@ def view_dataset(spec: ModelSpec, data: Dataset, geno) -> Dataset:
 
 
 def update_zq(keys, step: int, spec: ModelSpec, data: Dataset, freq, freq2,
-              q, alpha, geno, fused: bool, u=None, q_draws=None):
+              q, alpha, geno, fused: bool, u=None, q_draws=None, mesh=None):
     """Per-copy Z Gibbs z ~ Cat(q_k f_sys[k, l, a]) with the system-correct
     frequency per slot (update_ZQ, poly_geno.c:750-836), then Q | Z ~
     Dirichlet(qqnum + alpha).  Fused: the site pass's ``zq_sample_pass``
     (K1) on the diploid view; unfused: ``zq_sample_counts`` (K8) -- ploidy 4
     over the panel (auto), ploidy 2 over the view (allo).  ``u`` f32[C, N,
-    4L] (copy-major) and ``q_draws`` inject the uniforms.  Returns (z
-    i8[C, N, 4L], q f32[C, N, K])."""
+    4L] (copy-major) and ``q_draws`` inject the uniforms.  z draws from
+    the site keys; the counts are summed over the loci shards of ``mesh``
+    before the Q draw.  Returns (z i8[C, N, 4L], q f32[C, N, K])."""
     uv = None if u is None else diploid_view(spec, u).contiguous()
+    kz = px.site_keys(keys)
     if fused:
-        z, qqnum, _ = fs.zq_sample_pass(keys, step, q,
+        z, qqnum, _ = fs.zq_sample_pass(kz, step, q,
                                         freq_2l(spec, freq, freq2),
                                         view_dataset(spec, data, geno), u=uv)
         z = diploid_view(spec, z)
     elif spec.autopoly:
-        z, qqnum = zq_sample_counts(keys, step, q, freq, geno,
+        z, qqnum = zq_sample_counts(kz, step, q, freq, geno,
                                     data.site_valid, n_pops=spec.n_pops, u=u)
     else:
-        z, qqnum = zq_sample_counts(keys, step, q,
+        z, qqnum = zq_sample_counts(kz, step, q,
                                     freq_2l(spec, freq, freq2),
                                     sys_view(geno),
                                     data.site_valid.repeat(1, 2),
                                     n_pops=spec.n_pops, u=uv)
         z = sys_view(z)
-    q_new = dk.dirichlet_nk(keys, step, qqnum + alpha[:, None, None],
+    q_new = dk.dirichlet_nk(keys, step,
+                            up.psum(qqnum, mesh) + alpha[:, None, None],
                             test_draws=q_draws)
     return z, q_new
 
@@ -389,7 +393,7 @@ def sample_geno(keys, step: int, tables: TetraTables, spec: ModelSpec, freq,
     the candidate orderings and a Gumbel-argmax, by the ``geno_choice_pass``
     kernel (K5); then the reconstruction."""
     choice = tg.geno_choice_pass(
-        keys, step, table, z, tables.dist8, tables.cand_nc, q, freq,
+        px.site_keys(keys), step, table, z, tables.dist8, tables.cand_nc, q, freq,
         freq if spec.autopoly else freq2, tables.cand_sel, tables.cand_cls,
         tables.cand_mult, autopoly=bool(spec.autopoly), gumbel=gumbel)
     return reconstruct_geno(tables, choice)
@@ -401,14 +405,16 @@ def sample_geno(keys, step: int, tables: TetraTables, spec: ModelSpec, freq,
 
 def init_tetra_state(seed: int, spec: ModelSpec, data: Dataset,
                      n_chains: int, init_rates=None, device="cuda",
-                     chain_key=None, tables: Optional[TetraTables] = None
-                     ) -> McmcState:
+                     chain_key=None, tables: Optional[TetraTables] = None,
+                     mesh=None) -> McmcState:
     """Initial draw of ``n_chains`` chains (initial_geno,
     poly_geno.c:316-369): a uniform candidate ordering per site, z uniform,
     alpha ~ U[0, alpha_prior_max], Q | Z from the Dirichlet kernel, S from
     ``init_rates`` f32[C, K] or U(0, 1), flat freq and freq2.  Every draw is
     a function of Philox words at step ``INIT_STEP`` (see the module
-    docstring), so the state is the same on the card and on the CPU."""
+    docstring), so the state is the same on the card and on the CPU.  On
+    a loci-sharded ``mesh`` the orderings and z draw from the site keys and
+    the Q counts are summed over the shards."""
     dev = torch.device(device)
     data = data.to(dev)
     if tables is None:
@@ -416,17 +422,19 @@ def init_tetra_state(seed: int, spec: ModelSpec, data: Dataset,
     c = n_chains
     n, l, a = data.n_indv, data.n_loci, data.max_alleles
     k = spec.n_pops
-    keys = px.make_keys(seed, c, dev, chain_key=chain_key)
+    keys = px.make_keys(seed, c, dev, chain_key=chain_key,
+                        shard=None if mesh is None else mesh.shard)
     step = px.INIT_STEP
 
-    def unif(stream, count):
-        return px.u01_open(px.random_words(keys, step, stream, count))
+    def unif(stream, count, k=keys):
+        return px.u01_open(px.random_words(k, step, stream, count))
 
+    kz = px.site_keys(keys)
     ncf = tables.cand_nc.to(torch.float32)
-    choice = torch.minimum(torch.floor(unif(px.STREAM_GENO, n * l)
+    choice = torch.minimum(torch.floor(unif(px.STREAM_GENO, n * l, kz)
                                        .reshape(c, n, l) * ncf), ncf - 1.0)
     geno = reconstruct_geno(tables, choice.to(torch.int8))
-    z = torch.clamp(torch.floor(unif(px.STREAM_Z, n * 4 * l)
+    z = torch.clamp(torch.floor(unif(px.STREAM_Z, n * 4 * l, kz)
                                 .reshape(c, n, 4 * l) * k),
                     max=k - 1).to(torch.int8)
     alpha = unif(px.STREAM_ALPHA, 1)[:, 0] * spec.alpha_prior_max
@@ -435,7 +443,7 @@ def init_tetra_state(seed: int, spec: ModelSpec, data: Dataset,
     else:
         rates = torch.as_tensor(np.asarray(init_rates, np.float32),
                                 device=dev).reshape(c, k)
-    counts = masked_z_counts(z, data, k)
+    counts = up.psum(masked_z_counts(z, data, k), mesh)
     q = dk.dirichlet_nk(keys, step, counts + alpha[:, None, None])
     valid_f = data.allele_valid.to(torch.float32)
     freq = valid_f / torch.clamp_min(valid_f.sum(-1, keepdim=True), 1.0)
@@ -474,11 +482,13 @@ def s_uniforms(keys, step: int, spec: ModelSpec, n_sweeps: int, draws):
 
 
 def build_tetra_step(spec: ModelSpec, data: Dataset,
-                     tables: Optional[TetraTables] = None):
+                     tables: Optional[TetraTables] = None, mesh=None):
     """(step_core, add_loglik) of one tetraploid sweep (the step body of
     mcmc_POP_tetra_selfing, poly_geno.c:98-136): P (+P2), the class tables,
     S, Z and Q, geno, alpha; the likelihood (cal_lkd, poly_geno.c:715) is
-    split out so that ``run_mcmc`` evaluates it on stored steps only."""
+    split out so that ``run_mcmc`` evaluates it on stored steps only.  On a
+    loci-sharded ``mesh`` (``data`` this rank's block) the Q counts, each
+    subsweep's S log-ratio and the log-lik are summed over the shards."""
     if tables is None or tables.cand_sel is None:
         tables = build_tables(spec, data)
     fused = tetra_use_fused(spec, data)
@@ -487,8 +497,9 @@ def build_tetra_step(spec: ModelSpec, data: Dataset,
     def add_loglik(state: McmcState) -> McmcState:
         table = class_table(tables, spec, state.freq, state.freq2,
                             state.rates)
-        indv = site_indv_loglik(tables, spec, data, state.freq, state.freq2,
-                                state.z, state.geno, table)
+        indv = up.psum(site_indv_loglik(tables, spec, data, state.freq,
+                                        state.freq2, state.z, state.geno,
+                                        table), mesh)
         return state._replace(loglik_indv=indv, loglik_total=indv.sum(dim=1))
 
     def s_update(state, keys, step_idx, draws, log_hwe):
@@ -513,7 +524,7 @@ def build_tetra_step(spec: ModelSpec, data: Dataset,
             delta = tg.s_delta_pass(tab_cur, tab_prop, tables.lookup_l,
                                     state.z, state.geno, data.site_valid,
                                     tables.class_map)
-            accept = torch.log(u_acc[:, j]) < delta + log_hast
+            accept = torch.log(u_acc[:, j]) < up.psum(delta, mesh) + log_hast
             rates = torch.where(accept, prop, rates)
             ais = torch.where(accept, prop_states, ais)
             tab_cur = torch.where(accept[:, :, None, None], tab_prop, tab_cur)
@@ -530,7 +541,8 @@ def build_tetra_step(spec: ModelSpec, data: Dataset,
         rates, ais, table = s_update(state, keys, step_idx, draws, log_hwe)
         z, q = update_zq(keys, step_idx, spec, data, freq, freq2, state.q,
                          state.alpha, state.geno, fused,
-                         u=_draw(draws, "z"), q_draws=_draw(draws, "q"))
+                         u=_draw(draws, "z"), q_draws=_draw(draws, "q"),
+                         mesh=mesh)
         geno = sample_geno(keys, step_idx, tables, spec, freq, freq2, q,
                            table, z, gumbel=_draw(draws, "geno"))
         alpha = up.update_alpha(keys, step_idx, spec, q, state.alpha,
@@ -543,7 +555,7 @@ def build_tetra_step(spec: ModelSpec, data: Dataset,
 
 
 def build_marg_loglik(spec: ModelSpec, data: Dataset,
-                      tables: Optional[TetraTables] = None):
+                      tables: Optional[TetraTables] = None, mesh=None):
     """``add_marg(state)`` filling ``loglik_marg`` with the (z, geno)-
     conditional per-individual log-lik: no closed marginal over the latent
     ordering exists, so the focus of WAIC and the corrected DIC is the
@@ -554,9 +566,9 @@ def build_marg_loglik(spec: ModelSpec, data: Dataset,
     def add_marg(state: McmcState) -> McmcState:
         table = class_table(tables, spec, state.freq, state.freq2,
                             state.rates)
-        return state._replace(loglik_marg=site_indv_loglik(
+        return state._replace(loglik_marg=up.psum(site_indv_loglik(
             tables, spec, data, state.freq, state.freq2, state.z,
-            state.geno, table))
+            state.geno, table), mesh))
 
     return add_marg
 

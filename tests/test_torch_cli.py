@@ -2,9 +2,11 @@
 ``tests/test_cli.py`` exit 0 and write reports with the JAX CLI's section
 headers in the JAX CLI's order on the same file (the numbers differ by
 design: the port draws Philox); ``--sampler hmc|nuts|svi|smc`` writes the
-JAX writer's report bytes for its result; every flag that is not ported
-yet exits 2 naming its ROADMAP item; without a card the default platform
-fails instead of moving to the CPU."""
+JAX writer's report bytes for its result; the mesh flags run (two
+processes over gloo write one report, the unsharded run's) and what has no
+counterpart (``--mesh-mode gspmd``) or no world (``--process-id`` alone)
+exits 2 with the reason; without a card the default platform fails
+instead of moving to the CPU."""
 
 import dataclasses
 import json
@@ -139,19 +141,14 @@ def test_cli_checkpoint_resume_and_log(datafile, tmp_path, capsys):
 
 
 REFUSED = {
-    "chain shards": (["--chain-shards", "2"], "Parallel (M9)"),
-    "data shards": (["--data-shards", "2"], "Parallel (M9)"),
-    "mesh mode shard_map": (["--mesh-mode", "shard_map"], "Parallel (M9)"),
-    "mesh mode gspmd": (["--mesh-mode", "gspmd"], "Parallel (M9)"),
-    "coordinator": (["--coordinator", "localhost:1234"], "Parallel (M9)"),
-    "num processes": (["--num-processes", "2"], "Parallel (M9)"),
-    "process id": (["--process-id", "0"], "Parallel (M9)"),
+    "mesh mode gspmd": (["--mesh-mode", "gspmd"], "has no counterpart"),
+    "process id": (["--process-id", "0"], "needs --num-processes"),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_cli_refuses_what_is_not_ported(datafile, tmp_path, capsys, case):
-    flags, item = REFUSED[case]
+    flags, reason = REFUSED[case]
     out = tmp_path / "out.txt"
     if "-p" in flags:
         from instruct_tpu_torch.data.synthetic import synthetic_tetra_panel
@@ -162,8 +159,108 @@ def test_cli_refuses_what_is_not_ported(datafile, tmp_path, capsys, case):
                "--platform", "cpu"] + flags)
     assert rc == 2
     err = capsys.readouterr().err
-    assert f"(ROADMAP: {item})" in err
+    assert reason in err
     assert not out.exists()
+
+
+def _report_body(path):
+    """The report without the lines that echo the command line and the
+    output file's name."""
+    lines = Path(path).read_text().splitlines()
+    skip = set()
+    for i, ln in enumerate(lines):
+        if ln.startswith("Command line arguments:"):
+            skip.update((i, i + 1))
+        if ln.startswith("Output File:"):
+            skip.add(i)
+    return [ln for i, ln in enumerate(lines) if i not in skip]
+
+
+MESH_RUN = ["-v", "2", "-K", "2", "-u", "40", "-b", "20", "-t", "2", "-c",
+            "2", "-r", "5", "-j", "5", "--platform", "cpu"]
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _world_cli(datafile, tmp_path, flags, n=2):
+    """``n`` processes of ``python -m instruct_tpu_torch`` joined over
+    gloo, each with its own ``-o``; killed after 240 s."""
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "instruct_tpu_torch", "-d", str(datafile),
+         "-o", str(tmp_path / f"o{i}.txt")] + MESH_RUN + flags +
+        ["--coordinator", f"127.0.0.1:{port}", "--num-processes", str(n),
+         "--process-id", str(i)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=str(REPO), env={**os.environ, "PYTHONPATH": str(REPO)})
+        for i in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs], outs
+
+
+MESH_CASES = {
+    "two processes, chain shards": (["--chain-shards", "2"], 2, 0),
+    "two processes, data shards": (["--data-shards", "2"], 2, 0),
+    "mesh mode shard_map": (["--mesh-mode", "shard_map"], 1, 0),
+    "a 1x1 mesh": (["--chain-shards", "1", "--data-shards", "1"], 1, 0),
+    "chain shards without a world": (["--chain-shards", "2"], 1, 2),
+    "num processes without a coordinator": (["--num-processes", "2"], 1,
+                                            2),
+}
+
+
+@pytest.mark.parametrize("case", list(MESH_CASES))
+def test_cli_runs_the_mesh_flags(datafile, tmp_path, capsys, case):
+    """The mesh flags on the CPU: two processes over gloo exit 0 and rank
+    0 alone writes the report -- the unsharded run's, byte for byte but
+    for the lines naming the command and the output file, when the chains
+    are split (bitwise the unsharded run); a run of one process takes a
+    1x1 mesh and ``--mesh-mode shard_map`` to the same report; a mesh
+    that does not fit the world (of one) and a world without a
+    coordinator exit 2 naming why."""
+    flags, n, rc_want = MESH_CASES[case]
+    ref = tmp_path / "ref.txt"
+    assert main(["-d", str(datafile), "-o", str(ref)] + MESH_RUN) == 0
+    if n > 1:
+        rcs, outs = _world_cli(datafile, tmp_path, flags, n)
+        assert rcs == [0] * n, outs
+        assert (tmp_path / "o0.txt").exists()
+        assert not any((tmp_path / f"o{i}.txt").exists()
+                       for i in range(1, n))
+        assert outs[0].rstrip().endswith("THE JOB IS SUCCESSFULLY FINISHED")
+        body = _report_body(tmp_path / "o0.txt")
+        if "--chain-shards" in flags:
+            assert body == _report_body(ref)
+        else:
+            # the loci shards draw their own site streams: the same report
+            # sections, other numbers
+            assert headers("\n".join(body)) == headers(
+                "\n".join(_report_body(ref)))
+        return
+    capsys.readouterr()
+    out = tmp_path / "o.txt"
+    rc = main(["-d", str(datafile), "-o", str(out)] + MESH_RUN + flags)
+    assert rc == rc_want
+    if rc_want:
+        err = capsys.readouterr().err
+        assert ("world size is 1" if "--chain-shards" in flags
+                else "--coordinator") in err
+        assert not out.exists()
+    else:
+        assert _report_body(out) == _report_body(ref)
 
 
 # Short engine configurations for the CLI's sampler runs: the schedule's
@@ -361,7 +458,8 @@ def test_python_dash_m_entry_point(datafile, tmp_path):
          "-o", str(out), "--chain-shards", "2"],
         capture_output=True, text=True, timeout=300, cwd=str(REPO),
         env={**os.environ, "PYTHONPATH": str(REPO)})
-    assert r.returncode == 2 and "ROADMAP: Parallel (M9)" in r.stderr
+    # a 2-rank chain axis in a world of one process
+    assert r.returncode == 2 and "world size is 1" in r.stderr
 
 
 def test_python_dash_m_sampler_nuts_defaults_to_the_card(datafile,
