@@ -40,7 +40,8 @@ recovery run, and the command line ``-v 3 -f 1`` with a resumed run's
 report byte-identical, and by ``python -m instruct_tpu_torch``.
 Phase ``samplers`` runs the gradient samplers: the G-curve kernel forward
 and backward against its plain versions (full width, the SMC shape of 128
-rows, edge shapes; bitwise reruns), ``run_sampler`` for HMC, NUTS, SVI and
+rows, edge shapes, a panel whose every site takes the clip path; bitwise
+reruns; its backward plan, registers and occupancy), ``run_sampler`` for HMC, NUTS, SVI and
 SMC on the headline panel in mode 2 (4 chains, twice from one seed), a
 short HMC in modes 1, 3, 4 and 5, the card against the CPU on a small
 panel, and ``python -m instruct_tpu_torch --sampler hmc``.
@@ -73,7 +74,11 @@ every timed entry point of the site pass, on the K3 to K8 entries (K6 and
 K7 through their first bodies' launch functions where that tree has them)
 and on K3's and K4's shapes of every path (``parent_ms`` in the kernels
 phase line and the ``k3_shapes`` / ``k4_shapes`` lines; null without it),
-and holds K3 bitwise to the parent's body there.
+and holds K3 bitwise to the parent's body there; it builds that tree's
+G-curve kernel too and times its forward (B = 4 and 128) and backward
+through that tree's own launch signatures (``parent_ms`` of the
+``gen_curve`` line and of the ``gen_curve_fwd`` / ``gen_curve_bwd``
+entries of the kernels line).
 """
 
 from __future__ import annotations
@@ -131,6 +136,7 @@ from instruct_tpu_torch.samplers.smc import SmcConfig, run_smc
 from instruct_tpu_torch.samplers.svi import SviConfig, run_svi
 from instruct_tpu_torch.tetra import engine as te
 from instruct_tpu_torch.tools import dirichlet_counts_variants as dcv
+from instruct_tpu_torch.tools import gen_curve_variants as gcv
 from instruct_tpu_torch.tools import geno_zq_variants as gzv
 from instruct_tpu_torch.tools import profiling
 from instruct_tpu_torch.tools import site_pass_variants as spv
@@ -823,8 +829,8 @@ PARENT: dict = {}
 
 def start_parent_build(csrc) -> None:
     """Build the site-pass sources of ``csrc`` (another tree's
-    ``instruct_tpu_torch/csrc``), its K5 and K8 sources and its K3 and K4
-    sources in three threads, into :data:`PARENT`."""
+    ``instruct_tpu_torch/csrc``), its K5 and K8 sources, its K3 and K4
+    sources and its G-curve source in four threads, into :data:`PARENT`."""
     work_dir = _build.BUILD / "parent"
     shutil.rmtree(work_dir, ignore_errors=True)
 
@@ -838,7 +844,9 @@ def start_parent_build(csrc) -> None:
             "lib_geno_zq": lambda: gzv.build_library(
                 work_dir, "parent_geno_zq", pathlib.Path(csrc)),
             "lib_k3k4": lambda: dcv.build_library(
-                work_dir, "parent_k3k4", pathlib.Path(csrc))}
+                work_dir, "parent_k3k4", pathlib.Path(csrc)),
+            "lib_gen_curve": lambda: spv.finish_build(gcv.build(
+                work_dir, "parent_gen_curve", csrc))}
     PARENT["threads"] = [threading.Thread(target=work, args=(key, fn))
                          for key, fn in jobs.items()]
     for t in PARENT["threads"]:
@@ -3645,11 +3653,14 @@ SAMPLER_CONFIGS = {
 }
 MODE_HMC = HmcConfig(n_warmup=4, n_samples=4, n_leapfrog=8, init_step=0.02)
 EPS32 = 2.0 ** -24
-# (N, L, K, A, missing rate, G): L off the 256-site stride, missing sites,
-# A = 8, G = 1, K = 32 with G = 64 (the kernel's limits), one site
+# (N, L, K, A, missing rate, G): L off the 256-site chunk, missing sites,
+# A = 8, G = 1, K = 32 with G = 64 (the kernel's limits; P gathered, not
+# staged), one site, one individual, G = 8 (no series tail) and 9 (one
+# entry of it), N off the backward's 16-individual tile
 GEN_EDGES = ((37, 1001, 3, 2, 0.2, 50), (50, 300, 5, 8, 0.1, 50),
              (20, 257, 2, 2, 0.0, 1), (16, 129, 32, 2, 0.1, 64),
-             (3, 1, 2, 2, 0.0, 50))
+             (3, 1, 2, 2, 0.0, 50), (1, 700, 3, 2, 0.1, 50),
+             (30, 513, 3, 3, 0.1, 8), (29, 600, 4, 2, 0.05, 9))
 
 
 def gen_curve_inputs(data, b: int, k: int, seed: int):
@@ -3688,17 +3699,51 @@ def gen_curve_sites(data, q, p, g: int):
 
 
 def gen_curve_work(data, q, p, g: int, backward: bool):
-    """(bytes, operations) of one forward or backward call on these inputs:
-    inputs read once and outputs written once (the backward pass's two
-    [B, N, L] planes are the kernel's own); the operations of the kernel's
-    path at each site of this run's data (``gen_curve_sites``): a mixture
-    2K - 1 a copy; a homozygous site on the fast path a logarithm, a
-    ``log1pf`` for g = 2..8 and a series of 9 beyond, plus 2 a g (backward:
-    a division instead of each logarithm, 10 a g of the series); JAX's form
-    on the slow path, a logarithm (backward a division) and 5-8 a g; a
-    heterozygous site a logarithm (backward two divisions), 4 a g on the
-    slow path; backward also the dq partials (4K a site) and the dP sums
-    (2K a copy's allele)."""
+    """(bytes, operations) of one forward or backward call on these inputs,
+    on the kernel's path at each site of this run's data
+    (``gen_curve_sites``): inputs read once and outputs written once (the
+    backward pass's partials are the kernel's own); a mixture 2K - 1 a
+    copy; a homozygous site on the fast path a logarithm, u = 1 - m0, the
+    7 exact factors and products (3 each), the power sums (7) and the sum
+    (backward: a division for 1/m0 and one a factor of indices 1..7, 3
+    each beside, the cubic 6, 3 sums), plus, forward, the logarithms of
+    the products, 7 a lane and chunk of 8 sites; JAX's form on the slow
+    path, a logarithm (backward a division) and 5-8 a g; a heterozygous
+    site a logarithm (backward two divisions), 4 a g on the slow path; per
+    row, forward the series' tail (8 a g), backward the coefficients (~13
+    a g); backward also the dq partials (4K a site) and the dP sums (2K a
+    copy's allele)."""
+    b, n, k = q.shape
+    l, a = data.n_loci, data.max_alleles
+    fh, sh, fe, se = gen_curve_sites(data, q, p, g)
+    mix = 2 * k - 1
+    panel_bytes = n * 2 * l + 2 * n * l
+    in_bytes = 4 * (b * n * k + b * k * l * a) + panel_bytes
+    rows = b * n
+    if not backward:
+        lane_chunks = rows * 32 * -(-l // gc.TILE)
+        ops = (fh * (mix + OPS_TRANSC + 1 + 7 * 3 + 7 + 1)
+               + sh * (mix + 2 + g * (OPS_TRANSC + 5))
+               + fe * (2 * mix + 2 + OPS_TRANSC + 2)
+               + se * (2 * mix + 2 + OPS_TRANSC + 4 * g)
+               + lane_chunks * 7 * (OPS_TRANSC + 1) + rows * g * 8)
+        return in_bytes + 4 * b * n * g, ops
+    ops = (fh * (mix + 1 + 8 * OPS_TRANSC + 7 * 3 + 6 + 3)
+           + sh * (mix + 2 + g * (OPS_TRANSC + 8))
+           + fe * (2 * mix + 3 + 2 * OPS_TRANSC)
+           + se * (2 * mix + 2 + 3 * g + 2 * OPS_TRANSC)
+           + (fh + sh + fe + se) * 4 * k
+           + (fh + sh + 2 * (fe + se)) * 2 * k + rows * g * 13)
+    return in_bytes + 4 * b * n * g + 4 * (b * n * k + b * k * l * a), ops
+
+
+def gen_curve_work_first(data, q, p, g: int, backward: bool):
+    """(bytes, operations) of the same call on the first body's path, a
+    loop over g at every site: a homozygous site on the fast path a
+    logarithm, a ``log1pf`` for g = 2..8 and a series of 9 beyond, plus 2
+    a g (backward: a division instead of each logarithm, 10 a g of the
+    series); the rest as :func:`gen_curve_work` counts it, without the
+    per-row terms."""
     b, n, k = q.shape
     l, a = data.n_loci, data.max_alleles
     fh, sh, fe, se = gen_curve_sites(data, q, p, g)
@@ -3738,14 +3783,19 @@ def gen_ulps(name: str, data, k: int, g: int) -> int:
     dp), in units of 2^-24 of the sum of its terms' magnitudes: the depth
     of its float32 arithmetic, since a sum of depth d is off by at most d
     such units.  A term: its mixture m_c (K) and the rest of the site's
-    arithmetic (8); a gradient's dm_c also its sum over g (G).  The sum:
-    a thread's sites one after another, a warp butterfly (5) and the 8
-    warps' partials for the curve and dq; a strip's individuals and then
-    the strips for dP (csrc/gen_curve.cu)."""
+    arithmetic (8; the logarithm of a chunk's product of 8 factors errs by
+    at most 2 units a site of the one unit a site the magnitudes carry, a
+    fast division by 2 ulp); a gradient's dm_c also its sum over g (G).
+    The sum (csrc/gen_curve.cu): a lane's sites of a chunk (TILE / 32 = 8),
+    a warp butterfly (5), then the chunks in order (the curve: the lane's
+    totals; dq: the partials, by the second kernel); dP: a tile's
+    individuals in order (at most ``BWD_INDV``), then the tiles in
+    order."""
     term = k + 8 + (0 if name == "per_gen" else g)
     if name == "dp":
-        return term + sum(gc.col_strips(data.n_indv))
-    return term + -(-data.n_loci // 256) + 13
+        plan = gc.bwd_plan(data.n_indv, data.n_loci, k, data.max_alleles)
+        return term + min(data.n_indv, plan["indv"]) + plan["tiles"]
+    return term + gc.TILE // 32 + 5 + -(-data.n_loci // gc.TILE)
 
 
 def gen_curve_agrees(tag, data, q, p, g: int, seed: int):
@@ -3790,20 +3840,89 @@ def gen_curve_agrees(tag, data, q, p, g: int, seed: int):
     return errs, ratios
 
 
+def gen_slow_inputs(b: int = 3, k: int = 3, seed: int = 23):
+    """A 24 x 300 panel whose every site takes the clip path at G = 50:
+    its homozygous sites recoded to allele 1 and P of allele 1 ~e^-50
+    (m0 < 1e-14; gf clipped at g = 1 only), so its heterozygous sites have
+    2 m0 m1 w_50 < 1e-30.  Returns (data, q, p) on the card."""
+    pnl = synthetic_panel(24, 300, n_pops=2, n_alleles=2, missing_rate=0.1,
+                          seed=PANEL_SEED + seed)
+    d = pnl.data.to("cuda")
+    l = d.n_loci
+    hom2 = torch.cat([d.hom, d.hom], 1)
+    d = d._replace(geno=torch.where(hom2, torch.ones_like(d.geno), d.geno),
+                   bits2=None)
+    q, _ = gen_curve_inputs(d, b, k, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    logits = 1.5 * torch.randn((b, k, l, 2), generator=g, device="cuda")
+    logits[..., 1] -= 50.0
+    return d, q, torch.softmax(logits, -1).contiguous()
+
+
+def gen_kernel_info(lib, k: int, a: int) -> dict:
+    """Registers a thread, local bytes, shared memory and blocks an SM
+    (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) of the forward and
+    the backward's tile, sum and coefficient kernels at (K, A), with the
+    occupancy in warps of the SM's 64."""
+    out = {}
+    for which, name in enumerate(("fwd", "bwd_tile", "bwd_sum",
+                                  "bwd_coef")):
+        buf = (ctypes.c_int * 5)()
+        rc = lib.gen_curve_kernel_info(which, k, a, buf)
+        if rc:
+            raise RuntimeError(f"gen_curve_kernel_info({name}): {rc}")
+        threads = 256
+        out[name] = dict(registers=buf[0], local_bytes=buf[1],
+                         static_smem=buf[2], dynamic_smem=buf[3],
+                         blocks_per_sm=buf[4],
+                         occupancy=buf[4] * threads / 32 / 64)
+    return out
+
+
+def parent_gen_curve(q, p, data, g: int, dper, q128, p128):
+    """The parent's G-curve kernel (``--parent-csrc``) timed on these
+    inputs as :func:`check_gen_curve` times this one's: (forward ms at B =
+    4, at B = 128, backward ms), or None without a parent.  The first body
+    (with ``gen_curve_strip_rows``) through its own launch signatures
+    (``tools/gen_curve_variants.py:first_body_call``), a body with this
+    tree's through the current wrappers."""
+    if "threads" not in PARENT:
+        return None
+    lib = _parent_lib("lib_gen_curve")
+    fwd, bwd = gcv.body_calls(lib, q, p, data, g, dper)
+    fwd128 = gcv.body_calls(lib, q128, p128, data, g, dper)[0]
+    return (time_ms(fwd, reps=10, warm=2, inner=5),
+            time_ms(fwd128, reps=5, warm=1, inner=2),
+            time_ms(bwd, reps=10, warm=2, inner=5))
+
+
 def check_gen_curve(panel, smi: str) -> dict:
     """The G-curve kernel, forward and backward, against its plain versions
-    run in float64 on the card (``gen_curve_agrees``): at full width (4 rows of the headline panel, K = 3, G =
-    50), at the SMC shape (128 rows, forward; the plain version on rows
-    of its start, middle and end), at ``GEN_EDGES``; two runs bitwise
-    equal; times beside the bounds and the plain versions.  Returns the
-    kernels-line entries."""
+    run in float64 on the card (``gen_curve_agrees``): at full width (4
+    rows of the headline panel, K = 3, G = 50), at the SMC shape (128 rows,
+    forward; the plain version on rows of its start, middle and end), at
+    ``GEN_EDGES`` and on a panel whose every site takes the clip path; two
+    runs bitwise equal; the backward plan against the kernel's; registers
+    and occupancy; times beside the bounds (this body's path and the first
+    body's), the plain versions and, with ``--parent-csrc``, the parent's
+    body.  Returns the kernels-line entries."""
     data = panel.data.to("cuda")
     lib = _build.library()
-    for n in (1, 3, 63, 64, 127, 1000, 1024, 5000):
-        if lib.gen_curve_strip_rows(n) != gc.col_strips(n)[0]:
-            raise AssertionError(f"gen_curve: the dP pass's strips at N = {n}"
-                                 f": kernel {lib.gen_curve_strip_rows(n)}, "
-                                 f"plan {gc.col_strips(n)}")
+    buf = (ctypes.c_int * 6)()
+    for n, l, k, a in ((1, 1, 1, 1), (16, 256, 3, 2), (17, 257, 3, 2),
+                       (1000, 10_000, 3, 2), (1000, 10_000, 32, 2),
+                       (37, 1001, 3, 8), (5000, 2000, 32, 127)):
+        lib.gen_curve_bwd_plan(n, l, k, a, buf)
+        plan = gc.bwd_plan(n, l, k, a)
+        want = [plan[x] for x in ("indv", "tiles", "chunks", "segment",
+                                  "stage", "smem")]
+        if list(buf) != [int(v) for v in want]:
+            raise AssertionError(f"gen_curve: the backward plan at N = {n}, "
+                                 f"L = {l}, K = {k}, A = {a}: kernel "
+                                 f"{list(buf)}, plan {want}")
+    info = {"K=3,A=2": gen_kernel_info(lib, N_POPS, 2),
+            "K=32,A=2 (P gathered)": gen_kernel_info(lib, 32, 2)}
     q, p = gen_curve_inputs(data, N_CHAINS, N_POPS, 5)
     errs, ratios = gen_curve_agrees("full width", data, q, p, GEN_CAP, 6)
     dper = torch.randn((N_CHAINS, data.n_indv, GEN_CAP), device="cuda")
@@ -3814,6 +3933,7 @@ def check_gen_curve(panel, smi: str) -> dict:
     if not (torch.equal(a1, a2) and torch.equal(b1, b2)
             and torch.equal(c1, c2)):
         raise AssertionError("gen_curve: two runs differ")
+    del a1, a2, b1, b2, c1, c2
     timing = {}
     for name, fn, plain in (
             ("fwd", lambda: gc._forward(q, p, data, GEN_CAP),
@@ -3825,8 +3945,11 @@ def check_gen_curve(panel, smi: str) -> dict:
         plain_ms = time_ms(plain, reps=3, warm=1, inner=1)
         b_ms, b_by = bound(*gen_curve_work(data, q, p, GEN_CAP,
                                            name == "bwd"))
+        f_ms, f_by = bound(*gen_curve_work_first(data, q, p, GEN_CAP,
+                                                 name == "bwd"))
         timing[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by)
+                            bound_by=b_by, first_body_bound_ms=f_ms,
+                            first_body_bound_by=f_by)
     # the SMC shape, forward, held as gen_curve_agrees holds it
     q128, p128 = gen_curve_inputs(data, SMC_PARTICLES, N_POPS, 7)
     f128 = gc._forward(q128, p128, data, GEN_CAP)
@@ -3848,6 +3971,9 @@ def check_gen_curve(panel, smi: str) -> dict:
     smc_ms = time_ms(lambda: gc._forward(q128, p128, data, GEN_CAP), reps=5,
                      warm=1, inner=2)
     smc_bound = bound(*gen_curve_work(data, q128, p128, GEN_CAP, False))
+    smc_first = bound(*gen_curve_work_first(data, q128, p128, GEN_CAP,
+                                            False))
+    parent = parent_gen_curve(q, p, data, GEN_CAP, dper, q128, p128)
     del q128, p128, f128
     edges = []
     for n, l, k, a, miss, g in GEN_EDGES:
@@ -3861,7 +3987,21 @@ def check_gen_curve(panel, smi: str) -> dict:
                           max_abs_err={x: float(f"{v:.3e}")
                                        for x, v in e.items()},
                           err_over_tol=max(r.values())))
+    d, qe, pe = gen_slow_inputs()
+    by_path = gen_curve_sites(d, qe, pe, GEN_CAP)
+    if by_path[0] or by_path[2] or not (by_path[1] and by_path[3]):
+        raise AssertionError(f"gen_curve: the clip-path panel's sites by "
+                             f"path {by_path.tolist()}")
+    e, r = gen_curve_agrees("every site on the clip path", d, qe, pe,
+                            GEN_CAP, 23)
+    edges.append(dict(N=d.n_indv, L=d.n_loci, K=3, A=2, missing=0.1,
+                      G=GEN_CAP, every_site_clip_path=True,
+                      sites_by_path=by_path.tolist(),
+                      max_abs_err={x: float(f"{v:.3e}")
+                                   for x, v in e.items()},
+                      err_over_tol=max(r.values())))
     torch.cuda.empty_cache()
+    plan = gc.bwd_plan(data.n_indv, data.n_loci, N_POPS, 2)
     emit("gen_curve", card=smi, B=N_CHAINS, N=data.n_indv, L=data.n_loci,
          K=N_POPS, G=GEN_CAP, max_abs_err=errs, err_over_tol=ratios,
          sites_by_path=dict(zip(("hom_fast", "hom_slow", "het_fast",
@@ -3870,11 +4010,17 @@ def check_gen_curve(panel, smi: str) -> dict:
                                                 GEN_CAP).tolist())),
          tolerance_ulps={x: gen_ulps(x, data, N_POPS, GEN_CAP)
                          for x in ("per_gen", "dq", "dp")},
-         bitwise_reruns=True, timing=timing,
-         dp_strips=dict(zip(("rows", "strips"), gc.col_strips(data.n_indv))),
+         bitwise_reruns=True, timing=timing, kernel_info=info,
+         bwd_plan=plan,
+         bwd_scratch_bytes=4 * (N_CHAINS * data.n_indv * (gc.COEF + plan[
+             "chunks"] * N_POPS) + plan["tiles"] * p.numel()),
          smc_shape=dict(B=SMC_PARTICLES, ms=smc_ms, bound_ms=smc_bound[0],
-                        bound_by=smc_bound[1], max_abs_err=smc_err,
-                        err_over_tol=smc_ratio),
+                        bound_by=smc_bound[1],
+                        first_body_bound_ms=smc_first[0],
+                        parent_ms=None if parent is None else parent[1],
+                        max_abs_err=smc_err, err_over_tol=smc_ratio),
+         parent_ms=None if parent is None else dict(
+             fwd=parent[0], fwd_b128=parent[1], bwd=parent[2]),
          edges=edges)
     entries = {}
     for name, key in (("gen_curve_fwd", "fwd"), ("gen_curve_bwd", "bwd")):
@@ -3888,7 +4034,9 @@ def check_gen_curve(panel, smi: str) -> dict:
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"],
             # no one PyTorch call computes the G-marginal curve
-            library_ms=None)
+            library_ms=None,
+            parent_ms=None if parent is None else parent[
+                0 if key == "fwd" else 2])
     return entries
 
 
@@ -3928,6 +4076,7 @@ def drive_sampler(method, panel, spec, smi: str) -> dict:
     for _ in range(2):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        start_bytes = torch.cuda.memory_allocated()
         _build.reset_launches()
         srt.counts.clear()
         t0 = time.time()
@@ -3937,7 +4086,8 @@ def drive_sampler(method, panel, spec, smi: str) -> dict:
         runs.append(dict(res=res, wall=time.time() - t0,
                          launches=dict(_build.launches),
                          counts=dict(srt.counts),
-                         peak=torch.cuda.max_memory_allocated()))
+                         peak=torch.cuda.max_memory_allocated(),
+                         start=start_bytes))
     a, b = runs[0]["res"], runs[1]["res"]
     same = (np.array_equal(a.s_mean, b.s_mean)
             and np.array_equal(a.q_mean, b.q_mean)
@@ -3976,6 +4126,9 @@ def drive_sampler(method, panel, spec, smi: str) -> dict:
                 value_evals=r0["counts"].get("evals", 0),
                 evals_per_second=work / r0["wall"],
                 launches=r0["launches"], peak_device_bytes=r0["peak"],
+                # what earlier phases still hold: the peak less this is the
+                # run's own
+                start_device_bytes=r0["start"],
                 s_mean=a.s_mean.tolist(), s_mean_sorted=np.sort(
                     a.s_mean).tolist(), truth=[0.1, 0.4, 0.8],
                 extra=a.extra, rerun_bitwise=same, finite=finite,
@@ -4620,8 +4773,8 @@ def main(argv=None) -> int:
                             "kselect,cli,dpm,samplers,parallel")
     ap.add_argument("--parent-csrc", default=None,
                     help="another tree's instruct_tpu_torch/csrc: its site "
-                         "pass, K5 and K8 are built and timed beside this "
-                         "one's")
+                         "pass, K3 to K8 and G curve are built and timed "
+                         "beside this one's")
     ap.add_argument("--parallel-worker", nargs=4, default=None,
                     metavar=("DIR", "RANK", "WORLD", "PORT"),
                     help=argparse.SUPPRESS)
@@ -4720,7 +4873,10 @@ def main(argv=None) -> int:
             if e["launches"] < 1:
                 raise AssertionError(f"{name} was never launched on a "
                                      "driven path")
-            summary.append({k: e[k] for k in keys})
+            row = {k: e[k] for k in keys}
+            if e.get("parent_ms") is not None:     # --parent-csrc
+                row["parent_ms"] = e["parent_ms"]
+            summary.append(row)
         print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)
     if not full:

@@ -108,11 +108,14 @@ _SIGNATURES = {
     "crp_sweep_launch": [_P] * 12 + [_I] * 4 + [_U, _U, _P, _U, _P],
     # q, p, geno, hom, valid, per_gen, B, N, L, K, A, G, stream
     "gen_curve_fwd_launch": [_P] * 6 + [_I] * 6 + [_P],
-    # q, p, geno, hom, valid, dper_gen, dm0, dm1, dq, strip partials, dp,
-    # B, N, L, K, A, G, stream
+    # q, p, geno, hom, valid, dper_gen, row coefficients, dq partials, dP
+    # partials, dq, dp, B, N, L, K, A, G, stream
     "gen_curve_bwd_launch": [_P] * 11 + [_I] * 6 + [_P],
-    # N -> rows of a strip of the dP pass (not a launch)
-    "gen_curve_strip_rows": [_I],
+    # (N, L, K, A, out[6]) -> the backward plan (not a launch)
+    "gen_curve_bwd_plan": [_I] * 4 + [_P],
+    # (which, K, A, out[5]) -> registers, local bytes, static and dynamic
+    # shared bytes, blocks an SM of a kernel (not a launch)
+    "gen_curve_kernel_info": [_I] * 3 + [_P],
     # L -> locus tiles per row of the site pass; N -> its row strips (not
     # launches)
     "site_pass_tiles": [_I],

@@ -17,16 +17,22 @@ individual n and selfing generation g = 1..G:
 
 :func:`gen_curve` is a ``torch.autograd.Function``: on CUDA tensors its
 forward launches ``csrc/gen_curve.cu:gen_curve_fwd_kernel`` and its backward
-the passes of ``gen_curve_bwd_launch`` (``dm_c`` and ``dq`` by rows,
-then ``dP`` by columns over strips of individuals, the strips' sums in
-order); on CPU tensors they run the plain versions
+``gen_curve_bwd_launch`` (each row's coefficients, then ``dm_c``, ``dq``'s
+and ``dP``'s partials by tiles of 16 individuals x 256 sites held in
+shared memory, then the partials summed in order; the scratch comes from
+:func:`bwd_plan`); on CPU tensors they run the plain versions
 :func:`gen_curve_reference` and :func:`gen_curve_backward_reference`, which
 take the valid sites only and a chunk of g at a time (one g at full
 width), JAX's form at homozygous sites and ``log(2 m0 m1) + (1 - g) log 2``
-at heterozygous ones (one logarithm a site instead of G).  The kernel also
-takes the homozygous sites in an equal form with fewer logarithms,
-``log m0 + log(1 - (1 - m0) w_g)`` with a series from g = 9 on (see
-``csrc/gen_curve.cu``); both are JAX's curve within float32 rounding.
+at heterozygous ones (one logarithm a site instead of G).  The kernel
+takes the homozygous sites with ``m0 >= 1e-14`` in an equal form whose
+work a site does not grow with G: ``log m0 + log(1 - (1 - m0) w_g)``, the
+generation indices 1..7 exact (a logarithm of a product of 8 sites'
+factors), from index 8 on the series of ``log(1 - x)`` to ``x^4`` summed
+over the sites through the power sums of ``1 - m0``; backward, the
+series' sum over g is a cubic in ``1 - m0`` whose coefficients are
+computed once a row (see ``csrc/gen_curve.cu``).  Both are JAX's curve
+within float32 rounding.
 """
 
 from __future__ import annotations
@@ -37,10 +43,15 @@ from instruct_tpu_torch.data.dataset import Dataset
 from instruct_tpu_torch.kernels import _build
 from instruct_tpu_torch.model.likelihood import per_pop_copy_probs
 
-MAX_GEN = 64     # G partial sums in registers (csrc/gen_curve.cu:kMaxG)
-MAX_POPS = 32    # dq partials in registers (kMaxK)
-# the dP pass's strips of individuals (kStripMin, kMaxStrips)
-STRIP_MIN, MAX_STRIPS = 64, 16
+MAX_GEN = 64     # generations (csrc/gen_curve.cu:kMaxG)
+MAX_POPS = 32    # pops (kMaxK)
+MAX_ALLELES = 127   # alleles a locus (kMaxA)
+MAX_ROWS = 65535    # batch rows, a grid dimension of both passes
+TILE = 256       # sites of a chunk (kTile)
+BWD_INDV = 16    # individuals of a backward tile (kBwdIndv)
+SEGMENT = 4      # chunks a backward block walks (kSegment)
+STAGE_CELLS = 32  # P staged in shared memory when K * A <= this
+COEF = 16        # floats of a row's backward coefficients (kCoef)
 _EPS = 1e-30
 _LN2 = 0.6931471805599453
 # elements of a [B, sites, g] temporary of the plain versions
@@ -159,13 +170,21 @@ def gen_curve_backward_reference(q, p, data: Dataset, gen_cap: int,
     return dq, dp
 
 
-def col_strips(n: int) -> tuple:
-    """(rows a strip, strips) of the dP pass over ``n`` individuals
-    (``csrc/gen_curve.cu:gen_curve_strip_rows``): at least ``STRIP_MIN``
-    rows a strip, at most ``MAX_STRIPS`` strips."""
-    strips = max(1, min(n // STRIP_MIN, MAX_STRIPS))
-    rows = -(-n // strips)
-    return rows, -(-n // rows)
+def bwd_plan(n: int, l: int, k: int, a: int) -> dict:
+    """The backward pass's launch plan (``csrc/gen_curve.cu:
+    gen_curve_bwd_plan``, which the card checks): tiles of ``BWD_INDV``
+    individuals x ``SEGMENT`` chunks of ``TILE`` sites a block, the chunks
+    walked in order with the next one's P and codes in flight; P staged
+    in shared memory when ``k * a <= STAGE_CELLS``; the block's dynamic
+    shared memory (bytes).  The scratch: the rows' coefficients [B, N,
+    COEF], dq's partials [chunks, B, N, K] and dP's [tiles, B, K, L,
+    A]."""
+    tiles, chunks = -(-n // BWD_INDV), -(-l // TILE)
+    stage = k * a <= STAGE_CELLS
+    floats = ((k * a * TILE if stage else 0) + 2 * BWD_INDV * TILE
+              + BWD_INDV * COEF + BWD_INDV * k)
+    return dict(indv=BWD_INDV, tiles=tiles, chunks=chunks, segment=SEGMENT,
+                stage=stage, smem=4 * floats + 2 * BWD_INDV * 4 * TILE)
 
 
 def _check(q, p, data: Dataset, gen_cap: int):
@@ -179,6 +198,12 @@ def _check(q, p, data: Dataset, gen_cap: int):
     if k > MAX_POPS:
         raise ValueError(f"K = {k}: the kernel takes at most {MAX_POPS} "
                          "pops")
+    if a > MAX_ALLELES:
+        raise ValueError(f"{a} alleles: the kernel takes at most "
+                         f"{MAX_ALLELES}")
+    if b > MAX_ROWS:
+        raise ValueError(f"{b} batch rows: the kernel takes at most "
+                         f"{MAX_ROWS}")
     chk = _build.check
     chk(q, "q", torch.float32, (b, n, k))
     chk(p, "p", torch.float32, (b, k, l, a))
@@ -207,16 +232,19 @@ def _backward(q, p, data: Dataset, gen_cap: int, dper_gen):
     dper_gen = dper_gen.contiguous()
     _build.check(dper_gen, "dper_gen", torch.float32, (b, n, gen_cap))
     dev = q.device
-    dm = torch.empty((2, b, n, l), dtype=torch.float32, device=dev)
+    plan = bwd_plan(n, l, k, a)
+    coef = torch.empty((b, n, COEF), dtype=torch.float32, device=dev)
+    dq_part = torch.empty((plan["chunks"], b, n, k), dtype=torch.float32,
+                          device=dev)
+    dp_part = torch.empty((plan["tiles"],) + tuple(p.shape),
+                          dtype=torch.float32, device=dev)
     dq = torch.empty_like(q)
     dp = torch.empty_like(p)
-    part = torch.empty((col_strips(n)[1],) + tuple(p.shape),
-                       dtype=torch.float32, device=dev)
     ptr = _build.ptr
     _build.launch("gen_curve_bwd", "gen_curve_bwd_launch", ptr(q), ptr(p),
                   ptr(data.geno), ptr(data.hom), ptr(data.site_valid),
-                  ptr(dper_gen), ptr(dm[0]), ptr(dm[1]), ptr(dq), ptr(part),
-                  ptr(dp), b, n, l, k, a, gen_cap)
+                  ptr(dper_gen), ptr(coef), ptr(dq_part), ptr(dp_part),
+                  ptr(dq), ptr(dp), b, n, l, k, a, gen_cap)
     return dq, dp
 
 
@@ -240,6 +268,7 @@ def gen_curve(q: torch.Tensor, p: torch.Tensor, data: Dataset,
     """per_gen f32[B, N, G] from ``q`` f32[B, N, K] (rows on the simplex)
     and ``p`` f32[B, K, L, A] (the masked-softmax allele frequencies), on
     the panel ``data`` (diploid; copy codes, ``hom``, ``site_valid``),
-    differentiable in ``q`` and ``p``.  No ``[B, N, L, G]`` tensor is made;
-    the backward pass writes two ``[B, N, L]`` planes."""
+    differentiable in ``q`` and ``p``.  No ``[B, N, L, G]`` or
+    ``[B, N, L]`` tensor is made; the backward pass's scratch is its
+    partials (:func:`bwd_plan`)."""
     return _GenCurve.apply(q.contiguous(), p.contiguous(), data, gen_cap)

@@ -6,11 +6,17 @@ against the JAX package's ``MarginalModel.log_lik`` expression
 ``jax.value_and_grad`` on the same parameters (carried across with
 ``convert.marginal_params_from_numpy``), in modes 2 and 3, several seeds,
 panels with missing sites; and against torch autograd of the dense
-``[B, N, L, G]`` formula in float64, clip included.
+``[B, N, L, G]`` formula in float64, clip included.  A float64 emulation
+of the CUDA kernel's own algebra (``csrc/gen_curve.cu``: the products of
+the exact generation indices over a lane's chunk of sites, the power-sum
+tail forward, the per-row cubic backward, the clip path g by g), held
+against JAX's dense curve and ``jax.vjp`` at G = 1, 8, 9, 50 and 64, and the
+backward pass's tile plan.
 
 Tolerances: float32 against JAX, rtol 2e-5 of each output's largest
-magnitude (sums of ~10^2 logs in another order); float64 against the
-dense autograd, 1e-10."""
+magnitude (sums of ~10^2 logs in another order; the kernel's series are
+truncated below 2^-32 of a term); float64 against the dense autograd,
+1e-10."""
 
 import jax
 import jax.numpy as jnp
@@ -193,17 +199,176 @@ def test_g_chunks_cover_the_generations_once():
     assert [hi - lo for lo, hi in mid] == [7, 7, 6]
 
 
-def test_dp_pass_strips_cover_the_individuals_once():
-    """The dP pass's plan (``col_strips``, mirrored by the kernel's
-    ``gen_curve_strip_rows``, which the card checks): strips of at least
-    ``STRIP_MIN`` rows (one strip below that), at most ``MAX_STRIPS``, no
-    empty strip."""
-    for n in list(range(1, 300)) + [1000, 1023, 1024, 1025, 5000, 10 ** 5]:
-        rows, strips = gc.col_strips(n)
-        assert 1 <= strips <= gc.MAX_STRIPS
-        assert rows * strips >= n > rows * (strips - 1)
-        assert rows >= min(n, gc.STRIP_MIN)
-    assert gc.col_strips(1000) == (67, 15) and gc.col_strips(40) == (40, 1)
+def test_bwd_tile_plan_covers_every_individual_and_site_once():
+    """The backward pass's plan (``bwd_plan``, mirrored by the kernel's
+    ``gen_curve_bwd_plan``, which the card checks): the blocks' tiles of
+    ``BWD_INDV`` individuals and segments of ``SEGMENT`` chunks of ``TILE``
+    sites, each ragged edge cut as the kernel cuts it (``min(BWD_INDV, N -
+    n0)``, ``min(chunks, c0 + SEGMENT)``, ``min(TILE, L - l0)``), cover
+    every individual and every site once;
+    P is staged when K * A <= ``STAGE_CELLS``; every (K, A) the kernel
+    takes fits a block's shared memory (232 448 bytes)."""
+    for n in list(range(1, 70)) + [255, 256, 257, 1000, 1023, 5000]:
+        for l in (1, 31, 255, 256, 257, 1001, 10_000):
+            plan = gc.bwd_plan(n, l, 3, 2)
+            rows = [t * plan["indv"] + i for t in range(plan["tiles"])
+                    for i in range(min(plan["indv"], n - t * plan["indv"]))]
+            seg = plan["segment"]
+            sites = [c * gc.TILE + j
+                     for s in range(-(-plan["chunks"] // seg))
+                     for c in range(s * seg, min(plan["chunks"],
+                                                 (s + 1) * seg))
+                     for j in range(min(gc.TILE, l - c * gc.TILE))]
+            assert rows == list(range(n)) and sites == list(range(l))
+    for k in range(1, gc.MAX_POPS + 1):
+        for a in range(1, gc.MAX_ALLELES + 1):
+            plan = gc.bwd_plan(10, 10, k, a)
+            assert plan["stage"] == (k * a <= gc.STAGE_CELLS)
+            assert plan["smem"] <= 232_448
+    assert gc.bwd_plan(1000, 10_000, 3, 2) == dict(
+        indv=16, tiles=63, chunks=40, segment=4, stage=True, smem=72_896)
+
+
+def kernel_emulation(q, p, geno, hom, valid, gen_cap, dper):
+    """float64 numpy emulation of ``csrc/gen_curve.cu``'s algebra:
+    per_gen [B, N, G] and (dq [B, N, K], dp [B, K, L, A]) given ``dper``.
+    Forward: fast homozygous sites (m0 >= 1e-14) as log m0 + log(1 - u
+    w_g), u = 1 - m0, the indices 1..7 as logs of the products over a
+    lane's sites of a chunk (sites c * 256 + j * 32 + lane, j = 0..7), from
+    index 8 on the tail -sum_j w^j S_j / j of the power sums S_j = sum u^j;
+    fast heterozygous sites (2 m0 m1 w_G > 1e-30) as log(2 m0 m1) - g log 2;
+    the rest JAX's form and clip g by g.  Backward: fast homozygous dm0 =
+    (dsum + d_0) / m0 + sum_{g=1..7} d_g w_g / (1 - u w_g) + the cubic
+    c_0 + u (c_1 + u (c_2 + u c_3)), c_j = sum_{g >= 8} d_g w_g^(j+1);
+    heterozygous dm_c = (sum of d_g over the unclipped g) / m_c; the rest
+    JAX's form g by g, zero where the clip binds."""
+    q, p = np.asarray(q, np.float64), np.asarray(p, np.float64)
+    d = np.asarray(dper, np.float64)
+    b, n, k = q.shape
+    l, a_max = hom.shape[1], p.shape[3]
+    g_all = np.arange(gen_cap)
+    w = 2.0 ** -g_all
+    x0 = np.clip(geno[:, :l], 0, a_max - 1)
+    x1 = np.clip(geno[:, l:], 0, a_max - 1)
+    sites = np.arange(l)[None, :]
+    pk0, pk1 = p[:, :, sites, x0], p[:, :, sites, x1]      # [B, K, N, L]
+    m0 = np.einsum("bnk,bknl->bnl", q, pk0)
+    m1 = np.einsum("bnk,bknl->bnl", q, pk1)
+    t = 2.0 * m0 * m1
+    fast_h = valid & hom & (m0 >= 1e-14)
+    slow_h = valid & hom & ~fast_h
+    fast_e = valid & ~hom & (t * w[-1] > 1e-30)
+    slow_e = valid & ~hom & ~fast_e
+    u = np.where(fast_h, 1.0 - m0, 0.0)
+    # forward
+    lm = np.where(fast_h, np.log(np.where(fast_h, m0, 1.0)), 0.0).sum(-1)
+    lt = np.where(fast_e, np.log(np.where(fast_e, t, 1.0)), 0.0).sum(-1)
+    cnt = fast_e.sum(-1)
+    chunks = -(-l // 256)
+    per_gen = np.empty((b, n, gen_cap))
+    for g in range(gen_cap):
+        if g == 0:
+            f = lm
+        elif g < 8:
+            fac = np.ones((b, n, chunks * 256))
+            fac[..., :l] = np.where(fast_h, 1.0 - u * w[g], 1.0)
+            prods = fac.reshape(b, n, chunks, 8, 32).prod(3)
+            f = np.log(prods).sum((-1, -2))
+        else:
+            f = -sum(w[g] ** j * (u ** j).sum(-1) / j for j in range(1, 5))
+        with np.errstate(divide="ignore"):
+            slow = np.where(
+                slow_h, np.log(np.maximum(m0 * m0 + m0 * (1 - m0)
+                                          * (1 - w[g]), 1e-30)), 0.0)
+            slow += np.where(slow_e, np.where(
+                t * w[g] >= 1e-30, np.log(np.where(slow_e, t, 1.0))
+                - g * np.log(2.0), np.log(1e-30)), 0.0)
+        per_gen[..., g] = f + slow.sum(-1) + lm + lt - g * np.log(2.0) * cnt
+    # backward: the rows' coefficients, then dm_c
+    dsum = d.sum(-1)
+    ex = d[..., 1:8] * w[1:8]
+    cj = [(d[..., 8:] * w[8:] ** (j + 1)).sum(-1) for j in range(4)]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        dm_fast = ((dsum + d[..., 0])[..., None] / m0
+                   + (ex[:, :, None, :]
+                      / (1.0 - u[..., None] * w[None, None, None, 1:8])
+                      ).sum(-1)
+                   + (cj[0][..., None] + u * (cj[1][..., None] + u * (
+                       cj[2][..., None] + u * cj[3][..., None]))))
+        gf = (m0[..., None] ** 2 + m0[..., None] * (1 - m0[..., None])
+              * (1 - w))
+        num = 2.0 * m0[..., None] * w + (1 - w)
+        dm_slow = np.where(gf > 1e-30, d[:, :, None, :] * num / gf,
+                           0.0).sum(-1)
+        s_het = np.where(fast_e, dsum[..., None], np.where(
+            t[..., None] * w > 1e-30, d[:, :, None, :], 0.0).sum(-1))
+        dm0 = np.where(fast_h, dm_fast, np.where(slow_h, dm_slow, 0.0))
+        dm0 = np.where(valid & ~hom, np.where(s_het != 0, s_het / m0, 0.0),
+                       dm0)
+        dm1 = np.where(valid & ~hom, np.where(s_het != 0, s_het / m1, 0.0),
+                       0.0)
+    dq = (np.einsum("bnl,bknl->bnk", dm0, pk0)
+          + np.einsum("bnl,bknl->bnk", dm1, pk1))
+    dp = np.zeros_like(p)
+    for al in range(a_max):
+        c = (np.where(geno[:, :l] == al, dm0, 0.0)
+             + np.where(geno[:, l:] == al, dm1, 0.0))
+        dp[..., al] = np.einsum("bnk,bnl->bkl", q, c)
+    return per_gen, dq, dp
+
+
+def jax_curve(jdata, gen_cap):
+    """JAX's dense [N, L, G] curve of one row (potential.py:119-128) as a
+    function of (P, Q)."""
+    def curve(pq):
+        pp, qq = pq
+        m0, m1 = jlk.split_copies(jlk.mixture_copy_probs(pp, jdata, qq), 2)
+        w = jnp.exp2(1.0 - jnp.arange(1, gen_cap + 1, dtype=jnp.float32))
+        gf = jnp.where(jdata.hom[..., None],
+                       m0[..., None] * m0[..., None]
+                       + m0[..., None] * (1 - m0[..., None]) * (1 - w),
+                       2.0 * m0[..., None] * m1[..., None] * w)
+        site = jnp.log(jnp.maximum(gf, 1e-30))
+        return jnp.where(jdata.site_valid[..., None], site, 0.0).sum(1)
+    return curve
+
+
+@pytest.mark.parametrize("gen_cap", [1, 8, 9, 50, 64])
+def test_kernel_algebra_matches_jax(gen_cap):
+    """The kernel's fast-path algebra (``kernel_emulation``) against JAX's
+    dense curve and ``jax.vjp`` on a panel of 20 x 300 (two chunks, the
+    second ragged) from a numpy seed, with two loci whose allele 1 is
+    nearly absent so that the clip paths run: P = e^-42 (m0 < 1e-14 at
+    its homozygous sites, gf clipped at g = 1 only; 2 m0 m1 w_G below 1e-30
+    from G = 50 on) and P = e^-80 (every g clipped: a zero gradient).
+    rtol 2e-5 of each output's largest magnitude (JAX's float32 sums)."""
+    jdata, data = panels(10 + gen_cap, n=20, l=300, k=3, a=2)
+    rng = np.random.default_rng(gen_cap)
+    b, k = 2, 3
+    geno = data.geno.numpy().astype(np.int64)
+    hom, valid = data.hom.numpy(), data.site_valid.numpy()
+    # loci with a valid homozygous site of allele 1 and a heterozygous one
+    both = ((valid & hom & (geno[:, :300] == 1)).any(0)
+            & (valid & ~hom).any(0)).nonzero()[0]
+    q = softmax(rng.normal(size=(b, 20, k)) * 1.5).astype(np.float32)
+    logits = rng.normal(size=(b, k, 300, 2)) * 1.5
+    logits[:, :, both[0], 1] -= 42.0
+    logits[:, :, both[1], 1] -= 80.0
+    p = softmax(logits).astype(np.float32)
+    dper = rng.normal(size=(b, 20, gen_cap)).astype(np.float32)
+    got, dq, dp = kernel_emulation(q, p, geno, hom, valid, gen_cap, dper)
+    curve = jax_curve(jdata, gen_cap)
+    for r in range(b):
+        want, vjp = jax.vjp(curve, (jnp.asarray(p[r]), jnp.asarray(q[r])))
+        assert_close(got[r], want)
+        (jdp, jdq), = vjp(jnp.asarray(dper[r]))
+        assert_close(dq[r], jdq)
+        assert_close(dp[r], jdp)
+
+
+def softmax(x):
+    e = np.exp(x - x.max(-1, keepdims=True))
+    return e / e.sum(-1, keepdims=True)
 
 
 def test_kernel_limits_are_checked_before_any_launch():
@@ -216,6 +381,9 @@ def test_kernel_limits_are_checked_before_any_launch():
     wide = torch.full((1, 4, gc.MAX_POPS + 1), 0.1)
     with pytest.raises(ValueError, match="pops"):
         gc._check(wide, p, data, 50)
+    rows = torch.full((gc.MAX_ROWS + 1, 1, 1), 1.0).expand(-1, 4, 2)
+    with pytest.raises(ValueError, match="rows"):
+        gc._check(rows, p, data, 50)
     # a CPU tensor is refused by the launch path (no quiet plain version)
     with pytest.raises(ValueError, match="CUDA"):
         gc._check(q, p, data, 50)
