@@ -135,6 +135,7 @@ from instruct_tpu_torch.samplers.potential import MarginalModel
 from instruct_tpu_torch.samplers.smc import SmcConfig, run_smc
 from instruct_tpu_torch.samplers.svi import SviConfig, run_svi
 from instruct_tpu_torch.tetra import engine as te
+from instruct_tpu_torch.tools import crp_variants as crv
 from instruct_tpu_torch.tools import dirichlet_counts_variants as dcv
 from instruct_tpu_torch.tools import gen_curve_variants as gcv
 from instruct_tpu_torch.tools import geno_zq_variants as gzv
@@ -830,7 +831,8 @@ PARENT: dict = {}
 def start_parent_build(csrc) -> None:
     """Build the site-pass sources of ``csrc`` (another tree's
     ``instruct_tpu_torch/csrc``), its K5 and K8 sources, its K3 and K4
-    sources and its G-curve source in four threads, into :data:`PARENT`."""
+    sources, its G-curve source and its seating source in five threads,
+    into :data:`PARENT`."""
     work_dir = _build.BUILD / "parent"
     shutil.rmtree(work_dir, ignore_errors=True)
 
@@ -846,7 +848,9 @@ def start_parent_build(csrc) -> None:
             "lib_k3k4": lambda: dcv.build_library(
                 work_dir, "parent_k3k4", pathlib.Path(csrc)),
             "lib_gen_curve": lambda: spv.finish_build(gcv.build(
-                work_dir, "parent_gen_curve", csrc))}
+                work_dir, "parent_gen_curve", csrc)),
+            "lib_crp": lambda: spv.finish_build(crv.build(
+                work_dir, "parent_crp", csrc))}
     PARENT["threads"] = [threading.Thread(target=work, args=(key, fn))
                          for key, fn in jobs.items()]
     for t in PARENT["threads"]:
@@ -3294,10 +3298,14 @@ def phase_cli(panel, smi: str) -> dict:
 # phase dpm: the DPM prior (-f 1) and marginalize_g
 # ---------------------------------------------------------------------------
 
-# the seating kernel is held against its plain version at these N (5000:
-# above the JAX package's seat-noise plane gate and above the kernel's
-# shared-memory table)
+# the seating kernel is held against its plain version at these N in its
+# three variants (5000: above the JAX package's seat-noise plane gate and
+# above the kernel's shared-memory table), crowded and not; at CRP_LONG in
+# the selfing sweep too (the users' upper scale: the global scratch table,
+# a long chain, and crowded the noise spill past the ring)
 CRP_SIZES = (1, 2, 1000, 5000)
+CRP_LONG = 10_000
+CRP_CROWDED = 1e4              # alpha: hundreds to thousands of tables
 DPM_TRUNC = 32                 # the --dp-trunc path's components
 DPM_PRIOR = Priors(family=PriorFamily.DPM)
 RECOVERY_RATES = (0.1, 0.8)
@@ -3352,15 +3360,16 @@ def crp_agrees(tag, args, kw):
     """Raise unless the kernel's (values, counts, assign) are bitwise the
     plain version's; where they are not, name the first individual whose
     seat differs and the gap between its two best noisy scores.  Returns
-    the plain version's occupied tables per individual (the work the data
-    needs)."""
+    the kernel's output and the plain version's occupied tables per
+    individual (the work the data needs)."""
     got = crp.crp_sweep(*args, **kw)
-    margins, occupied = [], []
-    want = crp.crp_sweep_reference(*args, **kw, margins=margins,
-                                   occupied=occupied)
+    occupied = []
+    want = crp.crp_sweep_reference(*args, **kw, occupied=occupied)
     torch.cuda.synchronize()
     if all(torch.equal(a, b) for a, b in zip(got, want)):
-        return torch.stack(occupied)
+        return got, torch.stack(occupied)
+    margins = []
+    crp.crp_sweep_reference(*args, **kw, margins=margins)
     off = (got[2] != want[2]).any(dim=0).nonzero()
     j = int(off[0]) if off.numel() else -1
     gap = ([float(x) for x in margins[j]] if j >= 0 else None)
@@ -3369,6 +3378,43 @@ def crp_agrees(tag, args, kw):
                          f"two best scores per chain {gap}; values equal "
                          f"{torch.equal(got[0], want[0])}, counts equal "
                          f"{torch.equal(got[1], want[1])}")
+
+
+def parent_crp(tag, args, kw, want):
+    """The parent tree's seating body (``--parent-csrc``) on the wrapper's
+    arguments, through the first body's launch signature
+    (``tools/crp_variants.py:first_call``): raises unless its output is
+    bitwise ``want``; returns a zero-argument call of it, or None without
+    a parent."""
+    if "threads" not in PARENT:
+        return None
+    run = crv.first_call(_parent_lib("lib_crp"), args, kw)
+    got = run()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{tag}: not bitwise equal to the parent's "
+                             "seating body")
+    return run
+
+
+def crp_plan_agrees() -> None:
+    """``crp.crp_plan`` against the kernel's own plan (``crp_sweep_plan``)
+    at every N the checks run and at 20 000, each variant."""
+    lib = _build.library()
+    buf = (ctypes.c_int * 7)()
+    for n in CRP_SIZES + (crp.SMEM_SLOTS, crp.SMEM_SLOTS + 1, CRP_LONG,
+                          20_000):
+        for variant in crp.VARIANTS:
+            m = dpm.GRID_M if variant == crp.INBREEDING else 0
+            lib.crp_sweep_plan(n, m, variant, buf)
+            plan = crp.crp_plan(n, m, variant)
+            want = [int(plan[x]) for x in ("warps", "depth", "reg_slots",
+                                           "width", "stride", "smem_table",
+                                           "smem")]
+            if list(buf) != want:
+                raise AssertionError(f"crp: the plan at N = {n}, variant "
+                                     f"{variant}: kernel {list(buf)}, plan "
+                                     f"{want}")
 
 
 def crp_work(variant, n, c, occupied, m=dpm.GRID_M):
@@ -3389,39 +3435,68 @@ def crp_work(variant, n, c, occupied, m=dpm.GRID_M):
 
 def check_crp(smi: str) -> dict:
     """The seating kernel against its plain version on the card, bitwise,
-    in its three variants at C = 4 and every N of ``CRP_SIZES``; its time
-    at N = 1000 beside the plain version's, its bound and its latency floor
-    (N dependent block reductions of the S tail's kind, timed here: the
-    kernel's one combined argmax / first-empty reduction an individual).
-    Returns the kernels-line entry."""
+    in its three variants at C = 4 and every N of ``CRP_SIZES``, and in the
+    selfing sweep at ``CRP_LONG``, each at alpha 10 and ``CRP_CROWDED``;
+    with ``--parent-csrc`` bitwise the parent's body too.  Its time at N =
+    1000 (every variant) and, selfing, at 5000 and ``CRP_LONG``, crowded
+    and not, beside the parent's, and at N = 1000 the plain version's and
+    its bound; the two latency floors (profiler): N = 1000 dependent block
+    reductions of the S tail's kind (the parent body's one barrier a step)
+    and N = 1000 dependent warp steps (``crp.warp_floor``: the seater's
+    shared-memory read, redux max / min pair and write).  Returns the
+    kernels-line entry."""
+    crp_plan_agrees()
     results = {}
-    for variant, name in crp.VARIANTS.items():
-        for n in CRP_SIZES:
-            args, kw = crp_case(variant, n)
-            occ = crp_agrees(f"crp {name} N={n}", args, kw)
-            if n != 1000:
+    cases = [(v, n) for v in crp.VARIANTS for n in CRP_SIZES]
+    for variant, n in cases + [(crp.SELFING, CRP_LONG)]:
+        name = crp.VARIANTS[variant]
+        for alpha in (10.0, CRP_CROWDED):
+            crowded = alpha == CRP_CROWDED
+            tag = f"crp {name} N={n}" + (", alpha 1e4" if crowded else "")
+            args, kw = crp_case(variant, n, alpha=alpha)
+            got, occ = crp_agrees(tag, args, kw)
+            parent = parent_crp(tag, args, kw, got)
+            timed = n == 1000 or variant == crp.SELFING and n >= 5000
+            if not timed:
                 continue
-            # alpha = 10^4: hundreds of tables, so threads own several
-            # occupied slots and the scan bound grows past the block
-            many = crp_case(variant, n, alpha=1e4)
-            crowded = crp_agrees(f"crp {name} N={n}, alpha 1e4", *many)
-            results[f"{name}, alpha 1e4"] = dict(
-                occupied_max=int(crowded.max()))
-            ms = time_ms(lambda: crp.crp_sweep(*args, **kw))
-            plain = time_ms(lambda: crp.crp_sweep_reference(*args, **kw),
-                            reps=3, warm=1, inner=1)
-            b_ms, b_by = bound(*crp_work(variant, n, N_CHAINS, occ))
-            results[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
-                                 bound_by=b_by,
-                                 occupied_mean=float(occ.float().mean()))
+            quick = dict(reps=5, warm=1, inner=2) if n > 1000 else {}
+            row = dict(ms=time_ms(lambda: crp.crp_sweep(*args, **kw),
+                                  **quick),
+                       parent_ms=(None if parent is None
+                                  else time_ms(parent, **quick)),
+                       occupied_mean=float(occ.float().mean()),
+                       occupied_max=int(occ.max()))
+            if n == 1000:
+                row["bound_ms"], row["bound_by"] = bound(
+                    *crp_work(variant, n, N_CHAINS, occ))
+                if not crowded:
+                    row["plain_ms"] = time_ms(
+                        lambda: crp.crp_sweep_reference(*args, **kw),
+                        reps=3, warm=1, inner=1)
+            results[f"{name}, N={n}" + (", alpha 1e4" if crowded
+                                         else "")] = row
+            del got, occ
+        torch.cuda.empty_cache()
     x = torch.rand((N_CHAINS, 1000), device="cuda")
-    floor = profiling.device_ms(lambda: sp.reduction_floor(x, 1000),
-                                "s_pop_floor", n=10)
-    emit("crp", card=smi, sizes=list(CRP_SIZES), chains=N_CHAINS,
-         bitwise=True, n_1000=results, latency_floor_ms=floor,
-         floor_reductions=1000,
+    block_floor = profiling.device_ms(lambda: sp.reduction_floor(x, 1000),
+                                      "s_pop_floor", n=10)
+    xw = torch.randint(-(1 << 31), 1 << 31, (N_CHAINS, 1024),
+                       dtype=torch.int32, device="cuda")
+    if not torch.equal(crp.warp_floor(xw, 1000),
+                       crp.warp_floor_reference(xw, 1000)):
+        raise AssertionError("crp: the warp floor differs from its plain "
+                             "version")
+    warp_floor = profiling.device_ms(lambda: crp.warp_floor(xw, 1000),
+                                     "crp_warp_floor", n=10)
+    emit("crp", card=smi, sizes=list(CRP_SIZES) + [CRP_LONG],
+         chains=N_CHAINS, bitwise=True,
+         bitwise_parent=None if "threads" not in PARENT else True,
+         timed=results, warp_floor_ms=warp_floor,
+         block_floor_ms=block_floor, floor_steps=1000,
+         plan={n: crp.crp_plan(n, dpm.GRID_M, crp.SELFING)
+               for n in (1000, 5000, CRP_LONG)},
          smem_slots=crp.SMEM_SLOTS)
-    e = results["selfing"]
+    e = results["selfing, N=1000"]
     return {"crp_sweep": dict(
         name="crp_sweep", route="cuda",
         source="instruct_tpu_torch/csrc/crp.cu",
@@ -3429,7 +3504,10 @@ def check_crp(smi: str) -> dict:
         ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
         bound_by=e["bound_by"],
         # no single PyTorch call computes a sequential seating
-        library_ms=None)}
+        library_ms=None, parent_ms=e["parent_ms"],
+        # the latency floors of N = 1000 dependent steps: this body's (a
+        # warp) and the first body's (a block)
+        latency_floor_ms=warp_floor, block_floor_ms=block_floor)}
 
 
 def check_grid_products(panel, smi: str) -> None:
@@ -3654,13 +3732,18 @@ SAMPLER_CONFIGS = {
 MODE_HMC = HmcConfig(n_warmup=4, n_samples=4, n_leapfrog=8, init_step=0.02)
 EPS32 = 2.0 ** -24
 # (N, L, K, A, missing rate, G): L off the 256-site chunk, missing sites,
-# A = 8, G = 1, K = 32 with G = 64 (the kernel's limits; P gathered, not
-# staged), one site, one individual, G = 8 (no series tail) and 9 (one
-# entry of it), N off the backward's 16-individual tile
+# A = 8, G = 1, K = 32 with G = 64 (P gathered, not staged), one site, one
+# individual, G = 8 (no series tail) and 9 (one entry of it), N off the
+# backward's 16-individual tile; past the first bodies' limits: K = 33 and
+# 64 (q staged a pop a lane in steps of 32), G = 65 (a second 64-generation
+# pass of the clip path) and 200 (four passes; every heterozygous site on
+# the clip path)
 GEN_EDGES = ((37, 1001, 3, 2, 0.2, 50), (50, 300, 5, 8, 0.1, 50),
              (20, 257, 2, 2, 0.0, 1), (16, 129, 32, 2, 0.1, 64),
              (3, 1, 2, 2, 0.0, 50), (1, 700, 3, 2, 0.1, 50),
-             (30, 513, 3, 3, 0.1, 8), (29, 600, 4, 2, 0.05, 9))
+             (30, 513, 3, 3, 0.1, 8), (29, 600, 4, 2, 0.05, 9),
+             (20, 300, 33, 2, 0.1, 65), (17, 257, 64, 2, 0.1, 50),
+             (24, 300, 3, 2, 0.1, 200), (16, 129, 64, 3, 0.05, 200))
 
 
 def gen_curve_inputs(data, b: int, k: int, seed: int):
@@ -3912,7 +3995,8 @@ def check_gen_curve(panel, smi: str) -> dict:
     buf = (ctypes.c_int * 6)()
     for n, l, k, a in ((1, 1, 1, 1), (16, 256, 3, 2), (17, 257, 3, 2),
                        (1000, 10_000, 3, 2), (1000, 10_000, 32, 2),
-                       (37, 1001, 3, 8), (5000, 2000, 32, 127)):
+                       (37, 1001, 3, 8), (5000, 2000, 32, 127),
+                       (17, 257, 64, 2), (1000, 2000, gc.MAX_POPS, 2)):
         lib.gen_curve_bwd_plan(n, l, k, a, buf)
         plan = gc.bwd_plan(n, l, k, a)
         want = [plan[x] for x in ("indv", "tiles", "chunks", "segment",
@@ -3922,7 +4006,8 @@ def check_gen_curve(panel, smi: str) -> dict:
                                  f"L = {l}, K = {k}, A = {a}: kernel "
                                  f"{list(buf)}, plan {want}")
     info = {"K=3,A=2": gen_kernel_info(lib, N_POPS, 2),
-            "K=32,A=2 (P gathered)": gen_kernel_info(lib, 32, 2)}
+            "K=32,A=2 (P gathered)": gen_kernel_info(lib, 32, 2),
+            "K=64,A=2": gen_kernel_info(lib, 64, 2)}
     q, p = gen_curve_inputs(data, N_CHAINS, N_POPS, 5)
     errs, ratios = gen_curve_agrees("full width", data, q, p, GEN_CAP, 6)
     dper = torch.randn((N_CHAINS, data.n_indv, GEN_CAP), device="cuda")
@@ -4177,6 +4262,45 @@ def sampler_modes(panel, smi: str) -> None:
          modes=out)
 
 
+WIDE_SAMPLER_POPS = 33
+
+
+def sampler_wide_k(smi: str) -> None:
+    """``--sampler hmc -v 2 -K 33`` through ``run_sampler`` on the card, a
+    few draws on the headline individuals at 2000 loci: K past the G-curve
+    kernel's former limit of 32 (its forward and backward launched, the
+    draws finite, the accept rates in (0, 1])."""
+    pnl = synthetic_panel(N_INDV, 2000, n_pops=N_POPS, n_alleles=2,
+                          selfing_rates=np.array([0.1, 0.4, 0.8]),
+                          admixture_alpha=0.1, seed=PANEL_SEED)
+    spec = ModelSpec(mode=2, n_pops=WIDE_SAMPLER_POPS)
+    cfg = HmcConfig(n_warmup=2, n_samples=2, n_leapfrog=8, init_step=0.02)
+    sched = Schedule(n_iter=200, burnin=100, thinning=10,
+                     n_chains=N_CHAINS, ckrep=5, nstep_check_empty_cluster=5)
+    _build.reset_launches()
+    srt.counts.clear()
+    t0 = time.time()
+    res = srun.run_sampler("hmc", pnl.data, spec, sched, RUN_SEED,
+                           device="cuda", config=cfg)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(_build.launches)
+    ok = (bool(np.isfinite(res.s_mean).all() and np.isfinite(res.q_mean).all())
+          and all(0.0 < x <= 1.0 for x in res.extra["accept_rate"])
+          and res.q_mean.shape[-1] == WIDE_SAMPLER_POPS
+          and launches.get("gen_curve_fwd", 0) > 0
+          and launches.get("gen_curve_bwd", 0) > 0)
+    emit("sampler_wide_k", card=smi, K=WIDE_SAMPLER_POPS, N=pnl.n_indv,
+         L=pnl.n_loci, config=dataclasses.asdict(cfg),
+         wall_seconds=round(wall, 3),
+         grad_evals=srt.counts.get("grad_evals", 0), launches=launches,
+         accept_rate=res.extra["accept_rate"], ok=ok)
+    if not ok:
+        raise AssertionError(f"sampler -K {WIDE_SAMPLER_POPS}: launches "
+                             f"{launches}, extra {res.extra}")
+    torch.cuda.empty_cache()
+
+
 def sampler_cpu_agreement(smi: str) -> None:
     """The same seed on the card and on the CPU, on a small mode-2 panel:
     the first HMC and NUTS transitions agree within 1e-3 of the values'
@@ -4258,7 +4382,8 @@ def phase_samplers(panel, smi: str):
     """The gradient samplers (``--sampler hmc|nuts|svi|smc``): the G-curve
     kernel against its plain versions; ``run_sampler`` for each method at
     full width on the headline panel, mode 2, 4 chains, twice; a short HMC
-    in modes 1, 3, 4, 5; the card against the CPU on a small panel; the
+    in modes 1, 3, 4, 5 and at K = 33; the card against the CPU on a small
+    panel; the
     command line with ``--sampler hmc``.  Returns (the launches by kernel,
     summed over the four methods' first runs, the kernels-line
     entries)."""
@@ -4274,6 +4399,7 @@ def phase_samplers(panel, smi: str):
         torch.cuda.empty_cache()
         seconds[method] = time.time() - t0
     for name, fn in (("modes", lambda: sampler_modes(panel, smi)),
+                     ("wide_k", lambda: sampler_wide_k(smi)),
                      ("cpu_agreement", lambda: sampler_cpu_agreement(smi)),
                      ("cli", lambda: sampler_cli(smi))):
         t0 = time.time()
@@ -4773,8 +4899,8 @@ def main(argv=None) -> int:
                             "kselect,cli,dpm,samplers,parallel")
     ap.add_argument("--parent-csrc", default=None,
                     help="another tree's instruct_tpu_torch/csrc: its site "
-                         "pass, K3 to K8 and G curve are built and timed "
-                         "beside this one's")
+                         "pass, K3 to K8, G curve and seating sweep are "
+                         "built and timed beside this one's")
     ap.add_argument("--parallel-worker", nargs=4, default=None,
                     metavar=("DIR", "RANK", "WORLD", "PORT"),
                     help=argparse.SUPPRESS)
@@ -4874,8 +5000,10 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{name} was never launched on a "
                                      "driven path")
             row = {k: e[k] for k in keys}
-            if e.get("parent_ms") is not None:     # --parent-csrc
-                row["parent_ms"] = e["parent_ms"]
+            # --parent-csrc; the seating kernel's latency floors
+            for extra in ("parent_ms", "latency_floor_ms", "block_floor_ms"):
+                if e.get(extra) is not None:
+                    row[extra] = e[extra]
             summary.append(row)
         print(json.dumps({"kernels": summary}), flush=True)
     print(smi, flush=True)

@@ -44,7 +44,10 @@
 //   * any other site (a clip may bind): JAX's form and clip, g by g, with a
 //     zero gradient where the clip binds.  Forward, a warp takes such sites
 //     together: each g's terms summed over the warp by a butterfly and kept
-//     by lane g mod 32 (two registers a lane, not one a g).
+//     by lane g mod 32: two registers a lane for g < 64, and for any G a
+//     further pass over the chunk's clip sites for each 64 generations,
+//     whose chunk sums the lane adds to its entries of the row in out
+//     (zeroed first, read back at the end), so no array grows with G.
 // The fast paths take __logf and __fdividef (2^-21.41 absolute on [0.5, 2],
 // else 3 ulp; 2 ulp): inside the rounding budget chip_smoke.py:gen_ulps
 // holds the kernel to, and 20% of the forward's time.
@@ -65,8 +68,9 @@
 //     count, S_1..S_4, the 7 products, the clip path's two) and adds them to
 //     the row's totals after the chunk (so a term passes through at most 8
 //     + chunks + 5 additions, as in the first body's per-thread sums); a
-//     butterfly gives every lane the totals, and lane g writes entries g and
-//     g + 32.  64 registers, 4 blocks an SM: the 4000 rows of B = 4 in one
+//     butterfly gives every lane the totals, and lane g writes entries g,
+//     g + 32, ....  The rows' q lie in shared memory after the codes (any
+//     K).  64 registers, 4 blocks an SM: the 4000 rows of B = 4 in one
 //     wave.  No [B, N, L] or [B, N, L, G] tensor is written.
 //   * backward: a small kernel computes each row's coefficients once
 //     (dsum + d[0] for 1/m0, the 7 exact ones, c_0..c_3).  A block takes a
@@ -119,8 +123,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxG = 64;        // kernels/gen_curve.py:MAX_GEN
-constexpr int kMaxK = 32;        // kernels/gen_curve.py:MAX_POPS
 constexpr int kMaxA = 127;
 constexpr int kTile = 256;       // sites of a chunk (TILE)
 constexpr int kLaneSites = kTile / 32;
@@ -143,6 +145,7 @@ constexpr int kExact = 8;
 constexpr float kHomFast = 1e-14f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kMaxSmem = 232448;   // a block's shared memory on the H100
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o >= 1; o >>= 1) v = v + __shfl_xor_sync(kFull, v, o);
@@ -160,9 +163,11 @@ __device__ __forceinline__ float fast_log(float x) {
 }
 
 // w_g = 2^(1-g) for generation g = 1..G, taken by its index g - 1: an
-// exact power of two, built from its exponent bits
+// exact power of two, built from its exponent bits; 0 from index 127 on
+// (below the normal range: 1 - w_g is 1 and 2 m0 m1 w_g is clipped there
+// whether w_g is a subnormal or 0)
 __device__ __forceinline__ float w_of(int gi) {
-  return __int_as_float((127 - gi) << 23);
+  return gi < 127 ? __int_as_float((127 - gi) << 23) : 0.f;
 }
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
@@ -257,9 +262,9 @@ gen_curve_fwd_kernel(const float* __restrict__ q, const float* __restrict__ p,
                      const bool* __restrict__ hom,
                      const bool* __restrict__ valid, float* __restrict__ out,
                      int N, int L, int K, int A, int G) {
-  // two chunks: [K][A][kTile] of P (kStage), then [kWarps][4][kTile] codes
+  // two chunks: [K][A][kTile] of P (kStage), then [kWarps][4][kTile]
+  // codes, then the rows' q [kWarps][K]
   extern __shared__ __align__(16) float stage[];
-  __shared__ float q_s[kWarps][kMaxK];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long b = blockIdx.y;
   const int n_first = blockIdx.x * kWarps;
@@ -269,21 +274,25 @@ gen_curve_fwd_kernel(const float* __restrict__ q, const float* __restrict__ p,
   const long long row = b * N + n;
   const float* pb = p + b * (long long)K * L * A;
   const bool aligned = (L & 3) == 0;
-  if (live && lane < K) q_s[warp][lane] = q[row * K + lane];
   const int chunks = (L + kTile - 1) / kTile;
   const int p_floats = kStage ? K * A * kTile : 0;
   int8_t* codes = reinterpret_cast<int8_t*>(stage + 2 * p_floats);
   constexpr int kCodeBytes = kWarps * 4 * kTile;
+  float* qr = reinterpret_cast<float*>(codes + 2 * kCodeBytes) + warp * K;
+  if (live) {
+    for (int k = lane; k < K; k += 32) qr[k] = q[row * K + k];
+    // the row's clip-path sums of generations >= 64 accumulate in out
+    for (int g = 64 + lane; g < G; g += 32) out[row * G + g] = 0.f;
+  }
   if (kStage) stage_p(stage, pb, K, L, A, 0, min(L, kTile));
   stage_codes(codes, geno, hom, valid, L, n_first, ni, 0, min(L, kTile),
               aligned);
   cp_async_commit();
-  const float* qr = q_s[warp];
   const float w_min = w_of(G - 1), log_eps = logf(kEps);
   // the row's totals: sum log m0 and the power sums S_1..S_4 (fast
   // homozygous sites), sum log(1 - u w_g) for g = 1..7, sum log(2 m0 m1)
   // and the count (fast heterozygous sites), the clip path's sums of
-  // generations lane and lane + 32
+  // generations lane and lane + 32 (those of lane + 64, ... in out)
   float lm = 0.f, lt = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f, s4 = 0.f;
   float lx[kExact], sl0 = 0.f, sl1 = 0.f;
 #pragma unroll
@@ -347,40 +356,56 @@ gen_curve_fwd_kernel(const float* __restrict__ q, const float* __restrict__ p,
       float c_sl0 = 0.f, c_sl1 = 0.f;
       if (__any_sync(kFull, slow != 0u)) {
         // JAX's form and clip, g by g, a site at a time for the warp: each
-        // g's terms summed by a butterfly, kept by lane g mod 32
-        for (int j = 0; j < kLaneSites; ++j) {
-          const bool mine = (slow >> j) & 1u;
-          if (!__any_sync(kFull, mine)) continue;
-          int kind = 0;
-          float a = 0.f, cc = 0.f, t2 = 0.f, lt2 = 0.f;
-          if (mine) {
-            const int t = j * 32 + lane, l = l0 + t;
-            const float m0 =
-                mixture<kStage>(qr, ps, pb, K, L, A, cw[t], t, l);
-            if (cw[2 * kTile + t]) {
-              kind = 1;
-              a = m0 * m0;
-              cc = m0 * (1.f - m0);
-            } else {
-              kind = 2;
-              t2 = (2.f * m0) *
-                   mixture<kStage>(qr, ps, pb, K, L, A, cw[kTile + t], t, l);
-              lt2 = logf(t2);
+        // g's terms summed by a butterfly, kept by lane g mod 32; a pass
+        // over the chunk's clip sites for each 64 generations, the passes
+        // past the first adding their chunk sums to the row's entries of
+        // out
+        for (int g0 = 0; g0 < G; g0 += 64) {
+          const int g_end = min(G, g0 + 64);
+          float p0 = 0.f, p1 = 0.f;
+          for (int j = 0; j < kLaneSites; ++j) {
+            const bool mine = (slow >> j) & 1u;
+            if (!__any_sync(kFull, mine)) continue;
+            int kind = 0;
+            float a = 0.f, cc = 0.f, t2 = 0.f, lt2 = 0.f;
+            if (mine) {
+              const int t = j * 32 + lane, l = l0 + t;
+              const float m0 =
+                  mixture<kStage>(qr, ps, pb, K, L, A, cw[t], t, l);
+              if (cw[2 * kTile + t]) {
+                kind = 1;
+                a = m0 * m0;
+                cc = m0 * (1.f - m0);
+              } else {
+                kind = 2;
+                t2 = (2.f * m0) *
+                     mixture<kStage>(qr, ps, pb, K, L, A, cw[kTile + t], t, l);
+                lt2 = logf(t2);
+              }
+            }
+            for (int g = g0; g < g_end; ++g) {
+              float v = 0.f;
+              if (kind == 1) {
+                v = logf(fmaxf(a + cc * (1.f - w_of(g)), kEps));
+              } else if (kind == 2) {
+                // 2 m0 m1 w_g >= 1e-30: log t + (1 - g) log 2, else the
+                // clip
+                v = t2 * w_of(g) >= kEps ? lt2 - (float)g * kLn2 : log_eps;
+              }
+              v = warp_sum(v);
+              if ((g & 31) == lane) {
+                if (g - g0 < 32) p0 = p0 + v;
+                else p1 = p1 + v;
+              }
             }
           }
-          for (int g = 0; g < G; ++g) {
-            float v = 0.f;
-            if (kind == 1) {
-              v = logf(fmaxf(a + cc * (1.f - w_of(g)), kEps));
-            } else if (kind == 2) {
-              // 2 m0 m1 w_g >= 1e-30: log t + (1 - g) log 2, else the clip
-              v = t2 * w_of(g) >= kEps ? lt2 - (float)g * kLn2 : log_eps;
-            }
-            v = warp_sum(v);
-            if ((g & 31) == lane) {
-              if (g < 32) c_sl0 = c_sl0 + v;
-              else c_sl1 = c_sl1 + v;
-            }
+          if (g0 == 0) {
+            c_sl0 = p0;
+            c_sl1 = p1;
+          } else {
+            float* o = out + row * G + g0 + lane;
+            if (g0 + lane < G) o[0] = o[0] + p0;
+            if (g0 + 32 + lane < G) o[32] = o[32] + p1;
           }
         }
       }
@@ -408,7 +433,7 @@ gen_curve_fwd_kernel(const float* __restrict__ q, const float* __restrict__ p,
   for (int g = 1; g < kExact; ++g) lx[g] = warp_sum(lx[g]);
   const float het = (float)__reduce_add_sync(kFull, n_het);
   const float base = lm + lt;
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < (G + 31) / 32; ++h) {
     const int g = lane + 32 * h;
     if (g >= G) break;
     float f = lm;  // generation index 0: 2 log m0
@@ -421,8 +446,8 @@ gen_curve_fwd_kernel(const float* __restrict__ q, const float* __restrict__ p,
       for (int e = 1; e < kExact; ++e)
         if (g == e) f = lx[e];
     }
-    out[row * G + g] =
-        ((f + (h == 0 ? sl0 : sl1)) + base) - ((float)g * kLn2) * het;
+    const float sl = h == 0 ? sl0 : (h == 1 ? sl1 : out[row * G + g]);
+    out[row * G + g] = ((f + sl) + base) - ((float)g * kLn2) * het;
   }
 }
 
@@ -797,18 +822,22 @@ __global__ void gen_curve_bwd_sum_kernel(const float* __restrict__ dq_part,
   }
 }
 
-int check_shapes(int B, int N, int L, int K, int A, int G) {
-  if (B < 1 || B > 65535 || N < 1 || L < 1 || K < 1 || K > kMaxK || A < 1 ||
-      A > kMaxA || G < 1 || G > kMaxG)
-    return (int)cudaErrorInvalidValue;
-  return 0;
-}
-
 bool staged(int K, int A) { return K * A <= kStageCells; }
 
 int fwd_smem(int K, int A) {
   return 2 * ((staged(K, A) ? K * A * kTile * (int)sizeof(float) : 0) +
-              kWarps * 4 * kTile);
+              kWarps * 4 * kTile) +
+         kWarps * K * (int)sizeof(float);
+}
+
+// Any K and G whose blocks fit shared memory (K <= 2592:
+// kernels/gen_curve.py:MAX_POPS, the backward tile's q rows)
+int check_shapes(int B, int N, int L, int K, int A, int G) {
+  if (B < 1 || B > 65535 || N < 1 || L < 1 || K < 1 || A < 1 || A > kMaxA ||
+      G < 1 || fwd_smem(K, A) > kMaxSmem ||
+      bwd_smem(K, A, staged(K, A)) > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 // Opt a kernel in to its dynamic shared memory beyond the default (for the

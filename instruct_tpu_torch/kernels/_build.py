@@ -103,9 +103,13 @@ _SIGNATURES = {
     "s_delta_launch_dyn_smem": [_I] * 6,
     "site_ll_launch_dyn_smem": [_I] * 8,
     # values, counts, assign, log_new, new_val, new_idx, gen, ll_grid,
-    # out values, counts, assign, scratch, C, N, M, variant, k0, k1,
-    # chain_key, step, stream
-    "crp_sweep_launch": [_P] * 12 + [_I] * 4 + [_U, _U, _P, _U, _P],
+    # out values, counts, assign, scratch, noise spill, C, N, M, variant,
+    # k0, k1, chain_key, step, stream
+    "crp_sweep_launch": [_P] * 13 + [_I] * 4 + [_U, _U, _P, _U, _P],
+    # (N, M, variant, out[6]) -> the seating kernel's plan (not a launch)
+    "crp_sweep_plan": [_I] * 3 + [_P],
+    # x, out, C, N, stream (the seating kernel's latency floor)
+    "crp_warp_floor_launch": [_P, _P, _I, _I, _P],
     # q, p, geno, hom, valid, per_gen, B, N, L, K, A, G, stream
     "gen_curve_fwd_launch": [_P] * 6 + [_I] * 6 + [_P],
     # q, p, geno, hom, valid, dper_gen, row coefficients, dq partials, dP

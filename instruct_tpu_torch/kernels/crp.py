@@ -25,12 +25,16 @@ The new tables' values and masses do not depend on the seating, so the
 caller draws and computes them for all j before the sweep (as the JAX
 functions do).  The Gumbel noise of choice t of individual j is element
 ``j * (N + 1) + t`` of the Philox stream ``STREAM_DPM_SEAT`` at the sweep's
-step, computed where it is used: there is no ``[N, N + 1]`` plane, so
-memory is O(N) at every N.  Only the plain version also takes an injected
-plane ``gumbel[c, j, t]`` (the tests feed it the JAX function's own).
+step, drawn a few rows ahead of its use: there is no ``[N, N + 1]``
+plane, so memory is O(N) at every N.  Only the plain version also takes
+an injected plane ``gumbel[c, j, t]`` (the tests feed it the JAX
+function's own).
 
-On CUDA tensors :func:`crp_sweep` launches ``csrc/crp.cu`` (one block of
-256 threads a chain, one launch a sweep); on CPU tensors it runs the plain
+On CUDA tensors :func:`crp_sweep` launches ``csrc/crp.cu`` (one block a
+chain, one launch a sweep: a seater warp carries the N dependent steps,
+slot s owned by lane s % 32, while producer warps draw the seat noise and
+stage each individual's inputs ahead of it in a ring of ``RING_DEPTH``
+entries; the plan is :func:`crp_plan`); on CPU tensors it runs the plain
 version :func:`crp_sweep_reference`, which performs the same float32
 operations, so the two seat every individual alike.
 """
@@ -48,12 +52,23 @@ PRIOR, SELFING, INBREEDING = 0, 1, 2
 VARIANTS = {PRIOR: "prior", SELFING: "selfing", INBREEDING: "inbreeding"}
 _EPS = 1e-30
 _NEG = -1e30
-# the kernel stages a row of the mode-5 grid curve in shared memory, a
-# point a thread
+# the kernel stages each individual's row of the mode-5 grid curve in its
+# ring entry
 MAX_GRID = 256
 # the kernel keeps the table in shared memory up to this many slots (16
 # bytes a slot), in a global scratch row above
-SMEM_SLOTS = 4096
+SMEM_SLOTS = 8192
+# the slots the seater warp keeps in registers (csrc/crp.cu:kRegSlots)
+REG_SLOTS = 64
+# the kernel's warps (csrc/crp.cu:CRP_WARPS): the seater and the producers
+WARPS = 4
+# entries of the noise ring, and the header words of an entry (kDepth,
+# kHead)
+RING_DEPTH = 8
+HEAD = 8
+# dynamic shared memory a block may take: 232 448 bytes less 1024 for what
+# the kernel declares statically (kSmemBudget)
+SMEM_BUDGET = 232_448 - 1024
 # rows of Gumbel noise the plain version draws at a time
 _NOISE_ROWS = 256
 
@@ -81,6 +96,35 @@ def seat_noise(keys, step: int, n: int, j0: int, j1: int) -> torch.Tensor:
                      device=dev)
     bits = px.element_words(keys, step, px.STREAM_DPM_SEAT, e)
     return px.gumbel(bits).reshape(-1, j1 - j0, n + 1)
+
+
+def _up4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def crp_plan(n: int, m: int, variant: int) -> dict:
+    """The seating kernel's launch plan (``csrc/crp.cu:make_plan``, which
+    the card checks through ``crp_sweep_plan``): its warps, the ring's
+    depth, its width (noise columns an entry holds: all N + 1 choices
+    where shared memory holds them, else as many as it does, a multiple of
+    4; the producers write the columns past it to a global spill [C,
+    RING_DEPTH, N + 1 - width]), an entry's words (``HEAD``,
+    mode 5's grid row, the noise), whether the table lies in shared memory
+    (N <= ``SMEM_SLOTS``) and the dynamic shared-memory bytes: the table,
+    the log counts ``logc[0..N]``, the ring."""
+    table = 16 * n if n <= SMEM_SLOTS else 0
+    logc = _up4(n + 1)
+    ll = _up4(m) if variant == INBREEDING else 0
+    free = (SMEM_BUDGET - table - 4 * logc) // (4 * RING_DEPTH) - HEAD - ll
+    width = n + 1 if n + 1 <= free else free & ~3
+    if width <= REG_SLOTS and width < n + 1:
+        # the register slots' columns must lie in the ring
+        raise ValueError(f"N = {n}: the seating kernel's log counts and "
+                         "noise ring do not fit a block's shared memory")
+    stride = HEAD + ll + _up4(width)
+    return dict(warps=WARPS, depth=RING_DEPTH, reg_slots=REG_SLOTS,
+                width=width, stride=stride, smem_table=table > 0,
+                smem=table + 4 * logc + 4 * RING_DEPTH * stride)
 
 
 def _check_variant(variant, gen, ll_grid, new_idx):
@@ -191,6 +235,8 @@ def crp_sweep(keys, step: int, variant: int, values: Optional[torch.Tensor],
                                    assign, log_new, new_val, gen=gen,
                                    ll_grid=ll_grid, new_idx=new_idx,
                                    gumbel=gumbel)
+    m = ll_grid.shape[2] if variant == INBREEDING else 0
+    plan = crp_plan(n, m, variant)
     if gumbel is not None:
         raise ValueError("injected seat noise is taken by the plain version "
                          "only (CPU tensors)")
@@ -202,11 +248,9 @@ def crp_sweep(keys, step: int, variant: int, values: Optional[torch.Tensor],
         chk(values, "values", torch.float32, (c, n))
         chk(counts, "counts", torch.int32, (c, n))
         chk(assign, "assign", torch.int32, (c, n))
-    m = 0
     if variant == SELFING:
         chk(gen, "gen", torch.int32, (c, n))
     if variant == INBREEDING:
-        m = ll_grid.shape[2]
         if not 1 <= m <= MAX_GRID:
             raise ValueError(f"grid of {m} points: the kernel takes 1 to "
                              f"{MAX_GRID}")
@@ -216,13 +260,55 @@ def crp_sweep(keys, step: int, variant: int, values: Optional[torch.Tensor],
     out_values = torch.empty((c, n), dtype=torch.float32, device=dev)
     out_counts = torch.empty((c, n), dtype=torch.int32, device=dev)
     out_assign = torch.empty((c, n), dtype=torch.int32, device=dev)
-    # the working table, where it does not fit shared memory
+    # the working table, where it does not fit shared memory; the noise
+    # columns past the ring
     scratch = (torch.empty((c, n, 4), dtype=torch.float32, device=dev)
                if n > SMEM_SLOTS else None)
+    spill = (torch.empty((c, RING_DEPTH, n + 1 - plan["width"]),
+                         dtype=torch.float32, device=dev)
+             if plan["width"] <= n else None)
     p = _build.ptr
     _build.launch("crp_sweep", "crp_sweep_launch", p(values), p(counts),
                   p(assign), p(log_new), p(new_val), p(new_idx), p(gen),
                   p(ll_grid), p(out_values), p(out_counts),
-                  p(out_assign), p(scratch), c, n, m, variant, keys.k0,
-                  keys.k1, p(keys.chain_key), step)
+                  p(out_assign), p(scratch), p(spill), c, n, m, variant,
+                  keys.k0, keys.k1, p(keys.chain_key), step)
     return out_values, out_counts, out_assign
+
+
+def warp_floor_reference(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`warp_floor` (same signature)."""
+    buf = (x.to(torch.int64) & 0xFFFFFFFF).reshape(-1, 32, 32).clone()
+    c = buf.shape[0]
+    rows = torch.arange(c, device=x.device)
+    lanes = torch.arange(32, device=x.device)
+    row = torch.zeros(c, dtype=torch.int64, device=x.device)
+    for _ in range(n):
+        v = buf[rows, row]
+        m = v.max(dim=1).values
+        win = torch.where(v == m[:, None], lanes, 32).min(dim=1).values
+        buf[rows, row, win] = (v[rows, win] * 1664525 + 1013904223) \
+            & 0xFFFFFFFF
+        row = (m + win) & 31
+    out = torch.cat([buf.reshape(c, 1024), row[:, None]], dim=1)
+    return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
+
+
+def warp_floor(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The seating kernel's latency floor, a measurement aid: ``n``
+    dependent steps of one warp a chain over x i32[C, 1024] (32 rows of
+    32 words, word s of a row owned by lane s), each one shared-memory
+    read of a row, the maximum and the least lane holding it by
+    ``redux.sync``, and one shared-memory write (the winner's word, a
+    linear congruential step); the next row is (maximum + lane) mod 32.
+    Returns i32[C, 1025]: the words and the last row."""
+    if x.dim() != 2 or x.shape[1] != 1024:
+        raise ValueError("warp_floor takes x of shape [C, 1024]")
+    if not x.is_cuda:
+        return warp_floor_reference(x, n)
+    _build.check(x, "x", torch.int32)
+    out = torch.empty((x.shape[0], 1025), dtype=torch.int32,
+                      device=x.device)
+    _build.launch("crp_warp_floor", "crp_warp_floor_launch", _build.ptr(x),
+                  _build.ptr(out), x.shape[0], n)
+    return out

@@ -43,8 +43,10 @@ from instruct_tpu_torch.data.dataset import Dataset
 from instruct_tpu_torch.kernels import _build
 from instruct_tpu_torch.model.likelihood import per_pop_copy_probs
 
-MAX_GEN = 64     # generations (csrc/gen_curve.cu:kMaxG)
-MAX_POPS = 32    # pops (kMaxK)
+# pops: the backward block's q rows (BWD_INDV x K floats) beside its
+# fixed 66 560 bytes fit a block's 232 448 (csrc/gen_curve.cu:check_shapes;
+# any number of generations)
+MAX_POPS = 2592
 MAX_ALLELES = 127   # alleles a locus (kMaxA)
 MAX_ROWS = 65535    # batch rows, a grid dimension of both passes
 TILE = 256       # sites of a chunk (kTile)
@@ -192,9 +194,9 @@ def _check(q, p, data: Dataset, gen_cap: int):
     l, a = data.n_loci, data.max_alleles
     if data.ploid != 2:
         raise ValueError("the G curve is the diploid modes' (2 and 3)")
-    if not 1 <= gen_cap <= MAX_GEN:
-        raise ValueError(f"gen_cap {gen_cap}: the kernel takes 1 to "
-                         f"{MAX_GEN} generations")
+    if gen_cap < 1:
+        raise ValueError(f"gen_cap {gen_cap}: the kernel takes 1 or more "
+                         "generations")
     if k > MAX_POPS:
         raise ValueError(f"K = {k}: the kernel takes at most {MAX_POPS} "
                          "pops")

@@ -133,6 +133,33 @@ def test_curve_and_gradients_match_jax(mode, seed, n_alleles):
         assert_close(g.numpy(), getattr(jgrads, name))
 
 
+@pytest.mark.parametrize("k,gen_cap", [(33, 65), (64, 50), (3, 200)])
+def test_wide_k_and_long_g_match_jax(k, gen_cap):
+    """Past the kernel's former limits (K <= 32, gen_cap <= 64), which the
+    JAX potential never had: on a tiny panel the plain curve and the
+    autograd gradient of ``log_lik`` agree with JAX's
+    ``MarginalModel.log_lik`` and ``value_and_grad`` (mode 2), and the
+    kernel's shape check takes the shape."""
+    jdata, data = panels(k + gen_cap, n=6, l=9, k=3)
+    spec_kw = dict(mode=2, n_pops=k, gen_cap=gen_cap)
+    jmodel = JModel(JSpec(**spec_kw), jdata)
+    model = MarginalModel(ModelSpec(**spec_kw), data)
+    jparams = jax_params(jmodel, k, scale=3.0)
+    params = convert.marginal_params_from_numpy(fields(jparams))
+    p, q, _s, _a = model.constrain(params)
+    got = gc.gen_curve_reference(q, p, data, gen_cap)
+    assert got.shape == (2, 6, gen_cap)
+    assert_close(got.numpy(),
+                 jax.vmap(lambda pr: jax_per_gen(jmodel, pr))(jparams))
+    vals, grads = tr.value_and_grad(model.log_lik)(params)
+    jvals, jgrads = jax.vmap(jax.value_and_grad(jmodel.log_lik))(jparams)
+    assert_close(vals.numpy(), jvals, 1e-6)
+    for name, g in zip(params._fields, grads):
+        assert_close(g.numpy(), getattr(jgrads, name))
+    with pytest.raises(ValueError, match="CUDA"):
+        gc._check(q, p, data, gen_cap)
+
+
 def dense_curve(q, p, data, gen_cap):
     """The dense [B, N, L, G] formula, differentiable by torch autograd."""
     l = data.n_loci
@@ -333,7 +360,7 @@ def jax_curve(jdata, gen_cap):
     return curve
 
 
-@pytest.mark.parametrize("gen_cap", [1, 8, 9, 50, 64])
+@pytest.mark.parametrize("gen_cap", [1, 8, 9, 50, 64, 65, 200])
 def test_kernel_algebra_matches_jax(gen_cap):
     """The kernel's fast-path algebra (``kernel_emulation``) against JAX's
     dense curve and ``jax.vjp`` on a panel of 20 x 300 (two chunks, the
@@ -372,12 +399,23 @@ def softmax(x):
 
 
 def test_kernel_limits_are_checked_before_any_launch():
+    """The kernel takes any number of generations and any K whose
+    backward block fits shared memory (``MAX_POPS``); what it refuses is
+    refused before a launch.  A shape it takes reaches the device check,
+    which refuses a CPU tensor."""
     _, data = panels(7, n=4, l=5, k=2)
     q = torch.full((1, 4, 2), 0.5)
     p = torch.full((1, 2, 5, 2), 0.5)
-    for cap in (0, gc.MAX_GEN + 1):
-        with pytest.raises(ValueError, match="generations"):
+    with pytest.raises(ValueError, match="generations"):
+        gc._check(q, p, data, 0)
+    for cap in (64, 65, 200):
+        with pytest.raises(ValueError, match="CUDA"):
             gc._check(q, p, data, cap)
+    for k in (33, 64, gc.MAX_POPS):
+        with pytest.raises(ValueError, match="CUDA"):
+            gc._check(torch.full((1, 4, k), 1.0 / k),
+                      torch.full((1, k, 5, 2), 0.5), data, 50)
+    assert gc.bwd_plan(4, 5, gc.MAX_POPS, 2)["smem"] == 232_448
     wide = torch.full((1, 4, gc.MAX_POPS + 1), 0.1)
     with pytest.raises(ValueError, match="pops"):
         gc._check(wide, p, data, 50)
