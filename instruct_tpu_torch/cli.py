@@ -5,7 +5,8 @@ same defaults) and the same output lines; run ``python -m
 instruct_tpu_torch --help``.  ``--platform`` picks the torch device:
 ``cuda`` (the default) or ``cpu``.  Without a CUDA device the run fails
 unless ``--platform cpu`` is given; it never moves to the CPU on its own.
-``--profile-dir`` writes a ``torch.profiler`` trace of the run there.
+``--profile-dir`` writes a ``torch.profiler`` trace of the run there, and
+the run's spans (``spans.py``) beside it.
 
 ``--sampler hmc|nuts|svi|smc`` runs the gradient samplers over the
 marginalized model (``samplers/run.py``) and writes their report; as in
@@ -129,9 +130,13 @@ def run_seed(seeds) -> int:
 @contextlib.contextmanager
 def _profiled(directory, device):
     """A ``torch.profiler`` trace of the block, written as
-    ``<directory>/trace.json`` (Chrome trace format)."""
+    ``<directory>/trace.json`` (Chrome trace format), and the run's spans
+    (``spans.py``) as ``<directory>/spans.json``: the records, then per
+    span name the count, total device seconds and total self seconds."""
+    import json
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from instruct_tpu_torch import spans
     os.makedirs(directory, exist_ok=True)
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -141,6 +146,11 @@ def _profiled(directory, device):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     prof.export_chrome_trace(os.path.join(directory, "trace.json"))
+    recs = spans.records()
+    with open(os.path.join(directory, "spans.json"), "w") as fh:
+        json.dump({"records": [r._asdict() for r in recs],
+                   "totals": spans.totals(recs)}, fh)
+    spans.clear()
 
 
 def _refused(message: str) -> int:

@@ -34,6 +34,13 @@ chain rows under their global chain keys on its own loci block
 sums over the rank's data group, and at the end every rank gathers the
 whole ``RunResult`` in the unsharded layout.  ``mesh_mode="gspmd"`` has no
 counterpart and is refused; the unsharded run gives its result.
+
+Under a ``torch.profiler`` session a call records its phases as spans
+(``spans.py``): ``mcmc.run`` the whole call, ``mcmc.init`` an attempt's
+initial draws, ``mcmc.sweep`` a sweep, ``mcmc.stored`` a stored step with
+its ``mcmc.marg_loglik`` refresh, ``mcmc.loglik`` a segment end's pass,
+``mcmc.segment_end`` the checkpoint and progress, ``mcmc.finish`` the
+flags, the retries, the gather and the plug-in pass.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import numpy as np
 import torch
 
 from instruct_tpu_torch import checkpoint as ckpt
+from instruct_tpu_torch import spans
 from instruct_tpu_torch.config import ModelSpec, Schedule
 from instruct_tpu_torch.data.dataset import Dataset
 from instruct_tpu_torch.kernels import fused_step as fs
@@ -170,7 +178,10 @@ def _chain_runner(data: Dataset, spec: ModelSpec, sched: Schedule,
     ``stop - 1`` of all chains, the unit of both the single-shot and the
     segmented run.  The log-lik is evaluated on stored steps and at the
     segment's last step (JAX ``driver.py:225-233``): it is an observable,
-    so where segments end changes no draw and no moment."""
+    so where segments end changes no draw and no moment.  Spans
+    (``spans.py``): ``mcmc.sweep`` a sweep, ``mcmc.stored`` a stored step's
+    passes and moments, ``mcmc.marg_loglik`` within it the Z-marginalized
+    refresh, ``mcmc.loglik`` the pass at a segment end that is not stored."""
     step_core, add_loglik = build_step_parts(spec, data, tetra_tables, mesh)
     add_marg = build_marg_loglik(spec, data, tetra_tables, mesh)
     # diploid mode 0 has no Q to run empty: the guard never latches
@@ -179,18 +190,25 @@ def _chain_runner(data: Dataset, spec: ModelSpec, sched: Schedule,
                 else sched.nstep_check_empty_cluster)
 
     def run_segment(state, accum, keys, start: int, stop: int):
+        dev = keys.chain_key.device
         for i in range(start, stop):
-            state = step_core(state, keys, i)
+            with spans.span("mcmc.sweep", dev):
+                state = step_core(state, keys, i)
             stored = (i >= sched.burnin
                       and (i + 1 - sched.burnin) % sched.thinning == 0)
             # cal_lkh only when the draw is consumed (stored) or reported
             # (segment end)
-            if stored or i == stop - 1:
+            if not stored:
+                if i == stop - 1:
+                    with spans.span("mcmc.loglik", dev):
+                        state = add_loglik(state)
+                continue
+            with spans.span("mcmc.stored", dev):
                 state = add_loglik(state)
-            if stored:
                 nth = (i + 1 - sched.burnin) // sched.thinning - 1
                 if nth % sched.dic_every == 0:
-                    state = add_marg(state)
+                    with spans.span("mcmc.marg_loglik", dev):
+                        state = add_marg(state)
                 stats = extract_stats(spec, state, track_freq)
                 accum = accum_update(
                     accum, stats, 1,
@@ -421,156 +439,169 @@ def run_mcmc(data: Dataset, spec: ModelSpec, sched: Schedule, seed: int,
     whole result in the unsharded layout (:func:`gather_result`).
     ``mesh_mode`` "auto" or "shard_map" (the same path); "gspmd" raises.
     """
-    check_supported(spec, data)
-    n_chains = sched.n_chains
-    check_mesh(mesh, mesh_mode, n_chains, active_pops)
-    full_data = data
-    if mesh is None:
-        dev = torch.device(device)
-        rows = range(n_chains)
-        data = data.to(dev)
-    else:
-        dev = mesh.device
-        rows = mesh.chain_rows(n_chains)
-        data = ls.shard_panel(data, mesh)
-    sharded = mesh is not None and mesh.world_size > 1
-    shard = None if mesh is None else mesh.shard
-    n_local = len(rows)
-    active_all = (None if active_pops is None
-                  else active_mask(active_pops, spec, n_chains, dev))
-    active = (None if active_all is None
-              else active_all[rows.start:rows.stop])
-    if init_rates is not None:
-        init_rates = np.asarray(init_rates, np.float32).reshape(
-            n_chains, -1)[rows.start:rows.stop]
+    dev = torch.device(device) if mesh is None else mesh.device
+    with spans.span(spans.RUN, dev):
+        check_supported(spec, data)
+        n_chains = sched.n_chains
+        check_mesh(mesh, mesh_mode, n_chains, active_pops)
+        full_data = data
+        if mesh is None:
+            rows = range(n_chains)
+            data = data.to(dev)
+        else:
+            rows = mesh.chain_rows(n_chains)
+            data = ls.shard_panel(data, mesh)
+        sharded = mesh is not None and mesh.world_size > 1
+        shard = None if mesh is None else mesh.shard
+        n_local = len(rows)
+        active_all = (None if active_pops is None
+                      else active_mask(active_pops, spec, n_chains, dev))
+        active = (None if active_all is None
+                  else active_all[rows.start:rows.stop])
+        if init_rates is not None:
+            init_rates = np.asarray(init_rates, np.float32).reshape(
+                n_chains, -1)[rows.start:rows.stop]
 
-    # the tetraploid engine's data-only tables, built once per run
-    tables = te.build_tables(spec, data) if spec.ploid == 4 else None
-    run_segment = _chain_runner(data, spec, sched, track_freq, tables, mesh)
-    segmented = (checkpoint_dir is not None or progress_every is not None
-                 or jsonl_log is not None)
-    seg_len = (min(x for x in (checkpoint_every, progress_every, sched.n_iter)
-                   if x is not None) if segmented else sched.n_iter)
+        # the tetraploid engine's data-only tables, built once per run
+        tables = te.build_tables(spec, data) if spec.ploid == 4 else None
+        run_segment = _chain_runner(data, spec, sched, track_freq, tables,
+                                    mesh)
+        segmented = (checkpoint_dir is not None or progress_every is not None
+                     or jsonl_log is not None)
+        seg_len = (min(x for x in (checkpoint_every, progress_every,
+                                   sched.n_iter) if x is not None)
+                   if segmented else sched.n_iter)
 
-    def report(step, state, accum):
-        ll, rates, ais = (_np(state.loglik_total), _np(state.rates),
-                          _np(state.ais_state))
-        if progress_fn is not None:
-            progress_fn(step, state, accum)
-            if not jsonl_log:
-                return
-        if mesh is not None and mesh.world_size > 1:
-            parts = _by_chain_block(mesh, mesh.gather((ll, rates, ais)))
-            ll, rates, ais = [np.concatenate(x) for x in zip(*parts)]
-            if mesh.rank != 0:
-                return
-        if progress_fn is None and progress_every is not None:
-            show_st = (spec.back_refl == 0
-                       and (spec.rates_are_per_pop or spec.ploid == 4))
-            print(progress_lines(spec, step, ll, rates,
-                                 ais if show_st else None),
-                  flush=True)
-        if jsonl_log:
-            with open(jsonl_log, "a") as fh:
-                fh.write(json.dumps({
-                    "step": int(step),
-                    "loglik": ll.tolist(),
-                    "rates": rates.tolist() if rates.size else None,
-                    "stored": int(_np(accum.count)[0]),
-                }) + "\n")
+        def report(step, state, accum):
+            ll, rates, ais = (_np(state.loglik_total), _np(state.rates),
+                              _np(state.ais_state))
+            if progress_fn is not None:
+                progress_fn(step, state, accum)
+                if not jsonl_log:
+                    return
+            if mesh is not None and mesh.world_size > 1:
+                parts = _by_chain_block(mesh, mesh.gather((ll, rates, ais)))
+                ll, rates, ais = [np.concatenate(x) for x in zip(*parts)]
+                if mesh.rank != 0:
+                    return
+            if progress_fn is None and progress_every is not None:
+                show_st = (spec.back_refl == 0
+                           and (spec.rates_are_per_pop or spec.ploid == 4))
+                print(progress_lines(spec, step, ll, rates,
+                                     ais if show_st else None),
+                      flush=True)
+            if jsonl_log:
+                with open(jsonl_log, "a") as fh:
+                    fh.write(json.dumps({
+                        "step": int(step),
+                        "loglik": ll.tolist(),
+                        "rates": rates.tolist() if rates.size else None,
+                        "stored": int(_np(accum.count)[0]),
+                    }) + "\n")
 
-    mesh_shape = ((1, 1) if mesh is None
-                  else (mesh.n_chain_shards, mesh.n_data_shards))
-    rank = 0 if mesh is None else mesh.rank
+        mesh_shape = ((1, 1) if mesh is None
+                      else (mesh.n_chain_shards, mesh.n_data_shards))
+        rank = 0 if mesh is None else mesh.rank
 
-    def resume_step(ckpt_dir):
-        """The step to resume from: the latest step saved (by every rank,
-        on a sharded mesh), after refusing a checkpoint of another mesh."""
-        if ckpt_dir is None:
-            return None
-        found = ckpt.saved_mesh(ckpt_dir)
-        if found is not None and found != mesh_shape:
-            raise ValueError(
-                f"{ckpt_dir} holds a checkpoint of a {found[0]}x{found[1]} "
-                f"mesh; this run's mesh is {mesh_shape[0]}x{mesh_shape[1]}")
-        latest = ckpt.latest_step(ckpt.rank_dir(ckpt_dir, rank) if sharded
-                                  else ckpt_dir)
-        if sharded:
-            steps = mesh.gather(latest)
-            latest = None if None in steps else min(steps)
-        return latest
+        def resume_step(ckpt_dir):
+            """The step to resume from: the latest step saved (by every
+            rank, on a sharded mesh), after refusing a checkpoint of another
+            mesh."""
+            if ckpt_dir is None:
+                return None
+            found = ckpt.saved_mesh(ckpt_dir)
+            if found is not None and found != mesh_shape:
+                raise ValueError(
+                    f"{ckpt_dir} holds a checkpoint of a "
+                    f"{found[0]}x{found[1]} mesh; this run's mesh is "
+                    f"{mesh_shape[0]}x{mesh_shape[1]}")
+            latest = ckpt.latest_step(ckpt.rank_dir(ckpt_dir, rank)
+                                      if sharded else ckpt_dir)
+            if sharded:
+                steps = mesh.gather(latest)
+                latest = None if None in steps else min(steps)
+            return latest
 
-    def attempt(chain_key, ckpt_dir):
-        """One attempt: initialise this rank's chains (or resume them from
-        ``ckpt_dir``) and run the rest of the schedule."""
-        state = init_state(seed, spec, data, n_local, init_rates, dev,
-                           chain_key=chain_key, tetra_tables=tables,
-                           active=active, mesh=mesh)
-        accum = init_accum(spec, sched, data, track_freq, n_local, dev)
-        start = 0
-        latest = resume_step(ckpt_dir)
-        if sharded and ckpt_dir is not None:
-            ckpt_dir = ckpt.rank_dir(ckpt_dir, rank)
-        if latest is not None and 0 < latest <= sched.n_iter:
-            got = ckpt.restore_checkpoint(
-                ckpt_dir, latest, {"states": state, "accums": accum,
-                                   "chain_key": list(chain_key)})
-            state = recount_zcounts(spec, data, got["states"])
-            accum, chain_key = got["accums"], got["chain_key"]
-            start = latest
-        keys = px.make_keys(seed, n_local, dev, chain_key=chain_key,
-                            shard=shard)
-        while start < sched.n_iter:
-            stop = min(start + seg_len, sched.n_iter)
-            state, accum = run_segment(state, accum, keys, start, stop)
-            start = stop
-            if ckpt_dir is not None and (start % checkpoint_every == 0
-                                         or start == sched.n_iter):
-                ckpt.save_checkpoint(ckpt_dir, start,
-                                     {"states": state, "accums": accum,
-                                      "chain_key": list(chain_key)},
-                                     mesh=mesh_shape, rank=rank)
-            if progress_every is not None or jsonl_log:
-                report(start, state, accum)
-        return state, accum
+        def attempt(chain_key, ckpt_dir):
+            """One attempt: initialise this rank's chains (or resume them
+            from ``ckpt_dir``) and run the rest of the schedule."""
+            state = init_state(seed, spec, data, n_local, init_rates, dev,
+                               chain_key=chain_key, tetra_tables=tables,
+                               active=active, mesh=mesh)
+            accum = init_accum(spec, sched, data, track_freq, n_local, dev)
+            start = 0
+            latest = resume_step(ckpt_dir)
+            if sharded and ckpt_dir is not None:
+                ckpt_dir = ckpt.rank_dir(ckpt_dir, rank)
+            if latest is not None and 0 < latest <= sched.n_iter:
+                got = ckpt.restore_checkpoint(
+                    ckpt_dir, latest, {"states": state, "accums": accum,
+                                       "chain_key": list(chain_key)})
+                state = recount_zcounts(spec, data, got["states"])
+                accum, chain_key = got["accums"], got["chain_key"]
+                start = latest
+            keys = px.make_keys(seed, n_local, dev, chain_key=chain_key,
+                                shard=shard)
+            while start < sched.n_iter:
+                stop = min(start + seg_len, sched.n_iter)
+                state, accum = run_segment(state, accum, keys, start, stop)
+                start = stop
+                save = ckpt_dir is not None and (
+                    start % checkpoint_every == 0 or start == sched.n_iter)
+                tell = progress_every is not None or jsonl_log
+                if not (save or tell):
+                    continue
+                with spans.span("mcmc.segment_end", dev):
+                    if save:
+                        ckpt.save_checkpoint(
+                            ckpt_dir, start,
+                            {"states": state, "accums": accum,
+                             "chain_key": list(chain_key)},
+                            mesh=mesh_shape, rank=rank)
+                    if tell:
+                        report(start, state, accum)
+            return state, accum
 
-    chain_key = list(rows)
-    state, accum = attempt(chain_key, checkpoint_dir)
-    retries = 0
-    flags = gather_flags(mesh, unhealthy_flags(state, accum))
-    while flags.any() and retries < max_retries:
-        retries += 1
-        if checkpoint_dir is not None and rank == 0:
-            # a retry gets its own checkpoint namespace: the main run has
-            # saved its final step, so resuming from it would skip the rerun
-            print(f"[instruct_tpu_torch] retrying {int(flags.sum())} "
-                  f"unhealthy chain(s) (attempt {retries}/{max_retries})",
-                  flush=True)
-        # flagged chains get a fresh key; the others replay theirs
-        chain_key = [10_000 * retries + c if flags[c]
-                     else chain_key[c - rows.start] for c in rows]
-        state, accum = attempt(
-            chain_key, None if checkpoint_dir is None else
-            os.path.join(checkpoint_dir, f"retry-{retries}"))
-        flags = gather_flags(mesh, unhealthy_flags(state, accum))
-    if flags.any() and rank == 0:
-        print(f"[instruct_tpu_torch] WARNING: {int(flags.sum())} chain(s) "
-              f"still unhealthy after {retries} retries (empty cluster or "
-              "non-finite log-likelihood); results include them",
-              flush=True)
+        chain_key = list(rows)
+        state, accum = attempt(chain_key, checkpoint_dir)
+        retries = 0
+        # the flags, a retry's attempts, the gather and the plug-in pass
+        with spans.span("mcmc.finish", dev):
+            flags = gather_flags(mesh, unhealthy_flags(state, accum))
+            while flags.any() and retries < max_retries:
+                retries += 1
+                if checkpoint_dir is not None and rank == 0:
+                    # a retry gets its own checkpoint namespace: the main
+                    # run has saved its final step, so resuming from it
+                    # would skip the rerun
+                    print(f"[instruct_tpu_torch] retrying "
+                          f"{int(flags.sum())} unhealthy chain(s) (attempt "
+                          f"{retries}/{max_retries})", flush=True)
+                # flagged chains get a fresh key; the others replay theirs
+                chain_key = [10_000 * retries + c if flags[c]
+                             else chain_key[c - rows.start] for c in rows]
+                state, accum = attempt(
+                    chain_key, None if checkpoint_dir is None else
+                    os.path.join(checkpoint_dir, f"retry-{retries}"))
+                flags = gather_flags(mesh, unhealthy_flags(state, accum))
+            if flags.any() and rank == 0:
+                print(f"[instruct_tpu_torch] WARNING: {int(flags.sum())} "
+                      f"chain(s) still unhealthy after {retries} retries "
+                      "(empty cluster or non-finite log-likelihood); results "
+                      "include them", flush=True)
 
-    state, accum = gather_result(mesh, full_data, state, accum, dev)
-    if sharded:
-        # the plug-in pass of an unsharded run, on the gathered means
-        data, tables, active = full_data.to(dev), None, active_all
-    plugin_ll = None
-    if track_freq and spec.ploid == 4:
-        plugin_ll = _np(te.plugin_loglik(spec, data, accum.mean, state,
-                                         tables))
-    elif track_freq:
-        plugin_ll = _plugin_loglik(spec, data, accum, active)
-    return RunResult(accum=accum, final_state=state, n_retries=retries,
-                     plugin_ll=plugin_ll)
+            state, accum = gather_result(mesh, full_data, state, accum, dev)
+            if sharded:
+                # the plug-in pass of an unsharded run, on the gathered means
+                data, tables, active = full_data.to(dev), None, active_all
+            plugin_ll = None
+            if track_freq and spec.ploid == 4:
+                plugin_ll = _np(te.plugin_loglik(spec, data, accum.mean,
+                                                 state, tables))
+            elif track_freq:
+                plugin_ll = _plugin_loglik(spec, data, accum, active)
+        return RunResult(accum=accum, final_state=state, n_retries=retries,
+                         plugin_ll=plugin_ll)
 
 
 def _plugin_loglik(spec: ModelSpec, data: Dataset, accum: ChainAccum,

@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from instruct_tpu_torch import spans
 from instruct_tpu_torch.config import ModelSpec
 from instruct_tpu_torch.data.dataset import Dataset
 
@@ -125,16 +126,26 @@ def init_state(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
     draws from a generator of the shard's site seed
     (``kernels/philox.py:fold_seed``), its other draws from the chain's own
     generator, and the Q counts are summed over the shards first.
+    The call is the span ``mcmc.init`` (``spans.py``).
     """
+    with spans.span("mcmc.init", device):
+        if spec.ploid == 4:
+            from instruct_tpu_torch.tetra.engine import init_tetra_state
+            return init_tetra_state(seed, spec, data, n_chains, init_rates,
+                                    device, chain_key, tetra_tables, mesh)
+        return _init_diploid(seed, spec, data, n_chains, init_rates, device,
+                             chain_key, active, mesh)
+
+
+def _init_diploid(seed: int, spec: ModelSpec, data: Dataset, n_chains: int,
+                  init_rates, device, chain_key, active,
+                  mesh) -> McmcState:
+    """:func:`init_state` of the diploid modes 0-5."""
     from instruct_tpu_torch.kernels import philox as px
     from instruct_tpu_torch.kernels.fused_step import allele_counts
     from instruct_tpu_torch.mcmc import dpm
     from instruct_tpu_torch.mcmc import updates as up
 
-    if spec.ploid == 4:
-        from instruct_tpu_torch.tetra.engine import init_tetra_state
-        return init_tetra_state(seed, spec, data, n_chains, init_rates,
-                                device, chain_key, tetra_tables, mesh)
     if spec.ploid != 2 or spec.mode not in (0, 1, 2, 3, 4, 5):
         raise ValueError(f"init_state: no model with mode {spec.mode} and "
                          f"ploidy {spec.ploid}")
