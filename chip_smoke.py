@@ -64,9 +64,15 @@ The line before the last is the card's name and power limit as ``nvidia-smi``
 prints them; the line before that is the ``{"kernels": [...]}`` summary; the
 last line is ``{"ok": true, "device": {...}}``.
 
-``--phases`` runs a subset of build, kernels, main_path, modes, unfused,
-tetra, kselect, cli, dpm, samplers, parallel (development aid); the device
-and Philox phases always run.
+Phase ``marg`` runs the Z-marginalized log-lik kernel
+(``kernels/marg_loglik.py``) at the benchmark cells' panels (1307 x 214 051,
+K = 8; 938 x 642 690, K = 7) and the headline, modes 1-5, the packed plane
+and the allele codes (A = 2 and 4, K = 3 and 10) against its plain
+version, bitwise reruns, its plan, its ms beside its bound and the plain
+ms, and one ``regmap.mode2`` job of ``perfbench`` (two launches).
+``--phases`` runs a subset of build, kernels, marg, main_path, modes,
+unfused, tetra, kselect, cli, dpm, samplers, parallel (development aid);
+the device and Philox phases always run.
 ``--parent-csrc DIR`` (another tree's ``instruct_tpu_torch/csrc``, e.g. a
 ``git archive`` of the parent commit unpacked under ``_parent/``) builds
 that tree's site pass and K3 to K8 beside this one's and times them on
@@ -269,7 +275,8 @@ def phase_build() -> None:
     emit("build", seconds=round(seconds, 2), nvcc=_build.find_nvcc(),
          flags=" ".join(_build.NVCC_FLAGS), ptxas=regs, ptxas_wide=wide,
          ptxas_k3_k4=kernel_frames(text, "dirichlet_kernel|allele_counts"),
-         ptxas_k6_k7=kernel_frames(text, "s_delta_kernel|site_ll_kernel"))
+         ptxas_k6_k7=kernel_frames(text, "s_delta_kernel|site_ll_kernel"),
+         ptxas_marg=kernel_frames(text, "marg_loglik"))
 
 
 def kernel_frames(log: str, names: str) -> dict:
@@ -1621,6 +1628,166 @@ def phase_kernels(panel, panel_a, panel_a4, panel_w, philox_entry,
     return {e["name"]: e for e in main}
 
 
+# the Z-marginalized log-lik kernel's shapes: (tag, N, L, K, mode) of the
+# benchmark cells' panels (regmap.mode2, hgdp.mode1) and the headline
+MARG_SHAPES = (("regmap", 1307, 214_051, 8, 2), ("hgdp", 938, 642_690, 7, 1),
+               ("headline", N_INDV, N_LOCI, N_POPS, 2))
+MARG_GAP = 1e-6        # per-individual gap, relative to |plain| + 1
+
+
+def marg_inputs(n: int, l: int, k: int, a: int = 2, seed: int = 41):
+    """A random diploid panel made on the card (packed at A = 2, else the
+    allele codes; ~1% of sites missing) and the state of ``N_CHAINS``
+    chains: freq, q (chain 0 with two empty K-grid slots), int32 gen,
+    rates f32[C, max(N, K)]."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(0, a, (2, n, l), generator=g, device=dev,
+                      dtype=torch.int8)
+    valid = torch.rand((n, l), generator=g, device=dev) >= 0.01
+    x = x * valid[None]
+    if a == 2:
+        data = packed_dataset((x[0] | (x[1] << 1)
+                               | (valid.to(torch.int8) << 2)).contiguous())
+    else:
+        data = Dataset(geno=torch.cat([x[0], x[1]], 1).contiguous(),
+                       site_valid=valid, hom=x[0] == x[1],
+                       allele_valid=torch.ones((l, a), dtype=torch.bool,
+                                               device=dev))
+    c = N_CHAINS
+    freq = torch._standard_gamma(torch.ones((c, k, l, a), device=dev),
+                                 generator=g)
+    freq = freq / freq.sum(-1, keepdim=True)
+    q = torch._standard_gamma(torch.full((c, n, k), 0.3, device=dev),
+                              generator=g)
+    q[0, :, max(1, k - 2):] = 0.0
+    q = q / q.sum(-1, keepdim=True)
+    gen = torch.randint(1, 51, (c, n), generator=g, device=dev,
+                        dtype=torch.int32)
+    return data, freq, q, gen, torch.rand((c, max(n, k)), generator=g,
+                                          device=dev)
+
+
+def marg_rates(rates, mode: int, n: int, k: int):
+    return rates[:, :n if mode == 5 else k].contiguous()
+
+
+def marg_work(data, c: int, k: int, mode: int):
+    """(bytes, operations) of one call.  Bytes: the panel (a byte a site
+    packed; codes, hom and valid through the codes), P, Q, the result.
+    Operations a chain and valid site: 7 a pop (m0, m1, p0 p1, same), in
+    modes 2-5 the same-pop frequency and its sum (7 a pop at a homozygous
+    site, 3 at a heterozygous one), then 6 and the logarithm."""
+    n, l, a = data.n_indv, data.n_loci, data.max_alleles
+    valid = data.site_valid
+    hom = int((valid & data.hom).sum())
+    het = int(valid.sum()) - hom
+    per_pop_hom, per_pop_het = (7, 7) if mode == 1 else (14, 10)
+    n_ops = c * ((hom * per_pop_hom + het * per_pop_het) * k
+                 + (hom + het) * (6 + OPS_TRANSC))
+    panel = n * l if data.bits2 is not None else 4 * n * l
+    n_bytes = panel + 4 * (c * k * l * a + c * n * k + c * n)
+    return n_bytes, n_ops
+
+
+def marg_gap(got, want) -> float:
+    want = want.double()
+    return float(((got.double() - want).abs() / (want.abs() + 1.0)).max())
+
+
+def check_marg_loglik(smi: str) -> dict:
+    """The Z-marginalized log-lik kernel (``kernels/marg_loglik.py``) at
+    the benchmark cells' panels and the headline: modes 1-5 through the
+    packed plane (and, at the headline, the allele codes of A = 2 and 4
+    and K = 10) against the plain version, within ``MARG_GAP`` a
+    individual; two launches bitwise equal; its plan the C plan; its ms
+    beside its bound and the plain version's ms in the shape's cell mode;
+    then one job of ``regmap.mode2``, which must launch it twice.  Returns
+    the kernels-line entry (the headline's numbers)."""
+    from instruct_tpu_torch.kernels import marg_loglik as mk
+    from instruct_tpu_torch.model import likelihood as lk
+    from perfbench import jobs, panel as bench_panel, run as bench_run
+    lib = _build.library()
+    rows, entry = [], None
+    cases = [(tag, n, l, k, 2, cell) for tag, n, l, k, cell in MARG_SHAPES]
+    cases += [("headline_a4", N_INDV, N_LOCI, N_POPS, 4, 2),
+              ("headline_k10", N_INDV, N_LOCI, 10, 2, 2),
+              ("headline_k10_a4", N_INDV, N_LOCI, 10, 4, 2)]
+    for tag, n, l, k, a, cell in cases:
+        data, freq, q, gen, rates = marg_inputs(n, l, k, a)
+        c = N_CHAINS
+        out = (ctypes.c_int * 6)()
+        plan = mk.marg_plan(c, n, l, k, a)
+        if (lib.marg_loglik_plan(c, n, l, k, a, out) != 0
+                or list(out) != [plan["tile"], plan["strip"], plan["tiles"],
+                                 plan["strips"], int(plan["stage"]),
+                                 plan["smem"]]):
+            raise AssertionError(f"marg_loglik {tag}: plan {list(out)}, "
+                                 f"Python {plan}")
+        kinds = [("packed", data), ("codes", data._replace(bits2=None))]
+        kinds = kinds if a == 2 else kinds[1:]
+        gaps = {}
+        for mode in (1, 2, 3, 4, 5):
+            spec = ModelSpec(mode=mode, n_pops=k)
+            r = marg_rates(rates, mode, n, k)
+            want = lk.marginal_indv_loglik(spec, data, freq, q, gen, r)
+            for kind, d in kinds:
+                got = mk.marg_indv_loglik(spec, d, freq, q, gen, r)
+                if not torch.equal(got, mk.marg_indv_loglik(spec, d, freq, q,
+                                                            gen, r)):
+                    raise AssertionError(f"marg_loglik {tag} mode {mode} "
+                                         f"{kind}: two launches differ")
+                gaps[f"mode{mode}_{kind}"] = marg_gap(got, want)
+            del want
+        worst = max(gaps.values())
+        if worst > MARG_GAP:
+            raise AssertionError(f"marg_loglik {tag}: gaps {gaps}")
+        spec = ModelSpec(mode=cell, n_pops=k)
+        r = marg_rates(rates, cell, n, k)
+        d = kinds[0][1]
+        run = lambda: mk.marg_indv_loglik(spec, d, freq, q, gen, r)
+        plain = lambda: lk.marginal_indv_loglik(spec, d, freq, q, gen, r)
+        n_bytes, n_ops = marg_work(d, c, k, cell)
+        b_ms, b_by = bound(n_bytes, n_ops)
+        ms, plain_ms = time_ms(run), time_ms(plain, reps=3, warm=1, inner=1)
+        row = dict(shape=dict(tag=tag, C=c, N=n, L=l, K=k, A=a,
+                              packed=kinds[0][0] == "packed"),
+                   mode=cell, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, bytes=n_bytes, ops=n_ops,
+                   max_rel_gap=worst, stage=plan["stage"])
+        rows.append(row)
+        emit("marg_loglik_shape", card=smi, **row, gaps=gaps)
+        if tag == "headline":
+            entry = dict(name="marg_loglik", route="cuda",
+                         source="instruct_tpu_torch/csrc/marg_loglik.cu",
+                         replaces="none: instruct_tpu/model/likelihood.py:"
+                                  "213-275 is XLA-fused tensor code",
+                         max_abs_err=max_err(run(), plain()), ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None, compared=f"relative gap <= "
+                                                   f"{MARG_GAP}")
+        del data, freq, q, gen, rates, d, run, plain
+        torch.cuda.empty_cache()
+    # one job of the regmap.mode2 cell: the first and the last stored step
+    # refresh
+    spec = bench_run.load_cell("regmap.mode2")
+    bits2 = bench_panel.make_panel(spec["cfg"], 2_147_000_401, "cuda")
+    runner = jobs.Runner(spec["mix"], packed_dataset(bits2))
+    _build.reset_launches()
+    res = runner.run(jobs.job_seed(2_147_000_401, 1))
+    torch.cuda.synchronize()
+    job_launches = int(_build.launches["marg_loglik"])
+    if job_launches != 2 or not torch.isfinite(
+            res.final_state.loglik_marg).all():
+        raise AssertionError(f"marg_loglik: {job_launches} launches in a "
+                             "regmap.mode2 job, not 2")
+    del res, runner, bits2
+    torch.cuda.empty_cache()
+    emit("marg_loglik", card=smi, shapes=rows, job_launches=job_launches,
+         all_match=True)
+    return {"marg_loglik": entry}
+
+
 # ---------------------------------------------------------------------------
 # phases 5 and 6: the main path (mode 2, packed panel) and the other paths
 # ---------------------------------------------------------------------------
@@ -1857,10 +2024,11 @@ def check_one_s_delta_launch(tag, prof, subsweeps: int) -> None:
                              f"launches a sweep, {subsweeps} expected")
 
 
-def expected_launches(spec, data, steps, evals, attempts) -> dict:
+def expected_launches(spec, data, steps, evals, attempts, margs) -> dict:
     """Launches per kernel that ``run_mcmc``'s schedule predicts: ``steps``
     sweeps, ``evals`` stored-step log-lik passes, ``attempts`` initial
-    states."""
+    states, ``margs`` Z-marginalized log-liks (refreshes and the plug-in
+    pass; the ``marg_loglik`` kernel in modes 1-5)."""
     mode, fused = spec.mode, use_fused(spec, data)
     adaptive = spec.back_refl != 1 and mode in (2, 4)
     marg = spec.marginalize_g
@@ -1890,6 +2058,8 @@ def expected_launches(spec, data, steps, evals, attempts) -> dict:
             + attempts * int(with_dpm)}
     if mode != 0:
         want["dirichlet_nk"] = steps
+        if margs:
+            want["marg_loglik"] = margs
     if with_dpm:
         # the CRP prior draws the initial table; the CRP sweep is one
         # seating launch; Beta draws go through K3's dirichlet_rows
@@ -1914,6 +2084,14 @@ def expected_launches(spec, data, steps, evals, attempts) -> dict:
         # is plain tensor code
         want.update({"zq_sample_counts": steps, counts: attempts + steps})
     return want
+
+
+def marg_count(sched, attempts: int, plugin: bool) -> int:
+    """Z-marginalized log-liks of a run: the refreshes (every
+    ``dic_every``-th stored step, each attempt) and the plug-in pass of a
+    run that tracks P."""
+    return (len(range(0, sched.n_stored, sched.dic_every)) * attempts
+            + int(plugin))
 
 
 def drive_path(tag, panel, spec, n_iter, smi, profile_sweeps=PROFILE_SWEEPS,
@@ -1943,7 +2121,7 @@ def drive_path(tag, panel, spec, n_iter, smi, profile_sweeps=PROFILE_SWEEPS,
     last_extra = 0 if (n_iter - sched.burnin) % sched.thinning == 0 else 1
     want = expected_launches(spec, data, steps,
                              (sched.n_stored + last_extra) * attempts,
-                             attempts)
+                             attempts, marg_count(sched, attempts, False))
     if launches != want:
         raise AssertionError(f"{tag}: launches {launches}, the schedule "
                              f"predicts {want}")
@@ -2244,7 +2422,7 @@ def phase_kselect(panel, smi: str) -> dict:
     last_extra = 0 if (N_ITER - sched.burnin) % sched.thinning == 0 else 1
     want = expected_launches(spec_pad, data, steps,
                              (sched.n_stored + last_extra) * attempts,
-                             attempts)
+                             attempts, marg_count(sched, attempts, True))
     if launches != want:
         raise AssertionError(f"kselect: launches {launches}, the schedule "
                              f"predicts {want}")
@@ -3069,14 +3247,19 @@ def run_cli(argv, capture: bool = True):
 def cli_expected(spec, data, start, stop, seg, attempts, resumed):
     """Launches the CLI's segmented ``run_mcmc`` predicts for sweeps
     ``start`` to ``stop - 1``: a stored-step log-lik at every stored step
-    and every segment end; on a resume one more K4 (the recount of the
-    restored z)."""
-    burnin, thin = 100, 10
+    and every segment end, a marginal log-lik refresh at every tenth stored
+    step and the plug-in pass (``-pf 1``); on a resume one more K4 (the
+    recount of the restored z)."""
+    burnin, thin, dic_every = 100, 10, 10
     evals = sum(1 for i in range(start, stop)
                 if (i >= burnin and (i + 1 - burnin) % thin == 0)
                 or (i + 1) % seg == 0 or i == stop - 1)
+    margs = sum(1 for i in range(start, stop)
+                if i >= burnin and (i + 1 - burnin) % thin == 0
+                and ((i + 1 - burnin) // thin - 1) % dic_every == 0)
     want = expected_launches(spec, data, (stop - start) * attempts,
-                             evals * attempts, attempts)
+                             evals * attempts, attempts,
+                             margs * attempts + 1)
     if resumed:
         want["allele_counts"] += 1
     return want
@@ -4488,7 +4671,8 @@ def par_expected(spec, local, sched, track_freq):
             want[f"site_ll_pass_{'auto' if spec.autopoly else 'allo'}"] -= 1
         per_sweep = 1 + max(1, spec.s_subsweeps)
     else:
-        want = expected_launches(spec, local, steps, evals, 1)
+        want = expected_launches(spec, local, steps, evals, 1,
+                                 margs + int(track_freq))
         per_sweep = 2
     return want, per_sweep * steps + evals + margs + 1
 
@@ -4895,8 +5079,8 @@ def ls_shard(data, index: int, d: int = 2):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="build,kernels,main_path,modes,unfused,tetra,"
-                            "kselect,cli,dpm,samplers,parallel")
+                    default="build,kernels,marg,main_path,modes,unfused,"
+                            "tetra,kselect,cli,dpm,samplers,parallel")
     ap.add_argument("--parent-csrc", default=None,
                     help="another tree's instruct_tpu_torch/csrc: its site "
                          "pass, K3 to K8, G curve and seating sweep are "
@@ -4945,6 +5129,9 @@ def main(argv=None) -> int:
                              philox_entry, tetra_panels)
                if "kernels" in phases else {})
     done("kernels")
+    if "marg" in phases:
+        entries.update(check_marg_loglik(smi))
+        done("marg")
     launches = (phase_main_path(panel, smi)
                 if "main_path" in phases else {})
     done("main_path")
@@ -4987,7 +5174,7 @@ def main(argv=None) -> int:
     # seconds from the start of main (the device query) to the end of each
     # phase
     emit("script_seconds", card=smi, cumulative=cumulative)
-    full = {"kernels", "main_path", "modes", "unfused", "tetra",
+    full = {"kernels", "marg", "main_path", "modes", "unfused", "tetra",
             "kselect", "cli", "dpm", "samplers", "parallel"} <= phases
     if full:
         keys = ("name", "route", "source", "replaces", "launches",

@@ -120,6 +120,11 @@ _SIGNATURES = {
     # (which, K, A, out[5]) -> registers, local bytes, static and dynamic
     # shared bytes, blocks an SM of a kernel (not a launch)
     "gen_curve_kernel_info": [_I] * 3 + [_P],
+    # q, p, bits2, geno, hom, valid, gen, rates, tile partials, out, C, N,
+    # L, K, A, family, gen_float, stream
+    "marg_loglik_launch": [_P] * 10 + [_I] * 7 + [_P],
+    # (C, N, L, K, A, out[6]) -> the launch plan (not a launch)
+    "marg_loglik_plan": [_I] * 5 + [_P],
     # L -> locus tiles per row of the site pass; N -> its row strips (not
     # launches)
     "site_pass_tiles": [_I],

@@ -58,6 +58,7 @@ from instruct_tpu_torch import spans
 from instruct_tpu_torch.config import ModelSpec, Schedule
 from instruct_tpu_torch.data.dataset import Dataset
 from instruct_tpu_torch.kernels import fused_step as fs
+from instruct_tpu_torch.kernels import marg_loglik as mk
 from instruct_tpu_torch.kernels import philox as px
 from instruct_tpu_torch.mcmc import updates as up
 from instruct_tpu_torch.mcmc.accumulators import (ChainAccum, accum_update,
@@ -67,7 +68,6 @@ from instruct_tpu_torch.mcmc.state import McmcState, init_state
 from instruct_tpu_torch.mcmc.step import (build_marg_loglik,
                                           build_step_parts, check_supported,
                                           nopop_marginal)
-from instruct_tpu_torch.model import likelihood as lk
 from instruct_tpu_torch.parallel import loci_shard as ls
 from instruct_tpu_torch.tetra import engine as te
 
@@ -616,5 +616,5 @@ def _plugin_loglik(spec: ModelSpec, data: Dataset, accum: ChainAccum,
     if spec.mode == 0:
         # the uniform mixture over the (active) single-pop log-liks
         return _np(nopop_marginal(spec, data, m.freq, active).sum(dim=-1))
-    return _np(lk.marginal_indv_loglik(spec, data, m.freq, m.q, m.gen,
-                                       m.rates).sum(dim=-1))
+    return _np(mk.marg_indv_loglik(spec, data, m.freq, m.q, m.gen,
+                                   m.rates).sum(dim=-1))

@@ -77,6 +77,7 @@ from instruct_tpu_torch.config import ModelSpec, PriorFamily
 from instruct_tpu_torch.data.dataset import Dataset
 from instruct_tpu_torch.kernels import dirichlet as dk
 from instruct_tpu_torch.kernels import fused_step as fs
+from instruct_tpu_torch.kernels import marg_loglik as mk
 from instruct_tpu_torch.kernels import philox as px
 from instruct_tpu_torch.kernels import s_pop as sp
 from instruct_tpu_torch.mcmc import dpm
@@ -574,10 +575,11 @@ def build_marg_loglik(spec: ModelSpec, data: Dataset, tetra_tables=None,
                       mesh=None):
     """``add_marg(state) -> state`` filling ``state.loglik_marg`` with the
     Z-marginalized per-individual log-likelihood that feeds WAIC and the
-    corrected DIC: ``model/likelihood.py:marginal_site_loglik`` in modes
-    1-5, a chunk of chains at a time (``marginal_indv_loglik``: its
-    [chains, N, L] temporaries bounded by ``MARG_CHUNK_BYTES``; inactive
-    K-grid slots carry no q mass and need no mask), the
+    corrected DIC: in modes 1-5 ``kernels/marg_loglik.py:
+    marg_indv_loglik`` (on the card one pass of ``csrc/marg_loglik.cu``
+    over the panel; on the CPU the plain ``model/likelihood.py:
+    marginal_indv_loglik``; inactive K-grid slots carry no q mass and need
+    no mask), the
     uniform mixture over the K single-pop log-liks in mode 0 (over the
     active slots under the K grid's mask), the (z, geno)-conditional log-lik
     of the tetraploid engine
@@ -593,7 +595,7 @@ def build_marg_loglik(spec: ModelSpec, data: Dataset, tetra_tables=None,
         if spec.mode == 0:
             indv = nopop_marginal(spec, data, state.freq, state.active, mesh)
         else:
-            indv = up.psum(lk.marginal_indv_loglik(
+            indv = up.psum(mk.marg_indv_loglik(
                 spec, data, state.freq, state.q, state.gen, state.rates),
                 mesh)
         return state._replace(loglik_marg=indv)
